@@ -1,0 +1,184 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+  * ``render`` — render one frame from an orbit-camera pose to an image;
+  * ``orbit``  — render a turntable sweep of N frames.
+
+Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
+``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ...), plus
+``--device`` (default ``cuda``): with no CUDA device the command fails
+instead of rendering on the CPU; pass ``--device cpu`` for that. Renders
+run under ``torch.inference_mode()``. ``LOG_LEVEL`` sets logging.
+
+    python -m rtgs_tpu_torch render -o scene.ply -r 1920,1088 -d 16
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import math
+import os
+import pathlib
+import sys
+import time
+
+import torch
+
+
+def _setup_logging():
+    level = os.getenv("LOG_LEVEL", "WARNING").upper()
+    logging.basicConfig(level=getattr(logging, level, logging.INFO))
+
+
+def _res(s: str):
+    parts = s.split(",")
+    if len(parts) != 2:
+        raise argparse.ArgumentTypeError(
+            f"--res wants W,H (e.g. 960,540), got {s!r}")
+    return (int(parts[0]), int(parts[1]))
+
+
+def _add_common_flags(p: argparse.ArgumentParser):
+    p.add_argument("-o", "--open", type=pathlib.Path, required=True,
+                   help="Path to the .ply Gaussian splatting scene file.")
+    p.add_argument("-r", "--res", type=_res, default=(960, 540),
+                   help="Render resolution W,H")
+    p.add_argument("-f", "--fov", type=float, default=90.0,
+                   help="Vertical FOV in degrees.")
+    p.add_argument("-s", "--sample", type=int, default=1,
+                   help="Samples to accumulate per frame (all identical "
+                        "unless --jitter is set).")
+    p.add_argument("--jitter", action="store_true",
+                   help="Subpixel-jitter samples 2..N (needs -s > 1).")
+    p.add_argument("-d", "--depth", type=int, default=16,
+                   help="Render sample depth (composited layers).")
+    p.add_argument("--scale", type=float, default=1.0,
+                   help="Global Gaussian scale.")
+    p.add_argument("--renderer",
+                   choices=["auto", "oracle", "tiled", "pallas", "keys"],
+                   default="auto",
+                   help="auto and keys render the keys path; the others "
+                        "are not ported yet.")
+    p.add_argument("--max-candidates", type=int, default=None,
+                   help="Per-tile candidate budget (default 512; raise "
+                        "until the overflow counters read 0).")
+    p.add_argument("--tile-bands", type=int, default=None,
+                   help="Render the tile axis in N sequential bands "
+                        "(bounds the winner-row gather memory).")
+    p.add_argument("--bin-narrow", type=int, default=None,
+                   help="Binning narrow-class fan-out width in tiles "
+                        "(default 4).")
+    p.add_argument("-v", "--bvh", type=int, default=1024,
+                   help="BVH node budget (accepted for flag parity; the "
+                        "tile-binned renderer needs no BVH).")
+    p.add_argument("--radius", type=float, default=1.0,
+                   help="Orbit camera radius.")
+    p.add_argument("--theta", type=float, default=0.0)
+    p.add_argument("--phi", type=float, default=None,
+                   help="Orbit polar angle (default π/2).")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="Torch device to render on (default cuda).")
+
+
+def _device(args) -> torch.device:
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {args.device}: CUDA is not available; pass "
+            "--device cpu to render on the CPU")
+    return dev
+
+
+def _load(args, device):
+    from rtgs_tpu_torch.scene import load_scene
+
+    return load_scene(args.open, scale=args.scale, device=device)
+
+
+def _camera(args, theta, device):
+    from rtgs_tpu_torch.camera import camera_from_fov
+    from rtgs_tpu_torch.viewer.orbit import OrbitState
+
+    state = OrbitState(theta=theta,
+                       phi=math.pi / 2 if args.phi is None else args.phi,
+                       r=args.radius)
+    pos, rot = state.camera_pose()
+    return camera_from_fov(pos, rot, args.res, args.fov, device=device)
+
+
+def _render(g, cam, args) -> torch.Tensor:
+    from rtgs_tpu_torch.render.api import render, render_progressive
+
+    kw = {}
+    if args.max_candidates:
+        kw["max_candidates"] = args.max_candidates
+    if args.tile_bands:
+        kw["tile_bands"] = args.tile_bands
+    if args.bin_narrow:
+        kw["bin_narrow"] = args.bin_narrow
+    with torch.inference_mode():
+        if args.sample > 1:
+            return render_progressive(
+                g, cam, depth=args.depth, samples=args.sample,
+                renderer=args.renderer, jitter=args.jitter, **kw)
+        return render(g, cam, depth=args.depth, renderer=args.renderer, **kw)
+
+
+def _save(path, img: torch.Tensor) -> None:
+    from rtgs_tpu_torch.camera import image_to_display
+    from rtgs_tpu_torch.utils.image import save_image
+
+    save_image(path, image_to_display(img).cpu().numpy())
+
+
+def cmd_render(args):
+    device = _device(args)
+    g = _load(args, device)
+    cam = _camera(args, args.theta, device)
+    t0 = time.time()
+    img = _render(g, cam, args).cpu()
+    dt = time.time() - t0
+    out = args.output or (args.open.stem + ".png")
+    _save(out, img)
+    w, h = args.res
+    print(f"Rendered {w}x{h} ({g.num} splats, depth {args.depth}) "
+          f"in {dt:.2f}s -> {out}")
+
+
+def cmd_orbit(args):
+    device = _device(args)
+    g = _load(args, device)
+    outdir = pathlib.Path(args.output or "orbit_frames")
+    outdir.mkdir(parents=True, exist_ok=True)
+    for i in range(args.frames):
+        cam = _camera(args, args.theta + 2 * math.pi * i / args.frames,
+                      device)
+        _save(outdir / f"frame_{i:04d}.png", _render(g, cam, args))
+    print(f"Rendered {args.frames} orbit frames -> {outdir}/")
+
+
+def main(argv=None):
+    _setup_logging()
+    parser = argparse.ArgumentParser(
+        "rtgs-tpu-torch",
+        description="Ray-traced 3D Gaussian splatting renderer "
+                    "(PyTorch/CUDA port).")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    p_render = sub.add_parser("render", help="Render a single frame.")
+    _add_common_flags(p_render)
+    p_render.add_argument("--output", type=str, default=None)
+    p_render.set_defaults(func=cmd_render)
+
+    p_orbit = sub.add_parser("orbit", help="Render an orbit turntable.")
+    _add_common_flags(p_orbit)
+    p_orbit.add_argument("--frames", type=int, default=12)
+    p_orbit.add_argument("--output", type=str, default=None)
+    p_orbit.set_defaults(func=cmd_orbit)
+
+    args = parser.parse_args(argv)
+    return args.func(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

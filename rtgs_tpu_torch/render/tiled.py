@@ -1,0 +1,227 @@
+"""Tile-binned keys-path renderer (port of the forward of
+:func:`rtgs_tpu.render.tiled.render_tiled_keys`).
+
+Per frame:
+
+  1. :func:`~rtgs_tpu_torch.render.binning.tile_candidates` — depth-ordered
+     candidate lists per 16×16 tile, with per-chunk entry-depth bounds;
+  2. :func:`precompute_features` + :func:`pack_features` — fold the camera
+     position into each Gaussian once, into the (N+1, 64) table: with
+     ``e = origin − μ`` and ``M = Σ⁻¹``, every (pixel, candidate) quadratic
+     is ``A = dᵀMd``, ``B = 2dᵀ(Me)``, ``c0 = eᵀMe − 3``; and
+     :func:`_tile_pixel_features` — the (T, P, 24) pixel table;
+  3. :func:`~rtgs_tpu_torch.ops.peel.peel_keys` — per pixel, the K nearest
+     (t1, splat id) pairs (the Hopper keys kernel on the card);
+  4. :func:`shade_winners_kp` — α and rgb of the K winners, with the
+     reference's chord-midpoint response ``ρ = exp(B²/4A − (c0+3))``;
+  5. :func:`composite_layers_kp` — front-to-back composite.
+
+Layouts follow the JAX package: tile index ``T = tx·nty + ty``, pixels in
+local (x, y) raster order, images (W, H, 3) with a bottom-left origin.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from rtgs_tpu_torch import gaussians as G
+from rtgs_tpu_torch.camera import Camera
+from rtgs_tpu_torch.ops.peel import CHUNK, G_DIM, peel_keys
+from rtgs_tpu_torch.render.binning import tile_candidates
+from rtgs_tpu_torch.utils import quaternion as quat
+
+
+@dataclasses.dataclass
+class TileFeatures:
+    """Per-Gaussian camera-folded features, with one sentinel row appended
+    (index N never hits)."""
+
+    m6: torch.Tensor       # (N+1, 6)  Σ⁻¹ packed [m00,m01,m02,m11,m12,m22]
+    me: torch.Tensor       # (N+1, 3)  Σ⁻¹ (origin − μ)
+    c0: torch.Tensor       # (N+1,)    eᵀΣ⁻¹e − 3
+    opacity: torch.Tensor  # (N+1,)
+    color: torch.Tensor    # (N+1, 3)
+    sh: torch.Tensor       # (N+1, 15, 3)
+
+
+def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
+    m00, m01, m02, m11, m12, m22 = G.inv_covariance_packed6(g.quats,
+                                                            g.scales)
+    m6 = torch.stack([m00, m01, m02, m11, m12, m22], dim=-1)
+    e = camera.position[None, :] - g.means
+    ex, ey, ez = e[:, 0], e[:, 1], e[:, 2]
+    mex = m00 * ex + m01 * ey + m02 * ez
+    mey = m01 * ex + m11 * ey + m12 * ez
+    mez = m02 * ex + m12 * ey + m22 * ez
+    me = torch.stack([mex, mey, mez], dim=-1)
+    c0 = (ex * mex + ey * mey + ez * mez) - G.BOUNDING_THRESHOLD
+
+    def sentinel(x, row):
+        row = torch.as_tensor(row, dtype=x.dtype).to(x.device)
+        return torch.cat([x, row.reshape((1,) + x.shape[1:])], dim=0)
+
+    return TileFeatures(
+        m6=sentinel(m6, [1.0, 0.0, 0.0, 1.0, 0.0, 1.0]),
+        me=sentinel(me, [0.0, 0.0, 0.0]),
+        c0=sentinel(c0, math.inf),
+        opacity=sentinel(g.opacities, 0.0),
+        color=sentinel(g.colors, [0.0, 0.0, 0.0]),
+        sh=sentinel(g.sh, torch.zeros((15, 3))),
+    )
+
+
+def direction_features(dirs: torch.Tensor):
+    """Per-pixel d-quadratic features (matching the ``m6`` packing) and the
+    SH basis, for unit ``dirs``."""
+    dx, dy, dz = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    fd = torch.stack([dx * dx, 2 * dx * dy, 2 * dx * dz, dy * dy,
+                      2 * dy * dz, dz * dz], dim=-1)
+    return fd, G.sh_basis(dirs)
+
+
+def pack_features(feats: TileFeatures) -> torch.Tensor:
+    """TileFeatures → the (N+1, 64) table (lane map in
+    :mod:`rtgs_tpu_torch.ops.peel`). The sentinel's c0 becomes 1e30: finite,
+    so Δ < 0 there with no inf arithmetic."""
+    n1 = feats.c0.shape[0]
+    sh = feats.sh
+    packed = torch.cat([
+        feats.m6, feats.me, feats.c0[:, None], feats.opacity[:, None],
+        feats.color, sh[:, :, 0], sh[:, :, 1], sh[:, :, 2],
+        torch.zeros((n1, 5), dtype=torch.float32, device=sh.device),
+    ], dim=1)
+    packed[-1, 9] = 1e30  # in place on the fresh table
+    return packed
+
+
+def _tile_pixel_features(camera: Camera, tile, pixel_offset=None):
+    """Per-pixel features arranged (T, P, 24): dir, d-quadratic features,
+    SH basis. ``pixel_offset``: optional (ox, oy) subpixel jitter."""
+    w, h = camera.buf_size
+    tw, th = tile
+    ntx, nty = -(-w // tw), -(-h // th)
+    dev = camera.device
+    censor = torch.tensor((w, h), dtype=torch.float32, device=dev)
+    ox, oy = (0.0, 0.0) if pixel_offset is None else pixel_offset
+    i = (torch.arange(ntx * tw, dtype=torch.float32, device=dev)
+         + 0.5 + ox) / w
+    j = (torch.arange(nty * th, dtype=torch.float32, device=dev)
+         + 0.5 + oy) / h
+    uv = torch.stack(torch.meshgrid(i, j, indexing="ij"), dim=-1)
+    pxy = (censor * uv - 0.5 * censor) / camera.focal_length
+    d_cam = torch.cat([pxy, -torch.ones_like(pxy[..., :1])], dim=-1)
+    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
+    dirs = quat.rot_vec3(camera.rotation, d_cam)  # (W', H', 3)
+    fd, y = direction_features(dirs)
+    pix = torch.cat([dirs, fd, y], dim=-1)
+    return (pix.reshape(ntx, tw, nty, th, G_DIM)
+            .permute(0, 2, 1, 3, 4)
+            .reshape(ntx * nty, tw * th, G_DIM))
+
+
+def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
+                     pix: torch.Tensor):
+    """α and rgb of the K winning layers per pixel.
+
+    ``sid_kp``: (T, K, P) int32 winner ids, −1 vacant (shaded as the
+    sentinel row N, which gets α = 0). ``pix``: (T, P, 24). Returns
+    (alpha, r, g, b), each (T, K, P). Shading accepts Δ > 0 (the keys
+    stage accepts Δ ≥ 0): a tangent ray is a hit with α = 0.
+    """
+    n_sentinel = packed.shape[0] - 1
+    safe = torch.where(sid_kp >= 0, sid_kp, n_sentinel).long()
+    rows = packed[safe]                                # (T, K, P, F)
+
+    def pf(j):
+        return pix[:, None, :, j]                      # (T, 1, P)
+
+    a = sum(pf(3 + j) * rows[..., j] for j in range(6))
+    b = 2.0 * sum(pf(j) * rows[..., 6 + j] for j in range(3))
+    cq = torch.clamp(rows[..., 9], max=1e30)
+    op = rows[..., 10]
+    delta = b * b - 4.0 * a * cq
+    sq = torch.sqrt(torch.where(delta > 0, delta, 0.0))
+    t1 = (-b - sq) / (2.0 * a)
+    valid = (delta > 0.0) & (t1 > 0.0)
+    rho = torch.exp(torch.where(delta > 0.0, b * b / (4.0 * a) - (cq + 3.0),
+                                -math.inf))
+    alpha = torch.where(valid, op * rho, 0.0)
+    chans = [rows[..., 11 + ch]
+             + sum(pf(9 + j) * rows[..., 14 + 15 * ch + j]
+                   for j in range(15))
+             for ch in range(3)]
+    return alpha, chans[0], chans[1], chans[2]
+
+
+def composite_layers_kp(alpha, r, g, b):
+    """Front-to-back composite over the K axis of (T, K, P) layers with
+    exclusive-cumprod transmittance. Returns radiance (T, P, 3)."""
+    trans = torch.cat([torch.ones_like(alpha[:, :1]),
+                       torch.cumprod(1.0 - alpha[:, :-1], dim=1)], dim=1)
+    w = trans * alpha
+    return torch.stack([(w * r).sum(1), (w * g).sum(1), (w * b).sum(1)],
+                       dim=-1)
+
+
+def render_tiled_keys(
+    g: G.Gaussians,
+    camera: Camera,
+    depth: int = 16,
+    tile=(16, 16),
+    max_candidates: int = 512,
+    max_global: int = 64,
+    max_tiles_local=None,
+    with_stats: bool = False,
+    tile_bands: int | None = None,
+    pixel_offset=None,
+    keys_impl: str = "auto",
+    bin_narrow: int | None = None,
+):
+    """Full-frame forward render through the keys path. Returns (W, H, 3)
+    radiance on the scene's device.
+
+    ``tile_bands``: run stages 3-5 over the tile axis in this many
+    sequential bands, bounding the (tiles, K·P, 64) winner-row gather of
+    the shading stage to one band. ``with_stats=True`` also returns the
+    binning counters: ``live`` candidate slots, ``local_overflow`` and
+    ``global_overflow`` (pairs dropped) and ``swept_pairs`` (the
+    chunk-padded candidate total, an upper bound on what the keys stage
+    sweeps). ``keys_impl`` is passed to :func:`peel_keys`.
+    """
+    w, h = camera.buf_size
+    tw, th = tile
+    ntx, nty = -(-w // tw), -(-h // th)
+    binning = tile_candidates(
+        g, camera, tile=tile, max_candidates=max_candidates,
+        max_global=max_global, max_tiles_local=max_tiles_local,
+        pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow,
+        chunk=CHUNK)
+    cand, lb = binning.candidates, binning.chunk_lb
+    packed = pack_features(precompute_features(g, camera))
+    pix = _tile_pixel_features(camera, tile, pixel_offset)
+
+    def band(cand_b, pix_b, lb_b):
+        _t1, sid = peel_keys(packed, cand_b, pix_b, depth, impl=keys_impl,
+                             chunk_lb=lb_b)
+        return composite_layers_kp(*shade_winners_kp(packed, sid, pix_b))
+
+    t = cand.shape[0]
+    nb = -(-t // tile_bands) if tile_bands and tile_bands > 1 else t
+    rad = torch.cat([band(cand[s:s + nb], pix[s:s + nb], lb[s:s + nb])
+                     for s in range(0, t, nb)])
+    img = (rad.reshape(ntx, nty, tw, th, 3)
+           .permute(0, 2, 1, 3, 4)
+           .reshape(ntx * tw, nty * th, 3))[:w, :h]
+    if with_stats:
+        stats = {
+            "live": (binning.candidates >= 0).sum(),
+            "local_overflow": binning.local_overflow,
+            "global_overflow": binning.global_overflow,
+            "swept_pairs": ((binning.counts + CHUNK - 1) // CHUNK
+                            * CHUNK).sum(),
+        }
+        return img, stats
+    return img
