@@ -14,11 +14,27 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      whole 256x192 frame through the kernel against one through the twin;
   4. precision of the kernel's winning t1 against float64 recomputed from
      the same f32 inputs;
-  5. the main path through the CLI: ``render`` and a 3-frame ``orbit`` of a
-     1M-splat scene at 1920x1088, depth 16, 8 tile bands; every frame must
-     have launched the kernel once per band; the image is checked (finite,
-     not black, dropped candidates < 0.1%) and its frame and per-stage
-     times measured.
+  5. the render path through the CLI: ``render`` and a 3-frame ``orbit``
+     of a 1M-splat scene at 1920x1088, depth 16, 8 tile bands; every frame
+     must have launched the keys kernel once per band; the image is checked
+     (finite, not black, dropped candidates < 0.1%) and its frame and
+     per-stage times measured;
+  6. the fused-peel kernels (forward and backward) against their plain
+     torch twins at the fit configuration (100k splats at 512x384, K 16,
+     1536 candidates) and at 1M splats at 256x192: winners' slots bitwise,
+     radiance and transmittance to an absolute tolerance, per-slot feature
+     gradients per lane relative to the lane's largest entry; times with
+     CUDA events; the winners' α against float64 from the same f32 inputs;
+  7. the training path through the CLI: ``fit --renderer pallas`` from
+     scratch on the 100k scene at 512x384, depth 16, 12 views, 20 steps, 2
+     tile bands, a checkpoint every 10 steps; the forward kernel must have
+     launched once per band for every target render and every step, the
+     backward kernel once per band for every step;
+  8. the fitbench protocol in process: the 100k ground truth perturbed
+     (means σ 0.01, log-scales 0.3, color logits 0.5; numpy seed 7), 50
+     ``Solver`` steps with one density-control pass and one opacity reset;
+     PSNR must rise; step time, the kernels' time in one step, the dropped
+     share and peak device memory are printed.
 
 Then one {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -26,7 +42,10 @@ and last {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -51,6 +70,22 @@ BANDS = 8
 ORBIT_FRAMES = 3
 MAX_DROPPED = 1e-3
 MAX_T1_REL_P999 = 1e-4
+# The repository's training configuration (BASELINE.json config 4, the
+# fit_100k@512x384_12views run of scripts/fitbench.py).
+CFG_FIT = dict(n=100_000, res=(512, 384), max_candidates=1536,
+               max_global=128, bin_narrow=None)
+FIT_VIEWS = 12
+FIT_CLI_STEPS = 20
+FIT_CLI_BANDS = 2
+FIT_STEPS = 50
+# Tiles per call of a plain twin (bounds its (T, P, C) float64 fields).
+PLAIN_BAND = 96
+# Kernel vs twin: same f32 shading in the same order, so radiance and
+# transmittance agree to 1e-5; the backward's float atomics sum in no
+# fixed order, so each lane agrees to 1e-4 of the lane's largest entry.
+FWD_ATOL = 1e-5
+BWD_LANE_RTOL = 1e-4
+MIN_PSNR_RISE = 0.5
 
 
 class SmokeFailure(Exception):
@@ -80,8 +115,8 @@ def ptxas_summary(log: str) -> str:
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(r"ILi(\d+)E", m.group(1))
-            name = f"K={k.group(1)}" if k else m.group(1)
+            k = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", m.group(1))
+            name = f"{k.group(1)} K={k.group(2)}" if k else m.group(1)
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -378,6 +413,337 @@ def phase5_main_path(g, dev, tmp):
     return launches, med["keys"]
 
 
+def plain_in_bands(fn, t, *tiled):
+    """Run a plain twin over tile bands of ``PLAIN_BAND`` tiles (its
+    (T, P, C) float64 fields would not fit at once) and concatenate."""
+    import torch
+
+    outs = [fn(*(x[s:s + PLAIN_BAND] for x in tiled))
+            for s in range(0, t, PLAIN_BAND)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
+
+
+def alpha_precision(packed, cand, pix, slots):
+    """Relative error of the winners' f32 α (the kernels' arithmetic)
+    against float64 from the same f32 inputs, over winners with α64 > 0;
+    ``zeroed`` counts those whose f32 Δ came out ≤ 0 (α32 = 0): near a
+    silhouette α jumps from op·e⁻³ to 0, and the cancelling Δ decides."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import _shade_layers, _winner_rows
+
+    errs, zeroed = [], 0
+    for s in range(0, cand.shape[0], PLAIN_BAND):
+        sl = slots[s:s + PLAIN_BAND]
+        rows = _winner_rows(packed, cand[s:s + PLAIN_BAND], sl)
+        won = sl >= 0
+        a32 = _shade_layers(rows, pix[s:s + PLAIN_BAND], won)[3]
+        a64 = _shade_layers(rows.double(), pix[s:s + PLAIN_BAND].double(),
+                            won)[3]
+        check(bool(torch.isfinite(a32).all()), "non-finite α")
+        ok = won & (a64 > 0)
+        errs.append(((a32.double() - a64).abs() / a64)[ok].cpu().numpy())
+        zeroed += int((ok & (a32 == 0)).sum())
+    err = np.concatenate(errs)
+    return dict(n=err.size, median=float(np.median(err)),
+                p999=float(np.quantile(err, 0.999)), max=float(err.max()),
+                zeroed=zeroed)
+
+
+def phase6_case(label, g, cfg, dev):
+    """Fused forward and backward kernels against their twins at one
+    configuration; returns errors, times and the α precision."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
+                                         peel_fused_bwd_torch,
+                                         peel_fused_cuda, peel_fused_torch)
+
+    _, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
+    t = cand.shape[0]
+
+    def kernel():
+        return peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+
+    def plain():
+        return plain_in_bands(
+            lambda c, q: peel_fused_torch(packed, c, q, DEPTH), t, cand, pix)
+
+    rad_k, tr_k, sl_k = kernel()
+    rad_p, tr_p, sl_p = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(sl_k, sl_p), f"{label}: kernel winners differ from "
+          f"the twin's at {int((sl_k != sl_p).sum())} entries")
+    check(bool((sl_k >= 0).any()), f"{label}: no pixel has a hit")
+    fwd_err = max(float((rad_k - rad_p).abs().max()),
+                  float((tr_k - tr_p).abs().max()))
+    check(fwd_err <= FWD_ATOL, f"{label}: forward max |kernel − twin| "
+          f"{fwd_err} > {FWD_ATOL}")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g_rad = torch.randn(rad_k.shape, generator=gen, device=dev)
+    g_tr = torch.randn(tr_k.shape, generator=gen, device=dev)
+
+    def kernel_bwd():
+        return peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k, g_rad,
+                                   g_tr, DEPTH)
+
+    def plain_bwd():
+        return plain_in_bands(
+            lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
+                packed, c, q, sl, gr, gt),
+            t, cand, pix, sl_k, g_rad, g_tr)
+
+    d_k, d_p = kernel_bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(d_k).all()), f"{label}: non-finite gradient")
+    bwd_abs = float((d_k - d_p).abs().max())
+    scale = d_p.abs().amax(dim=(0, 1))
+    bwd_lane = float(((d_k - d_p).abs().amax(dim=(0, 1))
+                      / (scale + 1e-30)).max())
+    check(bwd_lane <= BWD_LANE_RTOL, f"{label}: backward per-lane error "
+          f"{bwd_lane} > {BWD_LANE_RTOL}")
+    ms, ms_plain = time_ms(kernel), time_ms(plain)
+    ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
+    alpha = alpha_precision(packed, cand, pix, sl_k)
+    t, c = cand.shape
+    say(6, f"fused {label}: T={t} C={c} P={pix.shape[1]} K={DEPTH}: winners "
+           f"bitwise equal to the twin's; forward max |diff| {fwd_err:.3e} "
+           f"(limit {FWD_ATOL:g}); backward max |diff| {bwd_abs:.3e}, per "
+           f"lane {bwd_lane:.3e} of the lane's largest (limit "
+           f"{BWD_LANE_RTOL:g}); forward kernel {ms:.3f} ms, twin "
+           f"{ms_plain:.3f} ms; backward kernel {ms_bwd:.3f} ms, twin "
+           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5)")
+    say(6, f"alpha {label}: {alpha['n']} winners vs float64 from the same "
+           f"f32 inputs: median rel err {alpha['median']:.3e}, p99.9 "
+           f"{alpha['p999']:.3e}, max {alpha['max']:.3e}; {alpha['zeroed']} "
+           f"winners have α = 0 in f32 (f32 Δ ≤ 0) but not in float64 "
+           f"(gate: finite)")
+    return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
+                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain)
+
+
+FIT_LINE = re.compile(r"fit (\d+) steps: loss=(\S+) psnr=(\S+) live=(\d+) "
+                      r"-> (\S+)")
+
+
+def phase7_fit_cli(g, tmp):
+    """The training path through the CLI; returns the launch counts."""
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
+                                         peel_fused_cuda, peel_keys_cuda)
+    from rtgs_tpu_torch.scene import save_scene
+
+    ply, out, ckpt = tmp / "scene_100k.ply", tmp / "fit.ply", tmp / "ckpt"
+    save_scene(ply, g)
+    w, h = CFG_FIT["res"]
+    argv = ["fit", "-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
+            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+            "--views", str(FIT_VIEWS), "--steps", str(FIT_CLI_STEPS),
+            "--from-scratch", "--renderer", "pallas", "--max-candidates",
+            str(CFG_FIT["max_candidates"]), "--device", g.device.type,
+            "--tile-bands", str(FIT_CLI_BANDS), "--checkpoint-every", "10",
+            "--output", str(out), "--checkpoint-dir", str(ckpt)]
+    peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
+    peel_keys_cuda.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = peel_fused_cuda.launches, peel_fused_bwd_cuda.launches
+    line = printed.getvalue().strip()
+    say(7, f"CLI {' '.join(argv[:1] + argv[3:])}: {wall:.2f} s wall (scene "
+           f"load, {FIT_VIEWS} target renders and {FIT_CLI_STEPS} steps); "
+           f"printed '{line}'; fused forward launches {fwd} (expected "
+           f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + {FIT_CLI_STEPS})), backward "
+           f"{bwd} (expected {FIT_CLI_BANDS} x {FIT_CLI_STEPS}); keys "
+           f"kernel {peel_keys_cuda.launches}")
+    check(fwd == FIT_CLI_BANDS * (FIT_VIEWS + FIT_CLI_STEPS),
+          f"fused forward launched {fwd} times")
+    check(bwd == FIT_CLI_BANDS * FIT_CLI_STEPS,
+          f"fused backward launched {bwd} times")
+    m = FIT_LINE.search(line)
+    check(m is not None, f"fit printed no result line: {line!r}")
+    loss, psnr = float(m.group(2)), float(m.group(3))
+    check(math.isfinite(loss) and math.isfinite(psnr),
+          f"fit loss {loss}, psnr {psnr}")
+    check(out.is_file() and out.stat().st_size > 0, "fit wrote no .ply")
+    for step in (10, 20):
+        check((ckpt / f"step_{step}.pt").is_file(),
+              f"no checkpoint for step {step}")
+    return fwd, bwd
+
+
+def step_stages(solver, kw):
+    """Device times (CUDA events, ms) of the stages of one training step
+    at view 0, as ``render_tiled_pallas`` and ``make_train_step`` run
+    them; the step updates the solver's parameters like any other."""
+    import torch
+    import torch.nn.functional as F
+
+    from rtgs_tpu_torch.ops.peel import CHUNK, peel_fused
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             _tiles_to_image, pack_features,
+                                             precompute_features)
+    from rtgs_tpu_torch.train.loss import render_loss
+    from rtgs_tpu_torch.train.solver import activate
+
+    cam, target = solver.cameras[0], solver.targets[0]
+    w, h = cam.buf_size
+    events = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    solver.optimizer.zero_grad(set_to_none=True)
+    mark("start")
+    g = activate(solver.params, solver.mask)
+    with torch.no_grad():
+        b = tile_candidates(g, cam, tile=TILE, **kw)
+    cand = F.pad(b.candidates, (0, (-b.candidates.shape[1]) % CHUNK),
+                 value=-1)
+    mark("binning")
+    packed = pack_features(precompute_features(g, cam))
+    pix = _tile_pixel_features(cam, TILE)
+    mark("features")
+    rad, _ = peel_fused(packed, cand, pix, DEPTH)
+    mark("peel forward")
+    img = _tiles_to_image(rad.transpose(1, 2), b.n_tiles_x, b.n_tiles_y,
+                          TILE)[:w, :h]
+    loss = render_loss(img, target, solver.cfg.lambda_dssim)
+    mark("loss")
+    loss.backward()
+    mark("backward")
+    solver.optimizer.step()
+    mark("adam")
+    events[-1][1].synchronize()
+    out = {name: events[i - 1][1].elapsed_time(e)
+           for i, (name, e) in enumerate(events) if i}
+    out["total"] = events[0][1].elapsed_time(events[-1][1])
+    return out
+
+
+def phase8_fitbench(g, dev):
+    """Re-fit the perturbed 100k scene in process; returns the numbers."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, peel_fused_bwd_cuda,
+                                         peel_fused_cuda)
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             pack_features,
+                                             precompute_features,
+                                             render_tiled_pallas)
+    from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
+    from rtgs_tpu_torch.train.solver import Solver, init_params
+
+    kw = dict(max_candidates=CFG_FIT["max_candidates"],
+              max_global=CFG_FIT["max_global"])
+    t0 = time.perf_counter()
+    ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
+                                 fov=POSE["fov"], radius=POSE["r"],
+                                 depth=DEPTH, renderer="pallas", **kw)
+    t_data = time.perf_counter() - t0
+    params = init_params(g)
+    rng = np.random.default_rng(7)
+
+    def noisy(x, sigma):
+        n = rng.standard_normal(tuple(x.shape)).astype(np.float32)
+        return x + sigma * torch.from_numpy(n).to(x.device)
+
+    params = params._replace(means=noisy(params.means, 0.01),
+                             log_scales=noisy(params.log_scales, 0.3),
+                             color_logits=noisy(params.color_logits, 0.5))
+    # One density-control pass half way, one opacity reset after the last
+    # step (a reset inside 50 steps would leave no steps to recover).
+    mid = FIT_STEPS // 2
+    cfg = TrainConfig(iterations=FIT_STEPS, densify_from=mid,
+                      densify_until=mid, densify_every=mid,
+                      opacity_reset_every=FIT_STEPS, checkpoint_every=0)
+    solver = Solver(params=params, mask=g.mask, cfg=cfg,
+                    cameras=list(ds.cameras), targets=list(ds.images),
+                    depth=DEPTH, renderer="pallas", render_kwargs=kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live0 = solver.num_live
+    psnrs, times = [], []
+    for _ in range(FIT_STEPS):
+        t0 = time.perf_counter()
+        m = solver.train_step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        psnrs.append(m["psnr"])
+        if solver.step == mid:
+            live_after_densify = solver.num_live
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    after_reset = solver.train_step()
+    check(all(math.isfinite(p) for p in psnrs), "non-finite PSNR")
+    check(math.isfinite(after_reset["loss"]), "non-finite loss after reset")
+    # Mean PSNR over the first and the last full cycle of the views.
+    first = statistics.mean(psnrs[:FIT_VIEWS])
+    last = statistics.mean(psnrs[-FIT_VIEWS:])
+    step_ms = statistics.median(times[2:])
+    stages = [step_stages(solver, kw) for _ in range(3)]
+    stages = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
+
+    # The kernels' share of one step, at view 0 and the final state.
+    scene = solver.scene()
+    cam = ds.cameras[0]
+    with torch.no_grad():
+        _, stats = render_tiled_pallas(scene, cam, depth=DEPTH,
+                                       with_stats=True, **kw)
+    stats = {k: int(v) for k, v in stats.items()}
+    dropped = stats["local_overflow"] + stats["global_overflow"]
+    share = dropped / max(stats["live"] + dropped, 1)
+    with torch.no_grad():
+        b = tile_candidates(scene, cam, tile=TILE, chunk=CHUNK, **kw)
+        packed = pack_features(precompute_features(scene, cam))
+        pix = _tile_pixel_features(cam, TILE)
+        counts = _counts(b.candidates)
+        rad, tr, sl = peel_fused_cuda(packed, b.candidates, counts, pix,
+                                      DEPTH)
+        g_rad, g_tr = torch.ones_like(rad), torch.zeros_like(tr)
+        fwd_ms = time_ms(lambda: peel_fused_cuda(
+            packed, b.candidates, counts, pix, DEPTH))
+        bwd_ms = time_ms(lambda: peel_fused_bwd_cuda(
+            packed, b.candidates, counts, pix, sl, g_rad, g_tr, DEPTH))
+    w, h = CFG_FIT["res"]
+    say(8, f"fitbench 100k@{w}x{h}, {FIT_VIEWS} views ({t_data:.1f} s to "
+           f"render them), {FIT_STEPS} steps: PSNR {first:.2f} -> "
+           f"{last:.2f} dB (means over the first and the last "
+           f"{FIT_VIEWS} steps, each view once; rise "
+           f"limit {MIN_PSNR_RISE:g} dB); curve "
+           + " ".join(f"{p:.2f}" for p in psnrs[::5]) + f"; live {live0} -> "
+           f"{live_after_densify} at the step-{mid} density pass (capacity "
+           f"{solver.mask.shape[0]}); loss after the step-{FIT_STEPS} "
+           f"opacity reset {after_reset['loss']:.5f}")
+    say(8, f"step time {step_ms:.2f} ms (host clock with sync, median of "
+           f"steps 3-{FIT_STEPS}; min {min(times[2:]):.2f}, max "
+           f"{max(times[2:]):.2f}); in one step the fused forward kernel "
+           f"takes {fwd_ms:.3f} ms and the backward {bwd_ms:.3f} ms (CUDA "
+           f"events, median of 5); binning {stats}, dropped share "
+           f"{share:.3e} (limit {MAX_DROPPED:g}); peak device memory "
+           f"{peak:.2f} GiB")
+    say(8, "one step's device stages (CUDA events, median of 3): "
+           + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    check(last - first >= MIN_PSNR_RISE, f"PSNR rose {last - first:.3f} dB,"
+          f" less than {MIN_PSNR_RISE} dB")
+    check(share < MAX_DROPPED, f"dropped share {share} >= {MAX_DROPPED}")
+    return dict(step_ms=step_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
+
+
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
@@ -410,26 +776,46 @@ def run():
     case_1m = phase3_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     frame_parity(g1m, CFG_1M_GATE, dev)
     phase4_precision(case_100k)
-    del g100k, case_1m["packed"], case_1m["pix"]
+    for case in (case_100k, case_1m):
+        del case["packed"], case["pix"]
 
     with tempfile.TemporaryDirectory() as tmp:
         launches, keys_ms_full = phase5_main_path(g1m, dev,
                                                   pathlib.Path(tmp))
+    say(5, f"keys kernel at 1M@1920x1088: {keys_ms_full:.2f} ms per frame "
+           f"over {BANDS} bands; its ms/plain_ms below are 100k@640x384")
+
+    w, h = CFG_FIT["res"]
+    fused_fit = phase6_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    fused_1m = phase6_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    del g1m
+    with tempfile.TemporaryDirectory() as tmp:
+        fwd_launches, bwd_launches = phase7_fit_cli(g100k,
+                                                    pathlib.Path(tmp))
+    fit = phase8_fitbench(g100k, dev)
     check("jax" not in sys.modules, "something imported jax")
 
-    kernels = [{
-        "name": "keys_sid",
-        "route": "cuda",
-        "source": "rtgs_tpu_torch/ops/csrc/keys.cu",
-        "replaces": "rtgs_tpu/ops/peel.py:589",
-        "launches": launches,
-        "max_abs_err": max(case_100k["max_abs_err"],
-                           case_1m["max_abs_err"]),
-        "ms": case_100k["ms"],
-        "plain_ms": case_100k["ms_twin"],
-    }]
-    say(6, f"keys kernel at 1M@1920x1088: {keys_ms_full:.2f} ms per frame "
-           f"over {BANDS} bands; ms/plain_ms below are 100k@640x384")
+    def entry(name, source, replaces, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda",
+                "source": f"rtgs_tpu_torch/ops/csrc/{source}",
+                "replaces": f"rtgs_tpu/ops/peel.py:{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms}
+
+    kernels = [
+        entry("keys_sid", "keys.cu", 589, launches,
+              max(case_100k["max_abs_err"], case_1m["max_abs_err"]),
+              case_100k["ms"], case_100k["ms_twin"]),
+        entry("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
+              max(fused_fit["fwd_err"], fused_1m["fwd_err"]),
+              fused_fit["ms"], fused_fit["ms_plain"]),
+        entry("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
+              max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
+              fused_fit["ms_bwd"], fused_fit["ms_bwd_plain"]),
+    ]
+    say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
+           f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd ms and plain_ms "
+           f"below are 100k@{w}x{h}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,19 @@
 """Command-line interface of the PyTorch/CUDA port.
 
   * ``render`` — render one frame from an orbit-camera pose to an image;
-  * ``orbit``  — render a turntable sweep of N frames.
+  * ``orbit``  — render a turntable sweep of N frames;
+  * ``fit``    — optimize a scene against multiview targets (a
+    ``transforms.json`` dataset, or orbit renders of the input scene).
 
 Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
 ``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ...), plus
 ``--device`` (default ``cuda``): with no CUDA device the command fails
-instead of rendering on the CPU; pass ``--device cpu`` for that. Renders
-run under ``torch.inference_mode()``. ``LOG_LEVEL`` sets logging.
+instead of running on the CPU; pass ``--device cpu`` for that. ``render``
+and ``orbit`` run under ``torch.inference_mode()``; ``fit`` trains through
+the fused-payload renderer. ``LOG_LEVEL`` sets logging.
 
     python -m rtgs_tpu_torch render -o scene.ply -r 1920,1088 -d 16
+    python -m rtgs_tpu_torch fit -o scene.ply -r 512,384 --steps 500
 """
 
 from __future__ import annotations
@@ -57,8 +61,11 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--renderer",
                    choices=["auto", "oracle", "tiled", "pallas", "keys"],
                    default="auto",
-                   help="auto and keys render the keys path; the others "
-                        "are not ported yet.")
+                   help="render/orbit: auto and keys render the keys path, "
+                        "pallas the fused-payload path. fit: auto and "
+                        "pallas train through the fused-payload path; keys "
+                        "cannot train yet. oracle and tiled are not "
+                        "ported yet.")
     p.add_argument("--max-candidates", type=int, default=None,
                    help="Per-tile candidate budget (default 512; raise "
                         "until the overflow counters read 0).")
@@ -106,9 +113,7 @@ def _camera(args, theta, device):
     return camera_from_fov(pos, rot, args.res, args.fov, device=device)
 
 
-def _render(g, cam, args) -> torch.Tensor:
-    from rtgs_tpu_torch.render.api import render, render_progressive
-
+def _render_kwargs(args) -> dict:
     kw = {}
     if args.max_candidates:
         kw["max_candidates"] = args.max_candidates
@@ -116,6 +121,13 @@ def _render(g, cam, args) -> torch.Tensor:
         kw["tile_bands"] = args.tile_bands
     if args.bin_narrow:
         kw["bin_narrow"] = args.bin_narrow
+    return kw
+
+
+def _render(g, cam, args) -> torch.Tensor:
+    from rtgs_tpu_torch.render.api import render, render_progressive
+
+    kw = _render_kwargs(args)
     with torch.inference_mode():
         if args.sample > 1:
             return render_progressive(
@@ -157,6 +169,58 @@ def cmd_orbit(args):
     print(f"Rendered {args.frames} orbit frames -> {outdir}/")
 
 
+def cmd_fit(args):
+    """Optimize a scene against ``--data transforms.json`` targets, or,
+    without ``--data``, against orbit renders of the input scene
+    (self-supervised). ``--max-candidates``, ``--tile-bands`` and
+    ``--bin-narrow`` reach both the target renders and the training
+    renders."""
+    import numpy as np
+
+    from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.scene import save_scene
+    from rtgs_tpu_torch.train.datasets import (load_transforms_dataset,
+                                               synthetic_orbit_dataset)
+    from rtgs_tpu_torch.train.solver import (Solver, init_params,
+                                             init_params_from_points,
+                                             training_renderer)
+
+    renderer = training_renderer(args.renderer)
+    device = _device(args)
+    g = _load(args, device)
+    kw = _render_kwargs(args)
+    if args.data:
+        ds = load_transforms_dataset(args.data, downscale=args.downscale,
+                                     device=device)
+    else:
+        ds = synthetic_orbit_dataset(
+            g, args.views, args.res, fov=args.fov, radius=args.radius,
+            depth=args.depth, renderer=renderer, **kw)
+
+    if args.from_scratch:
+        # Random subsample of the input means as the seed point cloud.
+        idx = torch.from_numpy(np.random.default_rng(0).choice(
+            g.num, size=min(args.init_points, g.num), replace=False))
+        idx = idx.to(device)
+        params = init_params_from_points(g.means[idx], colors=g.colors[idx])
+        mask = torch.ones((params.means.shape[0],), device=device)
+    else:
+        params = init_params(g)
+        mask = g.mask
+
+    cfg = TrainConfig(iterations=args.steps,
+                      checkpoint_dir=args.checkpoint_dir or "checkpoints",
+                      checkpoint_every=args.checkpoint_every)
+    solver = Solver(params=params, mask=mask, cfg=cfg,
+                    cameras=list(ds.cameras), targets=list(ds.images),
+                    depth=args.depth, renderer=renderer, render_kwargs=kw)
+    metrics = solver.train(num_steps=args.steps)
+    out = args.output or (args.open.stem + "_fit.ply")
+    save_scene(out, solver.scene())
+    print(f"fit {args.steps} steps: loss={metrics['loss']:.5f} "
+          f"psnr={metrics['psnr']:.2f} live={solver.num_live} -> {out}")
+
+
 def main(argv=None):
     _setup_logging()
     parser = argparse.ArgumentParser(
@@ -175,6 +239,25 @@ def main(argv=None):
     p_orbit.add_argument("--frames", type=int, default=12)
     p_orbit.add_argument("--output", type=str, default=None)
     p_orbit.set_defaults(func=cmd_orbit)
+
+    p_fit = sub.add_parser(
+        "fit", help="Optimize a scene against multiview targets.")
+    _add_common_flags(p_fit)
+    p_fit.add_argument("--data", type=str, default=None,
+                       help="transforms.json dataset; default: "
+                            "self-supervised orbit renders of the scene.")
+    p_fit.add_argument("--downscale", type=int, default=1)
+    p_fit.add_argument("--views", type=int, default=24,
+                       help="Orbit views for the self-supervised target set.")
+    p_fit.add_argument("--steps", type=int, default=500)
+    p_fit.add_argument("--from-scratch", action="store_true",
+                       help="Re-initialize from a point subsample instead "
+                            "of the loaded parameters.")
+    p_fit.add_argument("--init-points", type=int, default=10_000)
+    p_fit.add_argument("--checkpoint-dir", type=str, default=None)
+    p_fit.add_argument("--checkpoint-every", type=int, default=0)
+    p_fit.add_argument("--output", type=str, default=None)
+    p_fit.set_defaults(func=cmd_fit)
 
     args = parser.parse_args(argv)
     return args.func(args)

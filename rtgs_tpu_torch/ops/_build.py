@@ -1,10 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-``nvcc`` compiles the ``.cu`` sources under ``csrc/`` into one shared
-library with a plain C interface, at first use, into
-``rtgs_tpu_torch/_build/``; the library's name carries a hash of the
-sources and flags, so an edited source rebuilds. It is loaded with
-``ctypes``. Nothing here runs at import time: the CPU-only tests import
+``nvcc`` compiles the ``.cu`` sources under ``csrc/`` (one process per
+source, all at once) and links them into one shared library with a plain C
+interface, at first use, into ``rtgs_tpu_torch/_build/``; the library's
+name carries a hash of the sources and flags, so an edited source
+rebuilds. It is loaded with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
 every module, and there is no ``nvcc`` there.
 """
 
@@ -23,10 +23,9 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 # IEEE sqrt and division (no --use_fast_math), and no FMA contraction, so
-# the kernel's t1 is bitwise the plain torch twin's.
+# the kernels' t1 is bitwise the plain torch twins'.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
 
 def nvcc_path() -> str:
@@ -58,20 +57,36 @@ def build() -> pathlib.Path:
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = nvcc_path()
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=BUILD_DIR))
     try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *map(str, sorted(SRC_DIR.glob("*.cu")))]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(res.stdout + res.stderr)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr}")
-        os.replace(tmp, lib)
+        objs = [str(tmp / (src.stem + ".o"))
+                for src in sorted(SRC_DIR.glob("*.cu"))]
+        jobs = []
+        for src, obj in zip(sorted(SRC_DIR.glob("*.cu")), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        link = [nvcc, "-shared", *NVCC_FLAGS[:2], "-o", str(tmp / "lib.so"),
+                *objs]
+        log, failed = [], []
+        for cmd, proc in jobs:
+            out = proc.communicate()[0]
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            log.append(res.stdout + res.stderr)
+            if res.returncode != 0:
+                failed.append(f"{' '.join(link)}\n{res.stderr}")
+        lib.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        os.replace(tmp / "lib.so", lib)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 
@@ -82,6 +97,10 @@ def load_library() -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.rtgs_keys_sid.argtypes = [vp] * 7 + [i] * 5 + [vp]
     lib.rtgs_keys_sid.restype = i
+    lib.rtgs_peel_fwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.rtgs_peel_fwd.restype = i
+    lib.rtgs_peel_bwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
+    lib.rtgs_peel_bwd.restype = i
     lib.rtgs_cuda_error_string.argtypes = [i]
     lib.rtgs_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,7 @@
-"""Keys-only tile top-K: per pixel, the K nearest ``(t1, splat id)`` among
-its tile's candidates (port of the keys half of :mod:`rtgs_tpu.ops.peel`).
+"""Tile top-K peels (port of :mod:`rtgs_tpu.ops.peel`): the keys-only
+top-K, per pixel the K nearest ``(t1, splat id)`` among its tile's
+candidates, and the fused-payload peel, which also shades and composites
+the K nearest and has a hand-written backward (see :func:`peel_fused`).
 
 Feature packing (F = 64 lanes), as in the JAX package:
   [0:6]   Σ⁻¹ packed sym6 (m00, m01, m02, m11, m12, m22)
@@ -18,11 +20,14 @@ JAX package runs it in f32. Ordering is lexicographic on (t1, id): among
 equal t1 the lower splat id wins. Results are (T, K, P): t1 f32 (+inf
 vacant) and sid int32 (−1 vacant; the JAX package uses f32 +inf).
 
-Two implementations with one contract: :func:`peel_keys_cuda`, the
-hand-written Hopper kernel (``csrc/keys.cu``), and :func:`peel_keys_torch`,
-its plain twin. Both evaluate t1 with the same operations in the same
-order, and the kernel is built without FMA contraction, so on the card
-the two agree bitwise. :func:`peel_keys` picks by the tensors' device.
+Each kernel has two implementations with one contract: the hand-written
+Hopper kernel (``csrc/keys.cu``: :func:`peel_keys_cuda`; ``csrc/peel_fwd.cu``
+and ``csrc/peel_bwd.cu``: :func:`peel_fused_cuda`, :func:`peel_fused_bwd_cuda`)
+and its plain torch twin (:func:`peel_keys_torch`, :func:`peel_fused_torch`,
+:func:`peel_fused_bwd_torch`). Both evaluate t1 with the same operations in
+the same order, and the kernels are built without FMA contraction, so on
+the card the two select the same winners bitwise. The dispatchers
+(:func:`peel_keys`, :func:`peel_fused`) pick by the tensors' device.
 """
 
 from __future__ import annotations
@@ -98,9 +103,41 @@ def peel_keys_torch(packed: torch.Tensor, candidates: torch.Tensor,
             sid_k.transpose(1, 2).contiguous())
 
 
-def _require(cond: bool, msg: str) -> None:
+def _require(cond: bool, msg: str, who: str = "peel_keys_cuda") -> None:
     if not cond:
-        raise ValueError(f"peel_keys_cuda: {msg}")
+        raise ValueError(f"{who}: {msg}")
+
+
+def _check_launch(who: str, specs, c: int, p: int, depth: int):
+    """Common input checks of the kernel wrappers. ``specs``: (name, tensor,
+    dtype, shape) of every input; all must be contiguous CUDA tensors on
+    the device of the first. Returns that device."""
+    dev = specs[0][1].device
+    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}", who)
+    for name, x, dtype, shape in specs:
+        _require(x.device == dev, f"{name} is on {x.device}, not {dev}", who)
+        _require(x.dtype == dtype, f"{name} is {x.dtype}, want {dtype}", who)
+        _require(tuple(x.shape) == tuple(shape),
+                 f"{name} has shape {tuple(x.shape)}, want {tuple(shape)}",
+                 who)
+        _require(x.is_contiguous(), f"{name} is not contiguous", who)
+    _require(c % CHUNK == 0, f"candidate width {c} is not a multiple of "
+             f"{CHUNK}", who)
+    _require(1 <= depth <= MAX_DEPTH, f"depth {depth} outside 1..{MAX_DEPTH}",
+             who)
+    _require(1 <= p <= 1024, f"{p} pixels per tile; one block holds ≤ 1024",
+             who)
+    return dev
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.rtgs_cuda_error_string(err).decode()}")
 
 
 def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
@@ -122,25 +159,14 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     contiguous CUDA tensor on one device; a failed build or launch raises.
     ``peel_keys_cuda.launches`` counts the launches.
     """
-    dev = packed.device
-    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
     t, c = candidates.shape
     p = pix.shape[1]
-    for name, x, dtype, shape in (
-            ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
-            ("candidates", candidates, torch.int32, (t, c)),
-            ("counts", counts, torch.int32, (t,)),
-            ("chunk_lb", chunk_lb, torch.float32, (t, c // CHUNK + 1)),
-            ("pix", pix, torch.float32, (t, p, G_DIM))):
-        _require(x.device == dev, f"{name} is on {x.device}, not {dev}")
-        _require(x.dtype == dtype, f"{name} is {x.dtype}, want {dtype}")
-        _require(tuple(x.shape) == shape,
-                 f"{name} has shape {tuple(x.shape)}, want {shape}")
-        _require(x.is_contiguous(), f"{name} is not contiguous")
-    _require(c % CHUNK == 0, f"candidate width {c} is not a multiple of "
-             f"{CHUNK}")
-    _require(1 <= depth <= MAX_DEPTH, f"depth {depth} outside 1..{MAX_DEPTH}")
-    _require(1 <= p <= 1024, f"{p} pixels per tile; one block holds ≤ 1024")
+    dev = _check_launch("peel_keys_cuda", (
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", candidates, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("chunk_lb", chunk_lb, torch.float32, (t, c // CHUNK + 1)),
+        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
 
     t1 = torch.empty((t, depth, p), dtype=torch.float32, device=dev)
     sid = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
@@ -154,12 +180,9 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
         ptr(counts.data_ptr()), ptr(chunk_lb.data_ptr()),
         ptr(pix.data_ptr()), ptr(t1.data_ptr()), ptr(sid.data_ptr()),
-        t, c, p, depth, dev.index if dev.index is not None
-        else torch.cuda.current_device(),
+        t, c, p, depth, _device_index(dev),
         ptr(torch.cuda.current_stream(dev).cuda_stream))
-    if err:
-        raise RuntimeError("keys kernel launch failed: "
-                           f"{lib.rtgs_cuda_error_string(err).decode()}")
+    _raise_on(err, lib, "keys")
     peel_keys_cuda.launches += 1
     return t1, sid
 
@@ -187,3 +210,324 @@ def peel_keys(packed: torch.Tensor, candidates: torch.Tensor,
         chunk_lb = torch.zeros((t, c // CHUNK + 1), device=packed.device)
     return peel_keys_cuda(packed, candidates, _counts(candidates),
                           chunk_lb.detach(), pix, depth)
+
+
+# ---------------------------------------------------------------------------
+# Fused-payload peel: select, shade and composite the K nearest, with a
+# hand-written backward (port of rtgs_tpu.ops.peel.peel_pallas).
+# ---------------------------------------------------------------------------
+
+def _safe_ids(packed: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
+    """Candidate ids with −1 mapped to the sentinel row N (int64)."""
+    return torch.where(candidates >= 0, candidates,
+                       packed.shape[0] - 1).long()
+
+
+def select_slots(packed: torch.Tensor, candidates: torch.Tensor,
+                 pix: torch.Tensor, depth: int) -> torch.Tensor:
+    """Candidate slots (T, K, P) int32 of each pixel's K nearest hits,
+    ordered lexicographically by (t1, slot): the field is stable-sorted by
+    t1 along the slot axis, so among equal t1 the earlier slot wins, as in
+    the JAX ``_merge_topk``. −1 marks a vacant layer."""
+    rows = packed[:, :10][_safe_ids(packed, candidates)]
+    t1 = entry_depth(rows, pix)                        # (T, P, C)
+    if t1.shape[2] < depth:
+        t1 = F.pad(t1, (0, depth - t1.shape[2]), value=math.inf)
+    t1_s, order = torch.sort(t1, dim=2, stable=True)
+    slots = torch.where(torch.isfinite(t1_s[..., :depth]),
+                        order[..., :depth], -1)
+    return slots.transpose(1, 2).to(torch.int32).contiguous()
+
+
+def _winner_rows(packed: torch.Tensor, candidates: torch.Tensor,
+                 slots: torch.Tensor) -> torch.Tensor:
+    """Feature rows (T, K, P, 64) of the winners at ``slots``; vacant
+    layers read the sentinel row. Differentiable in ``packed``."""
+    t, k, p = slots.shape
+    ids = candidates.gather(1, slots.clamp(min=0).reshape(t, k * p).long())
+    ids = torch.where(slots.reshape(t, k * p) >= 0, ids, -1)
+    return packed[_safe_ids(packed, ids).reshape(t, k, p)]
+
+
+def _shade_layers(rows: torch.Tensor, pix: torch.Tensor,
+                  won: torch.Tensor):
+    """f32 shading of the (T, K, P) winners: the quadratic (a, b), the
+    response ρ = exp(B²/4A − (c0+3)) where Δ > 0 (else 0; a tangent winner
+    keeps its layer with α = 0), α = op·ρ, and rgb = color + y·SH. The
+    operations and their order are the kernels'."""
+    def pf(j):
+        return pix[:, None, :, j]                      # (T, 1, P)
+
+    a = pf(3) * rows[..., 0]
+    for j in range(1, 6):
+        a = a + pf(3 + j) * rows[..., j]
+    b = pf(0) * rows[..., 6]
+    for j in range(1, 3):
+        b = b + pf(j) * rows[..., 6 + j]
+    b = 2.0 * b
+    cq = rows[..., 9]
+    delta = b * b - (4.0 * a) * cq
+    rho = torch.exp(torch.where(won & (delta > 0.0),
+                                b * b / (4.0 * a) - (cq + 3.0), -math.inf))
+    alpha = rows[..., 10] * rho
+    rgb = []
+    for ch in range(3):
+        acc = pf(9) * rows[..., 14 + 15 * ch]
+        for j in range(1, 15):
+            acc = acc + pf(9 + j) * rows[..., 14 + 15 * ch + j]
+        rgb.append(rows[..., 11 + ch] + acc)
+    return a, b, rho, alpha, rgb
+
+
+def peel_fused_torch(packed: torch.Tensor, candidates: torch.Tensor,
+                     pix: torch.Tensor, depth: int):
+    """Plain twin of the fused forward kernel (the counterpart of the JAX
+    ``peel_reference``): select the K nearest by (t1, slot)
+    (:func:`select_slots`), shade them in f32 and composite front to back.
+    Differentiable in ``packed`` through the shading (the selection is
+    piecewise constant). Returns (radiance (T, 3, P), transmittance (T, P),
+    slots (T, K, P) int32)."""
+    with torch.no_grad():
+        slots = select_slots(packed.detach(), candidates, pix.detach(),
+                             depth)
+    rows = _winner_rows(packed, candidates, slots)
+    _, _, _, alpha, rgb = _shade_layers(rows, pix, slots >= 0)
+    t, _, p = slots.shape
+    rr = rg = rb = torch.zeros((t, p), dtype=packed.dtype,
+                               device=packed.device)
+    tr = torch.ones_like(rr)
+    for k in range(depth):
+        a = alpha[:, k]
+        w = tr * a
+        rr = rr + w * rgb[0][:, k]
+        rg = rg + w * rgb[1][:, k]
+        rb = rb + w * rgb[2][:, k]
+        tr = tr * (1.0 - a)
+    return torch.stack([rr, rg, rb], dim=1), tr, slots
+
+
+def _layer_cotangents(grad_rad, grad_trans, alpha, r, g, b):
+    """Per-layer cotangents (T, K, P) from the division-free suffix
+    recurrences U = a·c + (1−a)·U, V = (1−a)·V (JAX ``_layer_cotangents``):
+    ∂L/∂αₖ = Σ_ch ḡ_ch·Tₖ·(c_ch,k − U_ch) − ḡ_T·Tₖ·Vₖ and the color
+    cotangents ḡ_ch·Tₖ·αₖ."""
+    gr, gg, gb = grad_rad[:, 0], grad_rad[:, 1], grad_rad[:, 2]
+    gt = grad_trans
+    depth = alpha.shape[1]
+    tks, tr = [], torch.ones_like(gt)
+    for k in range(depth):
+        tks.append(tr)
+        tr = tr * (1.0 - alpha[:, k])
+    ur = ug = ub = torch.zeros_like(gt)
+    v = torch.ones_like(gt)
+    ga, gwr, gwg, gwb = ([None] * depth for _ in range(4))
+    for k in range(depth - 1, -1, -1):
+        tk, ak = tks[k], alpha[:, k]
+        rk, gk, bk = r[:, k], g[:, k], b[:, k]
+        ga[k] = (gr * tk * (rk - ur) + gg * tk * (gk - ug)
+                 + gb * tk * (bk - ub) - gt * tk * v)
+        w = tk * ak
+        gwr[k], gwg[k], gwb[k] = gr * w, gg * w, gb * w
+        ur = ak * rk + (1.0 - ak) * ur
+        ug = ak * gk + (1.0 - ak) * ug
+        ub = ak * bk + (1.0 - ak) * ub
+        v = (1.0 - ak) * v
+    return tuple(torch.stack(x, dim=1) for x in (ga, gwr, gwg, gwb))
+
+
+def peel_fused_bwd_torch(packed: torch.Tensor, candidates: torch.Tensor,
+                         pix: torch.Tensor, slots: torch.Tensor,
+                         grad_rad: torch.Tensor,
+                         grad_trans: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the backward kernel: per-slot feature gradients
+    (T, C, 64) of ``Σ grad_rad·radiance + Σ grad_trans·transmittance`` for
+    the winners ``slots`` of the forward. Chains the layer cotangents
+    through α = op·ρ and rgb = color + y·SH as the JAX ``_bwd_kernel``
+    (``rtgs_tpu/ops/peel.py:827-862``); dOp is masked by acceptance (a
+    winner), not by α > 0, so a transparent splat can still revive."""
+    won = slots >= 0
+    rows = _winner_rows(packed, candidates, slots)
+    a, b, rho, alpha, rgb = _shade_layers(rows, pix, won)
+    ga, gwr, gwg, gwb = _layer_cotangents(grad_rad, grad_trans, alpha, *rgb)
+    ga_alpha = ga * alpha
+    d_a = ga_alpha * (-(b * b) / ((4.0 * a) * a))
+    d_b = ga_alpha * (b / (2.0 * a))
+    d_op = ga * rho
+    pix_l = pix[:, None, :, :]                          # (T, 1, P, 24)
+    lanes = torch.cat([
+        d_a[..., None] * pix_l[..., 3:9],               # 0:6   m6
+        2.0 * d_b[..., None] * pix_l[..., 0:3],         # 6:9   Me
+        -ga_alpha[..., None],                           # 9     c0
+        d_op[..., None],                                # 10    opacity
+        gwr[..., None], gwg[..., None], gwb[..., None],  # 11:14 color
+        gwr[..., None] * pix_l[..., 9:24],              # 14:29 SH·r
+        gwg[..., None] * pix_l[..., 9:24],              # 29:44 SH·g
+        gwb[..., None] * pix_l[..., 9:24],              # 44:59 SH·b
+        torch.zeros_like(pix_l[..., :5]).expand(*ga.shape, 5),
+    ], dim=-1)                                          # (T, K, P, 64)
+    t, c = candidates.shape
+    flat = (torch.arange(t, device=slots.device)[:, None, None] * c
+            + slots.long())
+    out = torch.zeros((t * c, F_DIM), dtype=packed.dtype,
+                      device=packed.device)
+    out.index_add_(0, flat[won], lanes[won])
+    return out.reshape(t, c, F_DIM)
+
+
+def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
+                    counts: torch.Tensor, pix: torch.Tensor, depth: int):
+    """Launch the Hopper fused forward kernel (``csrc/peel_fwd.cu``) on the
+    current stream.
+
+    Args:
+      packed: (N+1, 64) f32 feature table; row N is the sentinel.
+      candidates: (T, C) int32 ids, −1 padded, C a multiple of ``CHUNK``.
+      counts: (T,) int32 swept prefix length per tile (:func:`_counts`).
+      pix: (T, P, 24) f32 pixel features, P ≤ 1024.
+      depth: K, 1..``MAX_DEPTH``.
+
+    Returns (radiance (T, 3, P) f32, transmittance (T, P) f32, slots
+    (T, K, P) int32). Every input must be a contiguous CUDA tensor on one
+    device; a failed build or launch raises. ``peel_fused_cuda.launches``
+    counts the launches.
+    """
+    t, c = candidates.shape
+    p = pix.shape[1]
+    dev = _check_launch("peel_fused_cuda", (
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", candidates, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
+    rad = torch.empty((t, 3, p), dtype=torch.float32, device=dev)
+    trans = torch.empty((t, p), dtype=torch.float32, device=dev)
+    slots = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
+    if t == 0:
+        return rad, trans, slots
+    from rtgs_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    ptr = ctypes.c_void_p
+    err = lib.rtgs_peel_fwd(
+        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
+        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(rad.data_ptr()),
+        ptr(trans.data_ptr()), ptr(slots.data_ptr()), t, c, p, depth,
+        _device_index(dev), ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "fused forward")
+    peel_fused_cuda.launches += 1
+    return rad, trans, slots
+
+
+peel_fused_cuda.launches = 0
+
+
+def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
+                        counts: torch.Tensor, pix: torch.Tensor,
+                        slots: torch.Tensor, grad_rad: torch.Tensor,
+                        grad_trans: torch.Tensor, depth: int) -> torch.Tensor:
+    """Launch the Hopper fused backward kernel (``csrc/peel_bwd.cu``) on
+    the current stream. Inputs as :func:`peel_fused_cuda`, plus the
+    forward's ``slots`` (T, K, P) int32 and the cotangents ``grad_rad``
+    (T, 3, P) and ``grad_trans`` (T, P), f32. Returns the per-slot feature
+    gradients (T, C, 64) f32, summed over pixels with shared-memory float
+    atomics, so their low bits vary from run to run.
+    ``peel_fused_bwd_cuda.launches`` counts the launches."""
+    t, c = candidates.shape
+    p = pix.shape[1]
+    dev = _check_launch("peel_fused_bwd_cuda", (
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", candidates, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("pix", pix, torch.float32, (t, p, G_DIM)),
+        ("slots", slots, torch.int32, (t, depth, p)),
+        ("grad_rad", grad_rad, torch.float32, (t, 3, p)),
+        ("grad_trans", grad_trans, torch.float32, (t, p))), c, p, depth)
+    dfeats = torch.zeros((t, c, F_DIM), dtype=torch.float32, device=dev)
+    if t == 0:
+        return dfeats
+    from rtgs_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    ptr = ctypes.c_void_p
+    err = lib.rtgs_peel_bwd(
+        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
+        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
+        ptr(grad_rad.data_ptr()), ptr(grad_trans.data_ptr()),
+        ptr(dfeats.data_ptr()), t, c, p, depth, _device_index(dev),
+        ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "fused backward")
+    peel_fused_bwd_cuda.launches += 1
+    return dfeats
+
+
+peel_fused_bwd_cuda.launches = 0
+
+
+def _use_kernel(impl: str, packed: torch.Tensor) -> bool:
+    if impl not in ("auto", "cuda", "torch"):
+        raise ValueError(f"unknown peel impl {impl!r}")
+    return impl == "cuda" or (impl == "auto" and packed.device.type != "cpu")
+
+
+class PeelFused(torch.autograd.Function):
+    """The fused peel with its hand-written backward: the counterpart of
+    the JAX ``peel_pallas`` custom VJP. The forward saves its inputs and
+    the winners' slots; the backward returns a gradient for ``packed``
+    only, scatter-adding the per-slot gradients into (N+1, 64) with
+    ``index_add_`` (the sentinel row takes the padding's zeros)."""
+
+    @staticmethod
+    def forward(ctx, packed, candidates, pix, depth, impl):
+        use_kernel = _use_kernel(impl, packed)
+        if use_kernel:
+            rad, trans, slots = peel_fused_cuda(
+                packed, candidates, _counts(candidates), pix, depth)
+        else:
+            rad, trans, slots = peel_fused_torch(packed, candidates, pix,
+                                                 depth)
+        ctx.save_for_backward(packed, candidates, pix, slots)
+        ctx.depth, ctx.use_kernel = depth, use_kernel
+        return rad, trans
+
+    @staticmethod
+    def backward(ctx, grad_rad, grad_trans):
+        # Autograd materializes an unused output's cotangent as zeros.
+        packed, candidates, pix, slots = ctx.saved_tensors
+        if ctx.use_kernel:
+            dfeats = peel_fused_bwd_cuda(
+                packed, candidates, _counts(candidates), pix, slots,
+                grad_rad.contiguous(), grad_trans.contiguous(), ctx.depth)
+        else:
+            dfeats = peel_fused_bwd_torch(packed, candidates, pix, slots,
+                                          grad_rad, grad_trans)
+        dpacked = torch.zeros_like(packed).index_add_(
+            0, _safe_ids(packed, candidates).reshape(-1),
+            dfeats.reshape(-1, F_DIM))
+        return dpacked, None, None, None, None
+
+
+def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
+               pix: torch.Tensor, depth: int, impl: str = "auto"):
+    """Fused tile peel, differentiable in ``packed`` (port of the JAX
+    ``peel_pallas``): per pixel, the K nearest hits by (t1, candidate
+    slot), shaded and composited front to back.
+
+    Args:
+      packed: (N+1, 64) f32 per-Gaussian features (row N = sentinel).
+      candidates: (T, C) int32 candidate ids, −1 padded, C a multiple of
+        ``CHUNK``; interior −1 gaps are allowed.
+      pix: (T, P, 24) f32 per-pixel features.
+      depth: composited layers K (≤ ``MAX_DEPTH`` on the card).
+      impl: ``"auto"`` (the Hopper kernels for CUDA tensors, the plain
+        twins for CPU tensors), ``"cuda"`` or ``"torch"``. On CUDA tensors
+        ``auto`` launches the kernels or raises; it never falls back.
+
+    Returns (radiance (T, 3, P), transmittance (T, P)). The backward gives
+    ``packed`` a gradient and ``candidates``/``pix`` none, as the JAX rule.
+
+    Determinism: the forward is bitwise deterministic on the card (no
+    atomics; winners in float64, bitwise those of the twin). The gradient
+    is not: the backward kernel sums over a tile's pixels with float
+    atomics, and ``index_add_`` sums over tiles with atomics, both in no
+    fixed order, so gradients agree run to run only to f32 rounding.
+    """
+    return PeelFused.apply(packed, candidates, pix, depth, impl)

@@ -2,8 +2,10 @@
 
 ``auto`` and ``keys`` render through
 :func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`, the keys path, on
-every device and scene size. The JAX package's other renderers are not
-ported yet and raise.
+every device and scene size. ``pallas`` renders through
+:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`, the
+fused-payload path with a hand-written backward (what training uses).
+``oracle`` and ``tiled`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -16,8 +18,6 @@ from rtgs_tpu_torch.camera import Camera
 _NOT_PORTED = {
     "oracle": "ROADMAP queue 1, item 3 (oracle)",
     "tiled": "ROADMAP queue 1, item 10 (secondary renderers)",
-    "pallas": "ROADMAP queue 1, item 10 and queue 2, item 2 "
-              "(fused-payload peel kernel)",
 }
 
 
@@ -28,6 +28,10 @@ def render(g: G.Gaussians, camera: Camera, depth: int = 16,
         from rtgs_tpu_torch.render.tiled import render_tiled_keys
 
         return render_tiled_keys(g, camera, depth=depth, **kwargs)
+    if renderer == "pallas":
+        from rtgs_tpu_torch.render.tiled import render_tiled_pallas
+
+        return render_tiled_pallas(g, camera, depth=depth, **kwargs)
     if renderer in _NOT_PORTED:
         raise NotImplementedError(
             f"renderer {renderer!r} is not ported yet; see "

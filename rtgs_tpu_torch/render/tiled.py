@@ -1,5 +1,6 @@
-"""Tile-binned keys-path renderer (port of the forward of
-:func:`rtgs_tpu.render.tiled.render_tiled_keys`).
+"""Tile-binned renderers: the keys path (port of the forward of
+:func:`rtgs_tpu.render.tiled.render_tiled_keys`) and the fused-payload path
+(:func:`render_tiled_pallas`, differentiable, under the JAX name).
 
 Per frame:
 
@@ -16,6 +17,11 @@ Per frame:
      reference's chord-midpoint response ``ρ = exp(B²/4A − (c0+3))``;
   5. :func:`composite_layers_kp` — front-to-back composite.
 
+The fused-payload path replaces stages 3-5 with one
+:func:`~rtgs_tpu_torch.ops.peel.peel_fused` call per band (the Hopper
+forward and backward kernels on the card), which selects by (t1, candidate
+slot), shades and composites in one pass.
+
 Layouts follow the JAX package: tile index ``T = tx·nty + ty``, pixels in
 local (x, y) raster order, images (W, H, 3) with a bottom-left origin.
 """
@@ -26,10 +32,11 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
-from rtgs_tpu_torch.ops.peel import CHUNK, G_DIM, peel_keys
+from rtgs_tpu_torch.ops.peel import CHUNK, G_DIM, peel_fused, peel_keys
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.utils import quaternion as quat
 
@@ -166,6 +173,19 @@ def composite_layers_kp(alpha, r, g, b):
                        dim=-1)
 
 
+def _tiles_to_image(rad: torch.Tensor, ntx: int, nty: int, tile):
+    """(T, P, 3) tile-major radiance → the (W', H', 3) buffer."""
+    tw, th = tile
+    return (rad.reshape(ntx, nty, tw, th, 3)
+            .permute(0, 2, 1, 3, 4)
+            .reshape(ntx * tw, nty * th, 3))
+
+
+def _band_size(t: int, tile_bands: int | None) -> int:
+    """Tiles per band when ``t`` tiles run in ``tile_bands`` bands."""
+    return -(-t // tile_bands) if tile_bands and tile_bands > 1 else t
+
+
 def render_tiled_keys(
     g: G.Gaussians,
     camera: Camera,
@@ -209,12 +229,10 @@ def render_tiled_keys(
         return composite_layers_kp(*shade_winners_kp(packed, sid, pix_b))
 
     t = cand.shape[0]
-    nb = -(-t // tile_bands) if tile_bands and tile_bands > 1 else t
+    nb = _band_size(t, tile_bands)
     rad = torch.cat([band(cand[s:s + nb], pix[s:s + nb], lb[s:s + nb])
                      for s in range(0, t, nb)])
-    img = (rad.reshape(ntx, nty, tw, th, 3)
-           .permute(0, 2, 1, 3, 4)
-           .reshape(ntx * tw, nty * th, 3))[:w, :h]
+    img = _tiles_to_image(rad, ntx, nty, tile)[:w, :h]
     if with_stats:
         stats = {
             "live": (binning.candidates >= 0).sum(),
@@ -222,6 +240,64 @@ def render_tiled_keys(
             "global_overflow": binning.global_overflow,
             "swept_pairs": ((binning.counts + CHUNK - 1) // CHUNK
                             * CHUNK).sum(),
+        }
+        return img, stats
+    return img
+
+
+def render_tiled_pallas(
+    g: G.Gaussians,
+    camera: Camera,
+    depth: int = 16,
+    tile=(16, 16),
+    max_candidates: int = 512,
+    max_global: int = 64,
+    max_tiles_local=None,
+    with_stats: bool = False,
+    tile_bands: int | None = None,
+    pixel_offset=None,
+    bin_narrow: int | None = None,
+    peel_impl: str = "auto",
+):
+    """Full-frame render through the fused-payload peel (port of the JAX
+    ``render_tiled_pallas``, under its name): differentiable in the scene
+    through the peel's hand-written backward. Returns (W, H, 3) radiance.
+
+    The binning yields indices only, so it runs under ``no_grad``; the
+    candidates are padded with −1 to a multiple of ``CHUNK``.
+    ``tile_bands``: run the peel over the tile axis in this many sequential
+    bands (a plain loop; each band's autograd node keeps only its inputs and
+    the winners' slots). ``with_stats=True`` also returns the binning
+    counters ``live``, ``local_overflow`` and ``global_overflow``.
+    ``peel_impl`` is passed to :func:`~rtgs_tpu_torch.ops.peel.peel_fused`.
+    """
+    w, h = camera.buf_size
+    tw, th = tile
+    ntx, nty = -(-w // tw), -(-h // th)
+    with torch.no_grad():
+        binning = tile_candidates(
+            g, camera, tile=tile, max_candidates=max_candidates,
+            max_global=max_global, max_tiles_local=max_tiles_local,
+            pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow)
+    cand = binning.candidates
+    pad_c = (-cand.shape[1]) % CHUNK
+    if pad_c:
+        cand = F.pad(cand, (0, pad_c), value=-1)
+    packed = pack_features(precompute_features(g, camera))
+    pix = _tile_pixel_features(camera, tile, pixel_offset)
+
+    t = cand.shape[0]
+    nb = _band_size(t, tile_bands)
+    rad = torch.cat([
+        peel_fused(packed, cand[s:s + nb], pix[s:s + nb], depth,
+                   impl=peel_impl)[0]
+        for s in range(0, t, nb)])                      # (T, 3, P)
+    img = _tiles_to_image(rad.transpose(1, 2), ntx, nty, tile)[:w, :h]
+    if with_stats:
+        stats = {
+            "live": (binning.candidates >= 0).sum(),
+            "local_overflow": binning.local_overflow,
+            "global_overflow": binning.global_overflow,
         }
         return img, stats
     return img

@@ -1,5 +1,5 @@
-"""Image export helpers (PNG via imageio or PIL when present, ``.npy``
-otherwise); numpy copy of :mod:`rtgs_tpu.utils.image`."""
+"""Image export and import helpers (PNG via imageio or PIL when present,
+``.npy`` otherwise); numpy copy of :mod:`rtgs_tpu.utils.image`."""
 
 from __future__ import annotations
 
@@ -32,3 +32,26 @@ def save_image(path, img: np.ndarray) -> None:
         return
     except Exception:
         np.save(path.with_suffix(".npy"), arr)
+
+
+def load_image(path) -> np.ndarray:
+    """Load an image as float32 (H, W, 3) in [0, 1]: ``.npy`` with numpy,
+    anything else with imageio or, failing that, PIL (one of them must be
+    installed for PNGs)."""
+    path = pathlib.Path(path)
+    if path.suffix == ".npy":
+        arr = np.load(path)
+    else:
+        try:
+            import imageio.v3 as iio
+
+            arr = iio.imread(path)
+        except ImportError:
+            from PIL import Image
+
+            arr = np.asarray(Image.open(path))
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    if arr.ndim == 2:
+        arr = np.stack([arr] * 3, axis=-1)
+    return arr[..., :3].astype(np.float32)

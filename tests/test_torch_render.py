@@ -78,9 +78,11 @@ def test_render_dispatch():
     jit = render_progressive(tg, tcam, samples=2, jitter=True,
                              generator=torch.Generator().manual_seed(1), **KW)
     assert torch.isfinite(jit).all() and not torch.equal(jit, ref)
-    for name in ("oracle", "tiled", "pallas"):
+    for name in ("oracle", "tiled"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render(tg, tcam, renderer=name)
+    fused = render(tg, tcam, renderer="pallas", **KW)
+    assert fused.shape == ref.shape and torch.isfinite(fused).all()
 
 
 @pytest.fixture
