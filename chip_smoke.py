@@ -34,7 +34,29 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      (means σ 0.01, log-scales 0.3, color logits 0.5; numpy seed 7), 50
      ``Solver`` steps with one density-control pass and one opacity reset;
      PSNR must rise; step time, the kernels' time in one step, the dropped
-     share and peak device memory are printed.
+     share and peak device memory are printed;
+  9. the K-list path (the top-K peel, uncomposited) at the fit
+     configuration and at 1M splats at 256x192: both top-K kernels against
+     their plain twins (slots and t1 bitwise, α and rgb to an absolute
+     tolerance, per-slot feature gradients per lane); the winners and their
+     α equal to the fused forward kernel's; the NaN/inf share of each
+     output (t1 is +inf exactly on vacant layers); then the main path, a
+     scene gradient of Σ w·radiance + Σ transmittance through
+     ``composite_hits(*peel_topk(...))``, against the same through
+     ``peel_fused``: images to 1e-5, the packed table's gradient per lane
+     to 1e-4 of the lane's largest entry, each scene field's gradient to
+     1e-2 of the field's largest entry at the 0.99 quantile (5e-2 for
+     rotations and scales; its maximum and relative L2 norm printed, and
+     beside them the fused path against a second run of itself); times
+     with CUDA events;
+ 10. the oracle through the CLI: ``render --renderer oracle`` of a
+     4096-splat scene at 640x384 against the keys render of the same scene
+     (the statistic of tests/_utils.assert_images_close), its frame time and
+     peak device memory; ``fit --renderer oracle`` for 5 steps at 128x96;
+ 11. the ``tiled`` renderer through the CLI: ``render --renderer tiled`` of
+     the 100k scene at 640x384 against its keys render, frame time and peak
+     memory; ``fit --renderer tiled`` for 5 steps on the 4096-splat scene
+     at 128x96.
 
 Then one {"kernels": [...]} JSON line, the card's name and power limit,
 and last {"ok": true, "device": {...}}.
@@ -86,6 +108,34 @@ PLAIN_BAND = 96
 FWD_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
 MIN_PSNR_RISE = 0.5
+# The K-list path against the fused path: the same winners, composited in
+# another summation order (images to FWD_ATOL); the gradient of the packed
+# table through both, per lane, to SCENE_GRAD_RTOL of the lane's largest
+# entry (float atomics sum in no fixed order); that is the kernels' check.
+# The scene gradients, per field, to SCENE_Q99 of the field's largest entry
+# at the 0.99 quantile. The chain from the table to rotations and scales
+# cancels (A, Me and c0 all carry Σ⁻¹, and e = origin − μ is ~500 splat
+# scales long at the bench scene), so the table's f32 rounding grows there
+# by ~10⁴ (on an H100: scales 9.3e-3 and rotations 2.2e-3 at the 0.99
+# quantile at 100k @ 512x384; a few splats dominate even the L2 norm);
+# those two fields are held to ROT_SCALE_Q99. The same statistics of the
+# fused path against a second run of itself (its atomics sum in another
+# order) are printed as the floor, with the maximum and relative L2 norm.
+SCENE_GRAD_RTOL = 1e-4
+SCENE_Q99 = 1e-2
+ROT_SCALE_Q99 = 5e-2
+# The oracle's scene: the JAX package's brute-force limit (_ORACLE_MAX_N).
+# Its splats are larger than the bench scene's: the tile paths' f32
+# exponent B²/4A − (c0+3) cancels by (distance / scale)², and with the
+# bench's scales their α would differ from the oracle's (accurate to ~1e-6
+# against float64) by more than the image statistic allows.
+ORACLE_N = 4096
+SCENE_4K = dict(extent=1.5, scale_range=(0.05, 0.2), seed=0)
+ORACLE_RES = (640, 384)
+SMALL_FIT = dict(res=(128, 96), views=4, steps=5, init_points=2048,
+                 max_candidates=2048)
+# Image against image of another renderer (tests/_utils.assert_images_close).
+IMG_Q, IMG_QTOL, IMG_MAXTOL = 0.99, 5e-4, 0.12
 
 
 class SmokeFailure(Exception):
@@ -744,6 +794,351 @@ def phase8_fitbench(g, dev):
     return dict(step_ms=step_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
 
 
+SCENE_FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
+
+
+def phase9_case(label, g, cfg, dev):
+    """The top-K kernels against their twins and against the fused peel at
+    one configuration; returns errors, times and the launches of its main
+    path run (the K-list's scene gradient)."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (TOPK_LANES, _shade_layers,
+                                         _winner_rows, peel_fused,
+                                         peel_fused_cuda, peel_topk,
+                                         peel_topk_bwd_cuda,
+                                         peel_topk_bwd_torch, peel_topk_cuda,
+                                         peel_topk_torch)
+    from rtgs_tpu_torch.render.oracle import composite_hits
+    from rtgs_tpu_torch.render.tiled import pack_features, precompute_features
+
+    cam, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
+    t, p = cand.shape[0], pix.shape[1]
+
+    def kernel():
+        return peel_topk_cuda(packed, cand, counts, pix, DEPTH)
+
+    def plain():
+        return plain_in_bands(
+            lambda c, q: peel_topk_torch(packed, c, q, DEPTH), t, cand, pix)
+
+    lay_k, sl_k = kernel()
+    lay_p, sl_p = plain()
+    torch.cuda.synchronize()
+    check(torch.equal(sl_k, sl_p), f"{label}: top-K winners differ from the "
+          f"twin's at {int((sl_k != sl_p).sum())} entries")
+    check(bool((sl_k >= 0).any()), f"{label}: no pixel has a hit")
+    check(torch.equal(lay_k[:, 0], lay_p[:, 0]),
+          f"{label}: top-K t1 differs from the twin's")
+    fwd_err = float((lay_k[:, 1:] - lay_p[:, 1:]).abs().max())
+    check(fwd_err <= FWD_ATOL, f"{label}: top-K α/rgb max |kernel − twin| "
+          f"{fwd_err} > {FWD_ATOL}")
+
+    # The fused forward kernel's winners, and their α as phase 6 shades
+    # them.
+    sl_f = peel_fused_cuda(packed, cand, counts, pix, DEPTH)[2]
+    check(torch.equal(sl_f, sl_k), f"{label}: top-K winners differ from "
+          f"the fused kernel's at {int((sl_f != sl_k).sum())} entries")
+    alpha_f = plain_in_bands(
+        lambda c, q, sl: _shade_layers(_winner_rows(packed, c, sl), q,
+                                       sl >= 0)[3], t, cand, pix, sl_f)
+    alpha_err = float((lay_k[:, 1] - alpha_f).abs().max())
+    check(alpha_err <= FWD_ATOL, f"{label}: K-list α differs from the fused "
+          f"winners' α by {alpha_err}")
+
+    # NaN/inf share of each output (scripts/chip_parity.py's diagnosis).
+    vacant = float((sl_k < 0).float().mean())
+    shares = []
+    for i, name in enumerate(TOPK_LANES):
+        x = lay_k[:, i]
+        nan, inf = float(x.isnan().float().mean()), float(
+            x.isinf().float().mean())
+        fin = x[torch.isfinite(x)]
+        shares.append(f"{name} nan {nan:.2%} inf {inf:.2%} finite-mean "
+                      f"{float(fin.mean()) if fin.numel() else 0.0:.4f}")
+        check(nan == 0.0, f"{label}: {name} has NaN")
+        check(inf == (vacant if name == "t1" else 0.0),
+              f"{label}: {name} inf share {inf} (vacant share {vacant})")
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_lay = torch.randn((t, 4, DEPTH, p), generator=gen, device=dev)
+
+    def kernel_bwd():
+        return peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay,
+                                  DEPTH)
+
+    def plain_bwd():
+        return plain_in_bands(
+            lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl, gl),
+            t, cand, pix, sl_k, g_lay)
+
+    d_k, d_p = kernel_bwd(), plain_bwd()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(d_k).all()), f"{label}: non-finite gradient")
+    bwd_abs = float((d_k - d_p).abs().max())
+    bwd_lane = float(((d_k - d_p).abs().amax(dim=(0, 1))
+                      / (d_p.abs().amax(dim=(0, 1)) + 1e-30)).max())
+    check(bwd_lane <= BWD_LANE_RTOL, f"{label}: top-K backward per-lane "
+          f"error {bwd_lane} > {BWD_LANE_RTOL}")
+    del lay_p, sl_p, d_p, alpha_f
+
+    # The main path: a scene gradient through the K-list, composited
+    # outside the kernel, against the same through the fused peel.
+    w = torch.randn((t, p, 3), generator=gen, device=dev)
+
+    def scene_grad(through_topk):
+        leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+                  for f in SCENE_FIELDS}
+        scene = type(g)(mask=g.mask, **leaves)
+        pk = pack_features(precompute_features(scene, cam))
+        pk.retain_grad()
+        if through_topk:
+            t1, a, r, gg, b = peel_topk(pk, cand, pix, DEPTH)
+            rad, trans = composite_hits(t1, a, torch.stack([r, gg, b], -1))
+        else:
+            rad, trans = peel_fused(pk, cand, pix, DEPTH)
+            rad = rad.transpose(1, 2)
+        ((rad * w).sum() + trans.sum()).backward()
+        grads = {f: x.grad for f, x in leaves.items()}
+        grads["packed"] = pk.grad
+        return rad.detach(), trans.detach(), grads
+
+    peel_topk_cuda.launches = peel_topk_bwd_cuda.launches = 0
+    rad_k, tr_k, grads_k = scene_grad(True)
+    torch.cuda.synchronize()
+    launches = (peel_topk_cuda.launches, peel_topk_bwd_cuda.launches)
+    check(launches == (1, 1), f"{label}: the K-list path launched the top-K "
+          f"kernels {launches} times, expected (1, 1)")
+    rad_f, tr_f, grads_f = scene_grad(False)
+    torch.cuda.synchronize()
+    comp_err = max(float((rad_k - rad_f).abs().max()),
+                   float((tr_k - tr_f).abs().max()))
+    check(comp_err <= FWD_ATOL, f"{label}: composite_hits(peel_topk) differs "
+          f"from peel_fused by {comp_err} > {FWD_ATOL}")
+    d_pk = (grads_k["packed"] - grads_f["packed"]).abs().amax(0)
+    pk_err = float((d_pk / (grads_f["packed"].abs().amax(0) + 1e-30)).max())
+    check(pk_err <= SCENE_GRAD_RTOL, f"{label}: K-list gradient of the "
+          f"packed table differs from the fused path's by {pk_err} per lane")
+    grads_f2 = scene_grad(False)[2]
+
+    def field_err(got, ref):
+        """(relative L2, q99 and max of |got − ref| / max |ref|)."""
+        diff = got - ref
+        rel = diff.abs() / (ref.abs().max() + 1e-30)
+        return (float(diff.norm() / (ref.norm() + 1e-30)),
+                quantile(rel, 0.99), float(rel.max()))
+
+    grad_errs, floor_errs = {}, {}
+    for f in SCENE_FIELDS:
+        check(bool(torch.isfinite(grads_k[f]).all()),
+              f"{label}: non-finite scene gradient of {f}")
+        grad_errs[f] = field_err(grads_k[f], grads_f[f])
+        floor_errs[f] = field_err(grads_f2[f], grads_f[f])
+        limit = ROT_SCALE_Q99 if f in ("quats", "scales") else SCENE_Q99
+        check(grad_errs[f][1] <= limit, f"{label}: K-list scene gradient "
+              f"of {f} differs from the fused path's by {grad_errs[f]} "
+              f"(relative L2, q99 and max of the field's largest; q99 "
+              f"limit {limit:g})")
+    del grads_f2
+
+    ms, ms_plain = time_ms(kernel), time_ms(plain)
+    ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
+    c = cand.shape[1]
+    say(9, f"top-K {label}: T={t} C={c} P={p} K={DEPTH}: slots and t1 "
+           f"bitwise equal to the twin's, α/rgb max |diff| {fwd_err:.3e} "
+           f"(limit {FWD_ATOL:g}); winners bitwise the fused kernel's, α "
+           f"max |diff| {alpha_err:.3e} from the fused winners' α; backward "
+           f"max |diff| {bwd_abs:.3e}, per lane {bwd_lane:.3e} of the "
+           f"lane's largest (limit {BWD_LANE_RTOL:g}); forward kernel "
+           f"{ms:.3f} ms, twin {ms_plain:.3f} ms; backward kernel "
+           f"{ms_bwd:.3f} ms, twin {ms_bwd_plain:.3f} ms (CUDA events, "
+           f"median of 5)")
+    say(9, f"outputs {label} (vacant share {vacant:.2%}): "
+           + "; ".join(shares))
+    say(9, f"main path {label}: scene gradient of Σ w·radiance + Σ "
+           f"transmittance through composite_hits(peel_topk) launched the "
+           f"top-K forward/backward kernels {launches[0]}/{launches[1]} "
+           f"times; image vs peel_fused max |diff| {comp_err:.3e} (limit "
+           f"{FWD_ATOL:g}); packed-table gradient vs peel_fused per lane "
+           f"{pk_err:.2e} of the lane's largest (limit "
+           f"{SCENE_GRAD_RTOL:g}); scene gradient vs peel_fused [and "
+           f"peel_fused vs a second run of itself], relative L2 / q99 "
+           f"(limit {SCENE_Q99:g}, quats and scales {ROT_SCALE_Q99:g}) / "
+           f"max of the field's largest: "
+           + ", ".join(f"{k} {l2:.1e}/{q:.1e}/{m:.1e} "
+                       f"[{fl[0]:.1e}/{fl[1]:.1e}/{fl[2]:.1e}]"
+                       for (k, (l2, q, m)), fl in zip(grad_errs.items(),
+                                                      floor_errs.values())))
+    return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
+                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, launches=launches)
+
+
+def quantile(x, q):
+    """The q-quantile (nearest rank) of a tensor of any size
+    (``torch.quantile`` refuses more than 2²⁴ elements)."""
+    flat = x.flatten()
+    return float(flat.kthvalue(max(1, round(q * flat.numel()))).values)
+
+
+def compare_images(label, img, ref):
+    """tests/_utils.assert_images_close's statistic; returns (q, max)."""
+    diff = (img - ref).abs()
+    q = quantile(diff, IMG_Q)
+    worst = float(diff.max())
+    check(q < IMG_QTOL and worst < IMG_MAXTOL,
+          f"{label}: {IMG_Q}-quantile |diff| {q:.2e} (limit {IMG_QTOL:g}), "
+          f"max {worst:.2e} (limit {IMG_MAXTOL:g})")
+    return q, worst
+
+
+def frame_stats(render_fn):
+    """Median host time with sync of 3 frames after a warm-up, in ms, and
+    the peak device memory of one frame, in GiB."""
+    import torch
+
+    render_fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    host = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        render_fn()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(host), torch.cuda.max_memory_allocated() / 2**30
+
+
+def cli_argv(ply, res):
+    return ["-o", str(ply), "-r", f"{res[0]},{res[1]}", "-d", str(DEPTH),
+            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+            "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+            "--device", "cuda"]
+
+
+def small_fit(renderer, ply, tmp):
+    """``fit --renderer <renderer>`` through the CLI on the small scene;
+    returns the printed line, wall seconds and peak device memory (GiB)."""
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+
+    f = SMALL_FIT
+    out = tmp / f"fit_{renderer}.ply"
+    argv = ["fit", *cli_argv(ply, f["res"]), "--renderer", renderer,
+            "--views", str(f["views"]), "--steps", str(f["steps"]),
+            "--from-scratch", "--init-points", str(f["init_points"]),
+            "--max-candidates", str(f["max_candidates"]),
+            "--output", str(out)]
+    printed = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = printed.getvalue().strip()
+    m = FIT_LINE.search(line)
+    check(m is not None, f"fit --renderer {renderer} printed {line!r}")
+    check(math.isfinite(float(m.group(2))) and math.isfinite(
+        float(m.group(3))), f"fit --renderer {renderer}: {line!r}")
+    check(out.is_file() and out.stat().st_size > 0,
+          f"fit --renderer {renderer} wrote no .ply")
+    return line, wall, peak
+
+
+def phase10_oracle(dev, tmp):
+    """The oracle through the CLI; returns the 4096-splat scene's path."""
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.render.oracle import render_oracle
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+    from rtgs_tpu_torch.scene import load_scene, random_scene, save_scene
+
+    ply = tmp / "scene_4k.ply"
+    save_scene(ply, random_scene(ORACLE_N, device=dev, **SCENE_4K))
+    w, h = ORACLE_RES
+    t0 = time.perf_counter()
+    cli(["render", *cli_argv(ply, ORACLE_RES), "--renderer", "oracle",
+         "--output", str(tmp / "oracle.npy")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    g = load_scene(ply, device=dev)
+    cam = camera(ORACLE_RES, dev)
+    # Budgets of the whole scene: its wide splats overflow the default
+    # global list, and no pair may be dropped from the reference.
+    kw = dict(depth=DEPTH, tile=TILE, max_candidates=ORACLE_N,
+              max_global=ORACLE_N)
+    with torch.inference_mode():
+        img_o = render_oracle(g, cam, depth=DEPTH)
+        img_k, stats = render_tiled_keys(g, cam, with_stats=True, **kw)
+        dropped = int(stats["local_overflow"]) + int(stats["global_overflow"])
+        check(dropped == 0, f"the keys render dropped {dropped} pairs")
+        check(bool(torch.isfinite(img_o).all()) and float(img_o.max()) > 0.05,
+              "oracle image is not finite or black")
+        q, worst = compare_images("oracle vs keys", img_o, img_k)
+        frame_ms, peak = frame_stats(
+            lambda: render_oracle(g, cam, depth=DEPTH))
+    say(10, f"CLI render --renderer oracle of {g.num} splats at {w}x{h}: "
+            f"{wall:.2f} s wall (scene load included); in process against "
+            f"the keys render: {IMG_Q}-quantile |diff| {q:.2e} (limit "
+            f"{IMG_QTOL:g}), max {worst:.2e} (limit {IMG_MAXTOL:g}); oracle "
+            f"frame {frame_ms:.2f} ms (host clock with sync, median of 3), "
+            f"peak device memory {peak:.2f} GiB")
+    line, wall, peak = small_fit("oracle", ply, tmp)
+    say(10, f"CLI fit --renderer oracle, {SMALL_FIT['steps']} steps at "
+            f"{SMALL_FIT['res'][0]}x{SMALL_FIT['res'][1]}, "
+            f"{SMALL_FIT['views']} views: '{line}' in {wall:.2f} s wall; "
+            f"peak device memory {peak:.2f} GiB")
+    return ply
+
+
+def phase11_tiled(g100k, ply_4k, dev, tmp):
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.render.tiled import render_tiled, render_tiled_keys
+    from rtgs_tpu_torch.scene import load_scene, save_scene
+
+    ply = tmp / "scene_100k.ply"
+    save_scene(ply, g100k)
+    res = CFG_100K["res"]
+    argv = [*cli_argv(ply, res), "--renderer", "tiled", "--max-candidates",
+            str(CFG_100K["max_candidates"]), "--bin-narrow",
+            str(CFG_100K["bin_narrow"])]
+    t0 = time.perf_counter()
+    cli(["render", *argv, "--output", str(tmp / "tiled.npy")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    g = load_scene(ply, device=dev)
+    cam = camera(res, dev)
+    kw = dict(depth=DEPTH, tile=TILE, max_candidates=CFG_100K[
+        "max_candidates"], max_global=CFG_100K["max_global"],
+        bin_narrow=CFG_100K["bin_narrow"])
+    with torch.inference_mode():
+        img_t = render_tiled(g, cam, **kw)
+        img_k = render_tiled_keys(g, cam, **kw)
+        check(bool(torch.isfinite(img_t).all()) and float(img_t.max()) > 0.05,
+              "tiled image is not finite or black")
+        q, worst = compare_images("tiled vs keys", img_t, img_k)
+        frame_ms, peak = frame_stats(lambda: render_tiled(g, cam, **kw))
+    say(11, f"CLI render --renderer tiled of {g.num} splats at "
+            f"{res[0]}x{res[1]}: {wall:.2f} s wall (scene load included); "
+            f"in process against the keys render: {IMG_Q}-quantile |diff| "
+            f"{q:.2e} (limit {IMG_QTOL:g}), max {worst:.2e} (limit "
+            f"{IMG_MAXTOL:g}); tiled frame {frame_ms:.2f} ms (host clock "
+            f"with sync, median of 3), peak device memory {peak:.2f} GiB")
+    line, wall, peak = small_fit("tiled", ply_4k, tmp)
+    say(11, f"CLI fit --renderer tiled, {SMALL_FIT['steps']} steps at "
+            f"{SMALL_FIT['res'][0]}x{SMALL_FIT['res'][1]} on the "
+            f"{ORACLE_N}-splat scene, {SMALL_FIT['views']} views: '{line}' "
+            f"in {wall:.2f} s wall; peak device memory {peak:.2f} GiB")
+
+
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
@@ -788,11 +1183,17 @@ def run():
     w, h = CFG_FIT["res"]
     fused_fit = phase6_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
     fused_1m = phase6_case("1M@256x192", g1m, CFG_1M_GATE, dev)
-    del g1m
     with tempfile.TemporaryDirectory() as tmp:
         fwd_launches, bwd_launches = phase7_fit_cli(g100k,
                                                     pathlib.Path(tmp))
     fit = phase8_fitbench(g100k, dev)
+
+    topk_fit = phase9_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    topk_1m = phase9_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    del g1m
+    with tempfile.TemporaryDirectory() as tmp:
+        ply_4k = phase10_oracle(dev, pathlib.Path(tmp))
+        phase11_tiled(g100k, ply_4k, dev, pathlib.Path(tmp))
     check("jax" not in sys.modules, "something imported jax")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms):
@@ -812,10 +1213,19 @@ def run():
         entry("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
               max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
               fused_fit["ms_bwd"], fused_fit["ms_bwd_plain"]),
+        entry("peel_topk_fwd", "peel_topk_fwd.cu", 892,
+              topk_fit["launches"][0] + topk_1m["launches"][0],
+              max(topk_fit["fwd_err"], topk_1m["fwd_err"]),
+              topk_fit["ms"], topk_fit["ms_plain"]),
+        entry("peel_topk_bwd", "peel_topk_bwd.cu", 913,
+              topk_fit["launches"][1] + topk_1m["launches"][1],
+              max(topk_fit["bwd_err"], topk_1m["bwd_err"]),
+              topk_fit["ms_bwd"], topk_fit["ms_bwd_plain"]),
     ]
     say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
-           f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd ms and plain_ms "
-           f"below are 100k@{w}x{h}")
+           f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd and "
+           f"peel_topk_fwd/peel_topk_bwd ms and plain_ms below are "
+           f"100k@{w}x{h}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

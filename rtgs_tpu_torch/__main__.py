@@ -10,7 +10,8 @@ Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
 ``--device`` (default ``cuda``): with no CUDA device the command fails
 instead of running on the CPU; pass ``--device cpu`` for that. ``render``
 and ``orbit`` run under ``torch.inference_mode()``; ``fit`` trains through
-the fused-payload renderer. ``LOG_LEVEL`` sets logging.
+the fused-payload renderer (``--renderer oracle|tiled`` through those).
+``LOG_LEVEL`` sets logging.
 
     python -m rtgs_tpu_torch render -o scene.ply -r 1920,1088 -d 16
     python -m rtgs_tpu_torch fit -o scene.ply -r 512,384 --steps 500
@@ -62,10 +63,11 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    choices=["auto", "oracle", "tiled", "pallas", "keys"],
                    default="auto",
                    help="render/orbit: auto and keys render the keys path, "
-                        "pallas the fused-payload path. fit: auto and "
-                        "pallas train through the fused-payload path; keys "
-                        "cannot train yet. oracle and tiled are not "
-                        "ported yet.")
+                        "pallas the fused-payload path, oracle brute force, "
+                        "tiled the per-tile argmin peel. fit: auto and "
+                        "pallas train through the fused-payload path, "
+                        "oracle and tiled through autograd; keys cannot "
+                        "train yet.")
     p.add_argument("--max-candidates", type=int, default=None,
                    help="Per-tile candidate budget (default 512; raise "
                         "until the overflow counters read 0).")

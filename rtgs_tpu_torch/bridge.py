@@ -1,9 +1,10 @@
 """Numpy bridge between the JAX package's objects and the port's.
 
 Inputs are read field by field with ``np.asarray``, so a JAX ``Gaussians``,
-``Camera`` or ``SceneParams``, a plain namespace or a mapping of arrays all
-work, and this module never imports JAX. The tests use it to feed one
-scene, one camera, one parameter set and one Adam state to both packages.
+``Camera``, ``Rays`` or ``SceneParams``, a plain namespace or a mapping of
+arrays all work, and this module never imports JAX. The tests use it to
+feed one scene, one camera, one ray bundle, one parameter set and one Adam
+state to both packages.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera, new_camera
+from rtgs_tpu_torch.rays import Rays
 
 
 def _field(src, name):
@@ -52,6 +54,20 @@ def camera_to_numpy(cam: Camera) -> dict:
         "focal_length": cam.focal_length.detach().cpu().numpy(),
         "buf_size": tuple(cam.buf_size),
     }
+
+
+def rays_from_numpy(src, device="cpu"):
+    """A port :class:`~rtgs_tpu_torch.rays.Rays` from any object or mapping
+    with ``origins``, ``directions``, ``starts`` and ``ends``."""
+    return Rays(*(
+        torch.from_numpy(np.array(_field(src, f), np.float32)).to(device)
+        for f in Rays._fields))
+
+
+def rays_to_numpy(rays) -> Dict[str, np.ndarray]:
+    """The four ray fields as float32 numpy arrays."""
+    return {f: x.detach().cpu().numpy() for f, x in
+            zip(rays._fields, rays)}
 
 
 def params_from_numpy(src, device="cpu"):

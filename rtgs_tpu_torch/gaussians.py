@@ -8,7 +8,8 @@ Port of :mod:`rtgs_tpu.gaussians`, with its numerical contract:
     (:data:`BOUNDING_THRESHOLD`);
   * the AABB comes from the 6 endpoints ``μ ± 3·scaleᵢ·(R eᵢ)``;
   * color = base color + real SH of degrees 1..3, with the reference's
-    ``5z² − 3z`` quirk in the Y₃₀ slot.
+    ``5z² − 3z`` quirk in the Y₃₀ slot;
+  * the response is ``ρ = exp(−dᵀ Σ⁻¹ d)``, with no ½.
 """
 
 from __future__ import annotations
@@ -64,6 +65,83 @@ class Gaussians:
     @property
     def device(self) -> torch.device:
         return self.means.device
+
+
+def new_gaussians(means, quats=None, scales=None, colors=None,
+                  opacities=None, sh=None, mask=None,
+                  device="cpu") -> Gaussians:
+    """Constructor with the reference's defaults: identity rotation, unit
+    scale, magenta color, opacity 1, zero SH, all live."""
+    def f32(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device=device, dtype=torch.float32)
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    means = f32(means)
+    n = means.shape[0]
+
+    def dflt(x, value, shape):
+        return f32(value).expand(shape).clone() if x is None else f32(x)
+
+    return Gaussians(
+        means=means,
+        quats=dflt(quats, [0.0, 0.0, 0.0, 1.0], (n, 4)),
+        scales=dflt(scales, [1.0, 1.0, 1.0], (n, 3)),
+        colors=dflt(colors, [1.0, 0.0, 1.0], (n, 3)),
+        opacities=dflt(opacities, 1.0, (n,)),
+        sh=dflt(sh, 0.0, (n, NUM_SH_COEFFS, 3)),
+        mask=dflt(mask, 1.0, (n,)),
+    )
+
+
+def covariance(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``Σ = R S Sᵀ Rᵀ``. → (..., 3, 3)."""
+    rs = quat.as_rotation_mat3(quats) * scales[..., None, :]  # R @ diag(s)
+    return rs @ rs.transpose(-1, -2)
+
+
+def _adjugate_inverse_3x3(m: torch.Tensor) -> torch.Tensor:
+    """Inverse of a 3×3 by adjugate and determinant (the reference's
+    algorithm)."""
+    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    co00 = e * i - f * h
+    co01 = -(d * i - f * g)
+    co02 = d * h - e * g
+    co10 = -(b * i - c * h)
+    co11 = a * i - c * g
+    co12 = -(a * h - b * g)
+    co20 = b * f - c * e
+    co21 = -(a * f - c * d)
+    co22 = a * e - b * d
+    det = a * co00 + b * co01 + c * co02
+    adj = torch.stack([
+        torch.stack([co00, co10, co20], dim=-1),
+        torch.stack([co01, co11, co21], dim=-1),
+        torch.stack([co02, co12, co22], dim=-1),
+    ], dim=-2)
+    return adj / det[..., None, None]
+
+
+def inv_covariance(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """``Σ⁻¹`` by adjugate of the assembled Σ. → (..., 3, 3)."""
+    return _adjugate_inverse_3x3(covariance(quats, scales))
+
+
+def inv_covariance_direct(quats: torch.Tensor,
+                          scales: torch.Tensor) -> torch.Tensor:
+    """``Σ⁻¹ = R S⁻² Rᵀ``: algebraically the same, better conditioned."""
+    rs = quat.as_rotation_mat3(quats) / scales[..., None, :]
+    return rs @ rs.transpose(-1, -2)
+
+
+def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` for (..., 3, 3) and (..., 3) operands that broadcast,
+    summed over j = 0, 1, 2 elementwise in f32: a batched matmul would
+    expand ``m`` to the broadcast shape."""
+    return (m[..., 0] * v[..., 0:1] + m[..., 1] * v[..., 1:2]
+            + m[..., 2] * v[..., 2:3])
 
 
 def _rotation_columns(quats: torch.Tensor):
@@ -136,3 +214,45 @@ def sh_basis(dirs: torch.Tensor) -> torch.Tensor:
         ],
         dim=-1,
     )
+
+
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """SH radiance ``Σₖ yₖ(dir) · shₖ``. ``sh``: (..., 15, 3); ``dirs``:
+    (..., 3) unit. → (..., 3)."""
+    return torch.sum(sh_basis(dirs)[..., None] * sh, dim=-2)
+
+
+def hit(cov_inv: torch.Tensor, means: torch.Tensor, origins: torch.Tensor,
+        directions: torch.Tensor):
+    """Ray–Gaussian intersection against ``xᵀΣ⁻¹x = 3``; all arguments
+    broadcast. Returns ``(t1, t2)`` ascending, with the reference's miss
+    semantics: ``Δ < 0 → (inf, inf)``, ``Δ == 0 → (−B/2A, inf)``.
+
+    Every branch that ``torch.where`` does not take still back-propagates
+    zeros through its operations, so the square root reads
+    ``where(Δ > 0, Δ, 1)``: an inf or NaN there would turn those zeros
+    into NaN."""
+    e = origins - means
+    me = _matvec(cov_inv, e)
+    md = _matvec(cov_inv, directions)
+    a = torch.sum(directions * md, dim=-1)
+    b = 2.0 * torch.sum(directions * me, dim=-1)
+    c = torch.sum(e * me, dim=-1) - BOUNDING_THRESHOLD
+    delta = b * b - 4 * a * c
+    sq = torch.sqrt(torch.where(delta > 0, delta, 1.0))  # grad-safe sqrt
+    t1 = torch.where(delta > 0, (-b - sq) / (2 * a),
+                     torch.where(delta == 0, -b / (2 * a), math.inf))
+    t2 = torch.where(delta > 0, (-b + sq) / (2 * a), math.inf)
+    return t1, t2
+
+
+def eval_gaussian(cov_inv: torch.Tensor, means: torch.Tensor,
+                  colors: torch.Tensor, opacities: torch.Tensor,
+                  sh: torch.Tensor, pos: torch.Tensor, dirs: torch.Tensor):
+    """The reference's ``Gaussian.eval``: the unnormalized response at
+    ``pos`` and the SH color for view direction ``dirs``. Returns
+    ``(rgb, alpha)``."""
+    d = pos - means
+    rho = torch.exp(-torch.sum(d * _matvec(cov_inv, d), dim=-1))
+    dirs_n = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    return colors + eval_sh(sh, dirs_n), opacities * rho

@@ -3,8 +3,8 @@
 ``nvcc`` compiles the ``.cu`` sources under ``csrc/`` (one process per
 source, all at once) and links them into one shared library with a plain C
 interface, at first use, into ``rtgs_tpu_torch/_build/``; the library's
-name carries a hash of the sources and flags, so an edited source
-rebuilds. It is loaded with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
+name carries a hash of the sources, their shared header
+(``peel_common.cuh``) and the flags, so an edited source rebuilds. It is loaded with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
 every module, and there is no ``nvcc`` there.
 """
 
@@ -43,7 +43,7 @@ def nvcc_path() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(SRC_DIR.glob("*.cu")):
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librtgs_kernels_{h.hexdigest()[:16]}.so"
@@ -101,6 +101,10 @@ def load_library() -> ctypes.CDLL:
     lib.rtgs_peel_fwd.restype = i
     lib.rtgs_peel_bwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
     lib.rtgs_peel_bwd.restype = i
+    lib.rtgs_peel_topk_fwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
+    lib.rtgs_peel_topk_fwd.restype = i
+    lib.rtgs_peel_topk_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.rtgs_peel_topk_bwd.restype = i
     lib.rtgs_cuda_error_string.argtypes = [i]
     lib.rtgs_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,7 +1,9 @@
 """Tile top-K peels (port of :mod:`rtgs_tpu.ops.peel`): the keys-only
 top-K, per pixel the K nearest ``(t1, splat id)`` among its tile's
-candidates, and the fused-payload peel, which also shades and composites
-the K nearest and has a hand-written backward (see :func:`peel_fused`).
+candidates; the fused-payload peel, which also shades and composites the
+K nearest and has a hand-written backward (see :func:`peel_fused`); and
+the top-K peel, which shades the K nearest and returns them uncomposited,
+also with a hand-written backward (see :func:`peel_topk`).
 
 Feature packing (F = 64 lanes), as in the JAX package:
   [0:6]   Σ⁻¹ packed sym6 (m00, m01, m02, m11, m12, m22)
@@ -22,12 +24,16 @@ vacant) and sid int32 (−1 vacant; the JAX package uses f32 +inf).
 
 Each kernel has two implementations with one contract: the hand-written
 Hopper kernel (``csrc/keys.cu``: :func:`peel_keys_cuda`; ``csrc/peel_fwd.cu``
-and ``csrc/peel_bwd.cu``: :func:`peel_fused_cuda`, :func:`peel_fused_bwd_cuda`)
-and its plain torch twin (:func:`peel_keys_torch`, :func:`peel_fused_torch`,
-:func:`peel_fused_bwd_torch`). Both evaluate t1 with the same operations in
+and ``csrc/peel_bwd.cu``: :func:`peel_fused_cuda`, :func:`peel_fused_bwd_cuda`;
+``csrc/peel_topk_fwd.cu`` and ``csrc/peel_topk_bwd.cu``:
+:func:`peel_topk_cuda`, :func:`peel_topk_bwd_cuda`) and its plain torch twin
+(:func:`peel_keys_torch`, :func:`peel_fused_torch`,
+:func:`peel_fused_bwd_torch`, :func:`peel_topk_torch`,
+:func:`peel_topk_bwd_torch`). Both evaluate t1 with the same operations in
 the same order, and the kernels are built without FMA contraction, so on
 the card the two select the same winners bitwise. The dispatchers
-(:func:`peel_keys`, :func:`peel_fused`) pick by the tensors' device.
+(:func:`peel_keys`, :func:`peel_fused`, :func:`peel_topk`) pick by the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -223,20 +229,28 @@ def _safe_ids(packed: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
                        packed.shape[0] - 1).long()
 
 
+def _select(packed: torch.Tensor, candidates: torch.Tensor,
+            pix: torch.Tensor, depth: int):
+    """The K nearest hits' t1 (T, K, P) f32 (+inf vacant) and candidate
+    slots (T, K, P) int32 (−1 vacant); see :func:`select_slots`."""
+    rows = packed[:, :10][_safe_ids(packed, candidates)]
+    t1 = entry_depth(rows, pix)                        # (T, P, C)
+    if t1.shape[2] < depth:
+        t1 = F.pad(t1, (0, depth - t1.shape[2]), value=math.inf)
+    t1_s, order = torch.sort(t1, dim=2, stable=True)
+    t1_k = t1_s[..., :depth]
+    slots = torch.where(torch.isfinite(t1_k), order[..., :depth], -1)
+    return (t1_k.transpose(1, 2).contiguous(),
+            slots.transpose(1, 2).to(torch.int32).contiguous())
+
+
 def select_slots(packed: torch.Tensor, candidates: torch.Tensor,
                  pix: torch.Tensor, depth: int) -> torch.Tensor:
     """Candidate slots (T, K, P) int32 of each pixel's K nearest hits,
     ordered lexicographically by (t1, slot): the field is stable-sorted by
     t1 along the slot axis, so among equal t1 the earlier slot wins, as in
     the JAX ``_merge_topk``. −1 marks a vacant layer."""
-    rows = packed[:, :10][_safe_ids(packed, candidates)]
-    t1 = entry_depth(rows, pix)                        # (T, P, C)
-    if t1.shape[2] < depth:
-        t1 = F.pad(t1, (0, depth - t1.shape[2]), value=math.inf)
-    t1_s, order = torch.sort(t1, dim=2, stable=True)
-    slots = torch.where(torch.isfinite(t1_s[..., :depth]),
-                        order[..., :depth], -1)
-    return slots.transpose(1, 2).to(torch.int32).contiguous()
+    return _select(packed, candidates, pix, depth)[1]
 
 
 def _winner_rows(packed: torch.Tensor, candidates: torch.Tensor,
@@ -341,14 +355,27 @@ def peel_fused_bwd_torch(packed: torch.Tensor, candidates: torch.Tensor,
                          grad_trans: torch.Tensor) -> torch.Tensor:
     """Plain twin of the backward kernel: per-slot feature gradients
     (T, C, 64) of ``Σ grad_rad·radiance + Σ grad_trans·transmittance`` for
-    the winners ``slots`` of the forward. Chains the layer cotangents
-    through α = op·ρ and rgb = color + y·SH as the JAX ``_bwd_kernel``
-    (``rtgs_tpu/ops/peel.py:827-862``); dOp is masked by acceptance (a
-    winner), not by α > 0, so a transparent splat can still revive."""
+    the winners ``slots`` of the forward: the layer cotangents of the
+    composite (:func:`_layer_cotangents`), chained to the slots by
+    :func:`_slot_grads`."""
     won = slots >= 0
-    rows = _winner_rows(packed, candidates, slots)
-    a, b, rho, alpha, rgb = _shade_layers(rows, pix, won)
+    a, b, rho, alpha, rgb = _shade_layers(
+        _winner_rows(packed, candidates, slots), pix, won)
     ga, gwr, gwg, gwb = _layer_cotangents(grad_rad, grad_trans, alpha, *rgb)
+    return _slot_grads(candidates, pix, slots, a, b, rho, alpha,
+                       ga, gwr, gwg, gwb)
+
+
+def _slot_grads(candidates, pix, slots, a, b, rho, alpha,
+                ga, gwr, gwg, gwb) -> torch.Tensor:
+    """Per-slot feature gradients (T, C, 64) from the per-layer cotangents
+    (T, K, P) of the winners' α (``ga``) and rgb (``gwr``, ``gwg``,
+    ``gwb``), chained through α = op·ρ and rgb = color + y·SH as sweep 2 of
+    the JAX backward kernels (``rtgs_tpu/ops/peel.py:786-867``); dOp is
+    masked by acceptance (a winner), not by α > 0, so a transparent splat
+    can still revive. ``a``, ``b``, ``rho``, ``alpha``: the winners'
+    shading (:func:`_shade_layers`)."""
+    won = slots >= 0
     ga_alpha = ga * alpha
     d_a = ga_alpha * (-(b * b) / ((4.0 * a) * a))
     d_b = ga_alpha * (b / (2.0 * a))
@@ -368,8 +395,7 @@ def peel_fused_bwd_torch(packed: torch.Tensor, candidates: torch.Tensor,
     t, c = candidates.shape
     flat = (torch.arange(t, device=slots.device)[:, None, None] * c
             + slots.long())
-    out = torch.zeros((t * c, F_DIM), dtype=packed.dtype,
-                      device=packed.device)
+    out = torch.zeros((t * c, F_DIM), dtype=alpha.dtype, device=alpha.device)
     out.index_add_(0, flat[won], lanes[won])
     return out.reshape(t, c, F_DIM)
 
@@ -531,3 +557,182 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
     fixed order, so gradients agree run to run only to f32 rounding.
     """
     return PeelFused.apply(packed, candidates, pix, depth, impl)
+
+
+# ---------------------------------------------------------------------------
+# Top-K peel: select and shade the K nearest, without compositing (port of
+# rtgs_tpu.ops.peel.peel_topk_pallas), with a hand-written backward.
+# ---------------------------------------------------------------------------
+
+# Lanes of the layer table (T, 5, K, P) the top-K kernel writes.
+TOPK_LANES = ("t1", "alpha", "r", "g", "b")
+
+
+def peel_topk_torch(packed: torch.Tensor, candidates: torch.Tensor,
+                    pix: torch.Tensor, depth: int):
+    """Plain twin of the top-K forward kernel (the counterpart of the JAX
+    ``peel_topk_xla``): select the K nearest by (t1, slot) (as
+    :func:`select_slots`) and shade them in f32 (:func:`_shade_layers`),
+    without compositing. Differentiable in ``packed`` through the shading.
+
+    Returns (layers (T, 5, K, P) f32 with lanes ``TOPK_LANES``, slots
+    (T, K, P) int32). Vacant layers have t1 = +inf and α = r = g = b = 0
+    (they shade the sentinel row)."""
+    with torch.no_grad():
+        t1, slots = _select(packed.detach(), candidates, pix.detach(), depth)
+    _, _, _, alpha, rgb = _shade_layers(
+        _winner_rows(packed, candidates, slots), pix, slots >= 0)
+    return torch.stack([t1, alpha, *rgb], dim=1), slots
+
+
+def peel_topk_bwd_torch(packed: torch.Tensor, candidates: torch.Tensor,
+                        pix: torch.Tensor, slots: torch.Tensor,
+                        grad_layers: torch.Tensor) -> torch.Tensor:
+    """Plain twin of the top-K backward kernel: per-slot feature gradients
+    (T, C, 64) for the winners ``slots``, from the caller's per-layer
+    cotangents ``grad_layers`` (T, 4, K, P) of (α, r, g, b), chained by
+    :func:`_slot_grads` with no suffix recurrence."""
+    a, b, rho, alpha, _ = _shade_layers(
+        _winner_rows(packed, candidates, slots), pix, slots >= 0)
+    return _slot_grads(candidates, pix, slots, a, b, rho, alpha,
+                       *grad_layers.unbind(1))
+
+
+def peel_topk_cuda(packed: torch.Tensor, candidates: torch.Tensor,
+                   counts: torch.Tensor, pix: torch.Tensor, depth: int):
+    """Launch the Hopper top-K forward kernel (``csrc/peel_topk_fwd.cu``)
+    on the current stream. Inputs as :func:`peel_fused_cuda`.
+
+    Returns (layers (T, 5, K, P) f32 with lanes ``TOPK_LANES``, slots
+    (T, K, P) int32). Every input must be a contiguous CUDA tensor on one
+    device; a failed build or launch raises. ``peel_topk_cuda.launches``
+    counts the launches."""
+    t, c = candidates.shape
+    p = pix.shape[1]
+    dev = _check_launch("peel_topk_cuda", (
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", candidates, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
+    layers = torch.empty((t, len(TOPK_LANES), depth, p), dtype=torch.float32,
+                         device=dev)
+    slots = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
+    if t == 0:
+        return layers, slots
+    from rtgs_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    ptr = ctypes.c_void_p
+    err = lib.rtgs_peel_topk_fwd(
+        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
+        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(layers.data_ptr()),
+        ptr(slots.data_ptr()), t, c, p, depth, _device_index(dev),
+        ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "top-K forward")
+    peel_topk_cuda.launches += 1
+    return layers, slots
+
+
+peel_topk_cuda.launches = 0
+
+
+def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
+                       counts: torch.Tensor, pix: torch.Tensor,
+                       slots: torch.Tensor, grad_layers: torch.Tensor,
+                       depth: int) -> torch.Tensor:
+    """Launch the Hopper top-K backward kernel (``csrc/peel_topk_bwd.cu``)
+    on the current stream. Inputs as :func:`peel_fused_cuda`, plus the
+    forward's ``slots`` (T, K, P) int32 and the per-layer cotangents
+    ``grad_layers`` (T, 4, K, P) f32 of (α, r, g, b). Returns the per-slot
+    feature gradients (T, C, 64) f32, summed over pixels with shared-memory
+    float atomics, so their low bits vary from run to run.
+    ``peel_topk_bwd_cuda.launches`` counts the launches."""
+    t, c = candidates.shape
+    p = pix.shape[1]
+    dev = _check_launch("peel_topk_bwd_cuda", (
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", candidates, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("pix", pix, torch.float32, (t, p, G_DIM)),
+        ("slots", slots, torch.int32, (t, depth, p)),
+        ("grad_layers", grad_layers, torch.float32, (t, 4, depth, p))),
+        c, p, depth)
+    dfeats = torch.zeros((t, c, F_DIM), dtype=torch.float32, device=dev)
+    if t == 0:
+        return dfeats
+    from rtgs_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    ptr = ctypes.c_void_p
+    err = lib.rtgs_peel_topk_bwd(
+        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
+        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
+        ptr(grad_layers.data_ptr()), ptr(dfeats.data_ptr()), t, c, p, depth,
+        _device_index(dev), ptr(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "top-K backward")
+    peel_topk_bwd_cuda.launches += 1
+    return dfeats
+
+
+peel_topk_bwd_cuda.launches = 0
+
+
+class PeelTopK(torch.autograd.Function):
+    """The top-K peel with its hand-written backward: the counterpart of
+    the JAX ``peel_topk_pallas`` custom VJP. The forward returns the layer
+    table (T, 5, K, P) and saves its inputs and the winners' slots; the
+    backward drops the t1 cotangent (the order is piecewise constant, as
+    the JAX rule does) and returns a gradient for ``packed`` only,
+    scatter-adding the per-slot gradients into (N+1, 64) with
+    ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, packed, candidates, pix, depth, impl):
+        use_kernel = _use_kernel(impl, packed)
+        if use_kernel:
+            layers, slots = peel_topk_cuda(packed, candidates,
+                                           _counts(candidates), pix, depth)
+        else:
+            layers, slots = peel_topk_torch(packed, candidates, pix, depth)
+        ctx.save_for_backward(packed, candidates, pix, slots)
+        ctx.depth, ctx.use_kernel = depth, use_kernel
+        return layers
+
+    @staticmethod
+    def backward(ctx, grad_layers):
+        packed, candidates, pix, slots = ctx.saved_tensors
+        grad_layers = grad_layers[:, 1:].contiguous()     # (α, r, g, b)
+        if ctx.use_kernel:
+            dfeats = peel_topk_bwd_cuda(packed, candidates,
+                                        _counts(candidates), pix, slots,
+                                        grad_layers, ctx.depth)
+        else:
+            dfeats = peel_topk_bwd_torch(packed, candidates, pix, slots,
+                                         grad_layers)
+        dpacked = torch.zeros_like(packed).index_add_(
+            0, _safe_ids(packed, candidates).reshape(-1),
+            dfeats.reshape(-1, F_DIM))
+        return dpacked, None, None, None, None
+
+
+def peel_topk(packed: torch.Tensor, candidates: torch.Tensor,
+              pix: torch.Tensor, depth: int, impl: str = "auto"):
+    """Tile top-K peel, differentiable in ``packed`` (port of the JAX
+    ``peel_topk_pallas``, the per-shard primitive of the primitive-sharded
+    ring renderer): per pixel, the K nearest hits by (t1, candidate slot),
+    shaded and NOT composited; ``composite_hits`` of
+    :mod:`rtgs_tpu_torch.render.oracle` composites the lists.
+
+    Args as :func:`peel_fused`; ``impl``: ``"auto"`` (the Hopper kernels
+    for CUDA tensors, the plain twins for CPU tensors), ``"cuda"`` or
+    ``"torch"``. On CUDA tensors ``auto`` launches the kernels or raises.
+
+    Returns ``(t1, alpha, r, g, b)``, each (T, P, K), depth-ascending;
+    vacant layers have t1 = +inf and α = r = g = b = 0. t1 is the float64
+    entry depth rounded once (the JAX package's is f32). The gradient
+    flows through α and rgb to ``packed``; t1's cotangent is dropped.
+    Determinism as :func:`peel_fused`: the forward is bitwise
+    deterministic, the gradient agrees run to run only to f32 rounding.
+    """
+    layers = PeelTopK.apply(packed, candidates, pix, depth, impl)
+    return tuple(layers.transpose(2, 3).unbind(1))

@@ -1,11 +1,23 @@
 """Renderer dispatch (port of :mod:`rtgs_tpu.render.api`).
 
-``auto`` and ``keys`` render through
-:func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`, the keys path, on
-every device and scene size. ``pallas`` renders through
-:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`, the
-fused-payload path with a hand-written backward (what training uses).
-``oracle`` and ``tiled`` are not ported yet and raise.
+  * ``oracle`` — brute force O(N·P), the reference's semantics
+    (:func:`~rtgs_tpu_torch.render.oracle.render_oracle`); differentiable
+    through torch autograd.
+  * ``tiled`` — the per-tile argmin peel
+    (:func:`~rtgs_tpu_torch.render.tiled.render_tiled`); differentiable
+    through torch autograd.
+  * ``pallas`` — the fused-payload path
+    (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`), with a
+    hand-written backward (what training uses by default).
+  * ``keys`` — the keys path
+    (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`).
+  * ``auto`` — the keys path, on every device and scene size. (The JAX
+    ``auto`` renders scenes of at most 4096 splats through the oracle, and
+    larger ones through ``pallas`` on its chip and ``tiled`` elsewhere.)
+
+The tiled-only knobs (candidate budgets, banding, binning) mean nothing to
+the oracle, and ``render_tiled`` has no banding: they are dropped rather
+than refused, so one set of CLI flags drives every renderer.
 """
 
 from __future__ import annotations
@@ -15,10 +27,8 @@ import torch
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
 
-_NOT_PORTED = {
-    "oracle": "ROADMAP queue 1, item 3 (oracle)",
-    "tiled": "ROADMAP queue 1, item 10 (secondary renderers)",
-}
+_TILED_ONLY = ("max_candidates", "max_global", "tile_bands",
+               "max_tiles_local", "tile", "bin_narrow")
 
 
 def render(g: G.Gaussians, camera: Camera, depth: int = 16,
@@ -32,10 +42,16 @@ def render(g: G.Gaussians, camera: Camera, depth: int = 16,
         from rtgs_tpu_torch.render.tiled import render_tiled_pallas
 
         return render_tiled_pallas(g, camera, depth=depth, **kwargs)
-    if renderer in _NOT_PORTED:
-        raise NotImplementedError(
-            f"renderer {renderer!r} is not ported yet; see "
-            f"{_NOT_PORTED[renderer]}")
+    if renderer == "oracle":
+        from rtgs_tpu_torch.render.oracle import render_oracle
+
+        kwargs = {k: v for k, v in kwargs.items() if k not in _TILED_ONLY}
+        return render_oracle(g, camera, depth=depth, **kwargs)
+    if renderer == "tiled":
+        from rtgs_tpu_torch.render.tiled import render_tiled
+
+        kwargs.pop("tile_bands", None)
+        return render_tiled(g, camera, depth=depth, **kwargs)
     raise ValueError(f"unknown renderer {renderer!r}")
 
 

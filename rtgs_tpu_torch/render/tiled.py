@@ -1,6 +1,8 @@
 """Tile-binned renderers: the keys path (port of the forward of
-:func:`rtgs_tpu.render.tiled.render_tiled_keys`) and the fused-payload path
-(:func:`render_tiled_pallas`, differentiable, under the JAX name).
+:func:`rtgs_tpu.render.tiled.render_tiled_keys`), the fused-payload path
+(:func:`render_tiled_pallas`, differentiable, under the JAX name), and the
+per-tile argmin peel (:func:`render_tiled`, differentiable through torch
+autograd, with no kernel: it is plain XLA in the JAX package too).
 
 Per frame:
 
@@ -20,7 +22,12 @@ Per frame:
 The fused-payload path replaces stages 3-5 with one
 :func:`~rtgs_tpu_torch.ops.peel.peel_fused` call per band (the Hopper
 forward and backward kernels on the card), which selects by (t1, candidate
-slot), shades and composites in one pass.
+slot), shades and composites in one pass. :func:`render_tiled` replaces
+them with :func:`intersect_candidates` (every pixel against every
+candidate of its tile) and :func:`peel_block` (K masked-argmin steps),
+over chunks of tiles. All three take t1 from the float64 chain of
+:func:`~rtgs_tpu_torch.ops.peel.entry_depth` and order by (t1, candidate
+slot), so they select the same winners.
 
 Layouts follow the JAX package: tile index ``T = tx·nty + ty``, pixels in
 local (x, y) raster order, images (W, H, 3) with a bottom-left origin.
@@ -33,10 +40,12 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
-from rtgs_tpu_torch.ops.peel import CHUNK, G_DIM, peel_fused, peel_keys
+from rtgs_tpu_torch.ops.peel import (CHUNK, G_DIM, entry_depth, peel_fused,
+                                     peel_keys)
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.utils import quaternion as quat
 
@@ -301,3 +310,147 @@ def render_tiled_pallas(
         }
         return img, stats
     return img
+
+
+def intersect_candidates(feats: TileFeatures, cand: torch.Tensor,
+                         dirs: torch.Tensor):
+    """Intersect each tile's pixels with its candidate list, for a batch
+    of B tiles (the JAX function is one tile, under ``vmap``).
+
+    Args:
+      feats: camera-folded features.
+      cand: (B, C) int32 candidate ids, −1 padded.
+      dirs: (B, P, 3) unit pixel ray directions.
+
+    Returns:
+      (t1, alpha, rgb): (B, P, C), (B, P, C), (B, P, C, 3). t1 is the
+      float64 entry depth of :func:`~rtgs_tpu_torch.ops.peel.entry_depth`
+      rounded once, without gradient (the order it sets is piecewise
+      constant); invalid entries have ``t1 = +inf`` and ``alpha = 0``.
+      α and rgb are f32, differentiable in ``feats``. A and B are summed
+      lane by lane in the order of the other tile renderers' shading
+      (:func:`~rtgs_tpu_torch.ops.peel._shade_layers`): the exponent
+      B²/4A − (c0+3) cancels, so another order (the JAX package's
+      matmul) moves α by up to ~1e-2 relative at small splats.
+    """
+    safe = torch.where(cand >= 0, cand, feats.c0.shape[0] - 1).long()
+    m6, me = feats.m6[safe], feats.me[safe]       # (B, C, 6), (B, C, 3)
+    # The sentinel's inf c0 would make NaN (0·inf) downstream.
+    c0 = feats.c0[safe]
+    c0 = torch.where(torch.isfinite(c0), c0, 1e30)
+    op, col, sh = feats.opacity[safe], feats.color[safe], feats.sh[safe]
+
+    fd, y = direction_features(dirs)              # (B, P, 6), (B, P, 15)
+    with torch.no_grad():
+        t1 = entry_depth(torch.cat([m6, me, c0[..., None]], dim=-1),
+                         torch.cat([dirs, fd], dim=-1))
+    a = fd[..., 0:1] * m6[:, None, :, 0]          # (B, P, C)
+    for j in range(1, 6):
+        a = a + fd[..., j:j + 1] * m6[:, None, :, j]
+    b = dirs[..., 0:1] * me[:, None, :, 0]
+    for j in range(1, 3):
+        b = b + dirs[..., j:j + 1] * me[:, None, :, j]
+    b = 2.0 * b
+    cq = c0[:, None, :]
+    delta = b * b - (4.0 * a) * cq
+    # ρ at the chord midpoint: exp(B²/4A − (c0+3)); Δ ≤ 0 → ρ = 0. The
+    # exponent is −inf there, not exp's overflow, so no inf meets a zero
+    # cotangent.
+    rho = torch.exp(torch.where(delta > 0.0, b * b / (4.0 * a) - (cq + 3.0),
+                                -math.inf))
+    valid = torch.isfinite(t1)
+    alpha = torch.where(valid, op[:, None, :] * rho, 0.0)
+    # rgb[b, p, c, ch] = color[c, ch] + Σₖ y[p, k] sh[c, k, ch].
+    rgb = col[:, None, :, :] + torch.einsum("bpk,bckh->bpch", y, sh)
+    return t1, alpha, rgb
+
+
+def peel_block(t1, alpha, rgb, depth: int):
+    """K masked-argmin peel steps over (B, P, C) blocks: the reference's
+    per-launch peel as a fixed-trip-count loop. Each step takes the first
+    candidate (lowest slot) of the smallest remaining t1, so ties go to
+    the lower slot. The argmin runs without gradient; the chosen entries'
+    α and rgb are gathered, so the gradient reaches only them.
+
+    Returns (radiance (B, P, 3), transmittance (B, P))."""
+    c = t1.shape[-1]
+    with torch.no_grad():
+        lane = torch.arange(c, device=t1.device)
+        t1m = t1.clone()
+        picks, found = [], []
+        for _ in range(depth):
+            m = t1m.amin(dim=-1, keepdim=True)
+            hit = torch.isfinite(m)
+            first = torch.where((t1m == m) & hit, lane, c).amin(
+                dim=-1, keepdim=True)                 # (B, P, 1)
+            idx = first.clamp(max=c - 1)              # c: no hit left
+            t1m.scatter_(-1, idx, math.inf)
+            picks.append(idx)
+            found.append(hit)
+    rad = torch.zeros(t1.shape[:-1] + (3,), dtype=alpha.dtype,
+                      device=alpha.device)
+    trans = torch.ones(t1.shape[:-1], dtype=alpha.dtype, device=alpha.device)
+    for idx, hit in zip(picks, found):
+        a = torch.where(hit, alpha.gather(-1, idx), 0.0)[..., 0]
+        col = rgb.gather(2, idx[..., None].expand(*idx.shape, 3))[..., 0, :]
+        rad = rad + (trans * a)[..., None] * col
+        trans = trans * (1.0 - a)
+    return rad, trans
+
+
+def _peel_tiles(feats: TileFeatures, depth: int, cand, dirs):
+    """:func:`intersect_candidates` then :func:`peel_block` for a batch of
+    tiles (the JAX ``_peel_one_tile`` under ``vmap``)."""
+    return peel_block(*intersect_candidates(feats, cand, dirs), depth)
+
+
+def render_tiled(
+    g: G.Gaussians,
+    camera: Camera,
+    depth: int = 16,
+    tile=(16, 16),
+    max_candidates: int = 512,
+    max_global: int = 64,
+    tile_chunk: int | None = None,
+    max_tiles_local=None,
+    pixel_offset=None,
+    bin_narrow: int | None = None,
+):
+    """Full-frame render through the per-tile argmin peel (port of the
+    JAX ``render_tiled``). Returns (W, H, 3) radiance, differentiable in
+    the scene through torch autograd.
+
+    The tiles run in chunks of ``tile_chunk`` (default: the (chunk, P, C)
+    intermediates bounded to 2²⁴ elements), one after the other. With
+    gradients on, each chunk runs under activation checkpointing, so
+    autograd keeps only the chunk's inputs and outputs and re-runs the
+    chunk in the backward pass.
+    """
+    w, h = camera.buf_size
+    tw, th = tile
+    ntx, nty = -(-w // tw), -(-h // th)
+    with torch.no_grad():
+        binning = tile_candidates(
+            g, camera, tile=tile, max_candidates=max_candidates,
+            max_global=max_global, max_tiles_local=max_tiles_local,
+            pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow)
+    cand = binning.candidates
+    feats = precompute_features(g, camera)
+    dirs = _tile_pixel_features(camera, tile, pixel_offset)[..., :3]
+
+    t, c2 = cand.shape
+    if tile_chunk is None:
+        tile_chunk = max(1, min(t, (1 << 24) // (tw * th * max(c2, 1))))
+    grad = torch.is_grad_enabled() and any(
+        getattr(feats, f.name).requires_grad
+        for f in dataclasses.fields(feats))
+    rads = []
+    for s in range(0, t, tile_chunk):
+        args = (feats, depth, cand[s:s + tile_chunk], dirs[s:s + tile_chunk])
+        if grad:
+            rad, _ = torch.utils.checkpoint.checkpoint(
+                _peel_tiles, *args, use_reentrant=False)
+        else:
+            rad, _ = _peel_tiles(*args)
+        rads.append(rad)
+    return _tiles_to_image(torch.cat(rads), ntx, nty, tile)[:w, :h]

@@ -5,7 +5,8 @@
     round-trips through ``save_scene``;
   * a differentiable forward through the fused-payload renderer
     (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`, whose
-    backward is the hand-written Hopper kernel on the card); Adam with the
+    backward is the hand-written Hopper kernel on the card), or through the
+    oracle or the ``tiled`` renderer (torch autograd); Adam with the
     standard per-parameter-group 3DGS learning rates as ``torch.optim.Adam``
     parameter groups;
   * adaptive density control with static capacity: clone/split/prune
@@ -42,17 +43,18 @@ logger = logging.getLogger(__name__)
 # shading, but that gradient is untested, so it must not train silently.
 _NOT_TRAINABLE = {
     "keys": "ROADMAP queue 1, item 5 (the keys path's backward)",
-    "oracle": "ROADMAP queue 1, item 3 (oracle)",
-    "tiled": "ROADMAP queue 1, item 10 (secondary renderers)",
 }
 
 
 def training_renderer(renderer: str) -> str:
     """The renderer a training step uses: ``auto`` and ``pallas`` train
     through the fused-payload path (what the JAX ``auto`` picks on its
-    chip); the others raise."""
+    chip); ``oracle`` and ``tiled`` train through torch autograd of their
+    plain code, as they train through JAX autodiff; ``keys`` raises."""
     if renderer in ("auto", "pallas"):
         return "pallas"
+    if renderer in ("oracle", "tiled"):
+        return renderer
     if renderer in _NOT_TRAINABLE:
         raise NotImplementedError(
             f"training through renderer {renderer!r} is not ported yet; see "

@@ -472,7 +472,7 @@ def test_cli_fit_writes_ply(scene_path, tmp_path, capsys):
     assert (ckpt / "step_2.pt").is_file()
 
 
-@pytest.mark.parametrize("renderer", ["keys", "oracle", "tiled"])
+@pytest.mark.parametrize("renderer", ["keys"])
 def test_cli_fit_refuses_untrainable_renderers(scene_path, tmp_path,
                                                renderer):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
