@@ -56,10 +56,37 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
  11. the ``tiled`` renderer through the CLI: ``render --renderer tiled`` of
      the 100k scene at 640x384 against its keys render, frame time and peak
      memory; ``fit --renderer tiled`` for 5 steps on the 4096-splat scene
-     at 128x96.
+     at 128x96;
+ 12. the keys path's backward at the fit configuration: the hand-written
+     backward of ``shade_winners_kp`` against torch autograd of its plain
+     forward (per lane, relative to the lane's largest entry); scene
+     gradients of Σ image through ``render_tiled_keys`` against
+     ``render_tiled_pallas`` (phase 9's limits), banded against unbanded,
+     no NaN; then the benchmark protocol of the repository (forward with
+     the binning counters, and the gradient of Σ image) at its three
+     configurations, 100k at 640x384, 250k at 1280x720 and 1M at 1920x1088
+     in 8 bands, with zero dropped candidates, peak memory, the device's
+     busy share, and the keys kernel's launches of one step (2 per band
+     under recomputation);
+ 13. ``fit --renderer keys`` and ``bench`` through the CLI at the fit
+     configuration (phase 7's protocol), launches counted; the 50-step
+     re-fit of phase 8 through ``keys``, whose PSNR must rise, its step
+     time beside phase 8's;
+ 14. the probes: every variant of the three probe kernels against its
+     plain version at the probes' sizes (kmicro 960x256x128; kprobe and
+     lpprobe at 100k, 640x384, budget 1536), each with its time and GB/s;
+     kprobe's shade variants once more with a +inf state, where their
+     result is the minimum of their shading terms, against the plain
+     minimum; then the three probes as programs (``python -m
+     rtgs_tpu_torch.probes.<name>``'s main), launches counted.
 
-Then one {"kernels": [...]} JSON line, the card's name and power limit,
-and last {"ok": true, "device": {...}}.
+Then one {"kernels": [...]} JSON line (each kernel with its launches on its
+main path, its time beside the plain version's, and ``bound_ms``: the
+larger of its bytes over the memory rate and its operations over the peak
+rate of their type, computed from this run's inputs; ``library_ms``: the
+time of the single PyTorch calls that compute the same function, for the
+probe variants that have one, else null), the card's name and
+power limit, and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -138,6 +165,44 @@ SMALL_FIT = dict(res=(128, 96), views=4, steps=5, init_points=2048,
 IMG_Q, IMG_QTOL, IMG_MAXTOL = 0.99, 5e-4, 0.12
 
 
+# The benchmark configurations of the repository (bench.py CONFIGS with its
+# RENDER_KW; tile bands for the third).
+BENCH_CONFIGS = (
+    dict(label="100k@640x384", n=100_000, res=(640, 384),
+         max_candidates=1536, bin_narrow=3, tile_bands=None),
+    dict(label="250k@1280x720", n=250_000, res=(1280, 720),
+         max_candidates=1536, bin_narrow=3, tile_bands=None),
+    dict(label="1M@1920x1088", n=1_000_000, res=FULL_RES,
+         max_candidates=3584, bin_narrow=4, tile_bands=BANDS),
+)
+BENCH_MAX_GLOBAL = 128
+# Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory
+# 3.35 TB/s, float32 67 TFLOP/s and float64 34 TFLOP/s outside the tensor
+# cores (the kernels use none).
+HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 34e12
+# Operations per unit of work, counted from the sources. Per (pixel, live
+# candidate) the float64 entry-depth chain: A 11, B 6, Δ 4. Per winner, f32:
+# quad 28 (A, B, Δ, the exponent, exp, α), three colors 30 each, composite
+# 9; the backwards re-shade and add ~60 products and 59 sums per winner
+# (and the fused one ~30 for its recurrences).
+SWEEP_F64 = 21
+SHADE_F32 = dict(peel_fwd=127, peel_topk_fwd=118, peel_bwd=280,
+                 peel_topk_bwd=250)
+# kmicro: f32 operations per element of the (T, P, C) block, where they are
+# not negligible beside its 8 bytes; chunkbody's float64 chain runs for 13
+# chunks of 128 rows against every pixel: 13·21 per element at C = 128.
+MICRO_F32 = dict(chain10=20, fori16=32, any_when8=9, roll_sub16=16,
+                 merge16_loop_reg=26, merge16_loop_shfl=26,
+                 merge16_loop_smem=39)
+MICRO_F64 = dict(chunkbody=13 * SWEEP_F64)
+# Probe kernels against their plain versions: exp, exp2 and log are the
+# CUDA math library's in both, but need not compile to the same code
+# (2 ulp); sums run in another order (1e-5 relative); all else bitwise.
+ULP_VARIANTS = ("exp", "exp2", "exp_where")
+SUM_RTOL = 1e-5
+SHADE_TOL = 1e-6
+
+
 class SmokeFailure(Exception):
     pass
 
@@ -166,7 +231,10 @@ def ptxas_summary(log: str) -> str:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             k = re.search(r"([a-z][a-z_]*_kernel)ILi(\d+)E", m.group(1))
-            name = f"{k.group(1)} K={k.group(2)}" if k else m.group(1)
+            # The probes' templates are indexed by variant, not by K.
+            what = ("variant " if k and k.group(1) in (
+                "micro_kernel", "sweep_kernel") else "K=")
+            name = f"{k.group(1)} {what}{k.group(2)}" if k else m.group(1)
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -190,6 +258,60 @@ def time_ms(fn, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(nbytes, f32_ops=0.0, f64_ops=0.0):
+    """The least time (ms) the card could take: the bytes over the memory
+    rate against the operations over the peak of their type. Returns
+    (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = (f32_ops / F32_OPS + f64_ops / F64_OPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def peel_bound(kind, shape):
+    """Bound of a production kernel from one run's inputs: ``shape`` holds
+    T, C, P, the table's rows n, the live (tile, candidate) pairs and, for
+    the fused and top-K kernels, the winners (non-vacant layers). Inputs
+    once: the live ids, each referenced row once (40 bytes for the keys
+    kernel, which reads lanes 0-9; 236 for the others), the pixel lanes the
+    kernel reads (9 for the keys kernel: direction and quadratic features;
+    all 24 for the others, which also shade), counts and bounds. Outputs
+    once, and of the backwards' per-slot gradient only the live pairs' rows:
+    the padded slots of the dense (T, C, 64) block the wrappers hand out are
+    zeros that the function does not need (their cost is a finding of the
+    design, printed beside the bound, not part of it)."""
+    t, c, p = shape["t"], shape["c"], shape["p"]
+    live, k = shape["live"], DEPTH
+    rows = min(live, shape["n"])
+    common = live * 4 + t * 4
+    layers = t * k * p * 4
+    sweep = live * p * SWEEP_F64
+    if kind == "keys_sid":
+        return bound(common + t * p * 9 * 4 + rows * 40
+                     + t * (c // 128 + 1) * 4 + 2 * layers, f64_ops=sweep)
+    common += t * p * 24 * 4 + rows * 236
+    shade = shape["winners"] * SHADE_F32[kind]
+    if kind == "peel_fwd":
+        return bound(common + t * p * 16 + layers, shade, sweep)
+    if kind == "peel_topk_fwd":
+        return bound(common + 6 * layers, shade, sweep)
+    grads = t * p * 16 if kind == "peel_bwd" else 4 * layers
+    return bound(common + layers + grads + live * 64 * 4, shade)
+
+
+def dense_grad_ms(shape):
+    """The least time (ms) of one pass over the backwards' dense (T, C, 64)
+    output, which the wrapper zero-fills before the kernel adds into it."""
+    return shape["t"] * shape["c"] * 64 * 4 / HBM_BPS * 1e3
+
+
+def launch_shape(packed, cand, pix, slots=None):
+    shape = dict(t=cand.shape[0], c=cand.shape[1], p=pix.shape[1],
+                 n=packed.shape[0], live=int((cand >= 0).sum()))
+    if slots is not None:
+        shape["winners"] = int((slots >= 0).sum())
+    return shape
 
 
 def camera(res, dev):
@@ -264,7 +386,8 @@ def phase3_case(label, g, cfg, dev):
            f"{ms_full:.3f} ms), twin {ms_twin:.3f} ms (CUDA events, median "
            f"of 5)")
     return dict(ms=ms, ms_full=ms_full, ms_twin=ms_twin, max_abs_err=err,
-                packed=packed, pix=pix, t1=t1_k, sid=sid_k, cam=cam)
+                packed=packed, pix=pix, t1=t1_k, sid=sid_k, cam=cam,
+                shape=launch_shape(packed, cand, pix))
 
 
 def phase4_precision(case):
@@ -573,7 +696,8 @@ def phase6_case(label, g, cfg, dev):
            f"winners have α = 0 in f32 (f32 Δ ≤ 0) but not in float64 "
            f"(gate: finite)")
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
-                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain)
+                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain,
+                shape=launch_shape(packed, cand, pix, sl_k))
 
 
 FIT_LINE = re.compile(r"fit (\d+) steps: loss=(\S+) psnr=(\S+) live=(\d+) "
@@ -683,8 +807,10 @@ def step_stages(solver, kw):
     return out
 
 
-def phase8_fitbench(g, dev):
-    """Re-fit the perturbed 100k scene in process; returns the numbers."""
+def phase8_fitbench(g, dev, renderer="pallas", phase=8):
+    """Re-fit the perturbed 100k scene in process through ``renderer``;
+    returns the numbers. The per-stage and per-kernel times of a step are
+    the fused path's and are taken only for ``pallas``."""
     import numpy as np
     import torch
 
@@ -704,7 +830,7 @@ def phase8_fitbench(g, dev):
     t0 = time.perf_counter()
     ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
                                  fov=POSE["fov"], radius=POSE["r"],
-                                 depth=DEPTH, renderer="pallas", **kw)
+                                 depth=DEPTH, renderer=renderer, **kw)
     t_data = time.perf_counter() - t0
     params = init_params(g)
     rng = np.random.default_rng(7)
@@ -724,7 +850,7 @@ def phase8_fitbench(g, dev):
                       opacity_reset_every=FIT_STEPS, checkpoint_every=0)
     solver = Solver(params=params, mask=g.mask, cfg=cfg,
                     cameras=list(ds.cameras), targets=list(ds.images),
-                    depth=DEPTH, renderer="pallas", render_kwargs=kw)
+                    depth=DEPTH, renderer=renderer, render_kwargs=kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live0 = solver.num_live
@@ -745,6 +871,24 @@ def phase8_fitbench(g, dev):
     first = statistics.mean(psnrs[:FIT_VIEWS])
     last = statistics.mean(psnrs[-FIT_VIEWS:])
     step_ms = statistics.median(times[2:])
+    w, h = CFG_FIT["res"]
+    say(phase, f"fitbench 100k@{w}x{h} through {renderer}, {FIT_VIEWS} views "
+               f"({t_data:.1f} s to render them), {FIT_STEPS} steps: PSNR "
+               f"{first:.2f} -> {last:.2f} dB (means over the first and the "
+               f"last {FIT_VIEWS} steps, each view once; rise limit "
+               f"{MIN_PSNR_RISE:g} dB); curve "
+               + " ".join(f"{p:.2f}" for p in psnrs[::5]) + f"; live {live0} "
+               f"-> {live_after_densify} at the step-{mid} density pass "
+               f"(capacity {solver.mask.shape[0]}); loss after the "
+               f"step-{FIT_STEPS} opacity reset {after_reset['loss']:.5f}")
+    check(last - first >= MIN_PSNR_RISE, f"PSNR through {renderer} rose "
+          f"{last - first:.3f} dB, less than {MIN_PSNR_RISE} dB")
+    if renderer != "pallas":
+        say(phase, f"step time through {renderer} {step_ms:.2f} ms (host "
+                   f"clock with sync, median of steps 3-{FIT_STEPS}; min "
+                   f"{min(times[2:]):.2f}, max {max(times[2:]):.2f}); peak "
+                   f"device memory {peak:.2f} GiB")
+        return dict(step_ms=step_ms, first=first, last=last)
     stages = [step_stages(solver, kw) for _ in range(3)]
     stages = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
 
@@ -769,16 +913,6 @@ def phase8_fitbench(g, dev):
             packed, b.candidates, counts, pix, DEPTH))
         bwd_ms = time_ms(lambda: peel_fused_bwd_cuda(
             packed, b.candidates, counts, pix, sl, g_rad, g_tr, DEPTH))
-    w, h = CFG_FIT["res"]
-    say(8, f"fitbench 100k@{w}x{h}, {FIT_VIEWS} views ({t_data:.1f} s to "
-           f"render them), {FIT_STEPS} steps: PSNR {first:.2f} -> "
-           f"{last:.2f} dB (means over the first and the last "
-           f"{FIT_VIEWS} steps, each view once; rise "
-           f"limit {MIN_PSNR_RISE:g} dB); curve "
-           + " ".join(f"{p:.2f}" for p in psnrs[::5]) + f"; live {live0} -> "
-           f"{live_after_densify} at the step-{mid} density pass (capacity "
-           f"{solver.mask.shape[0]}); loss after the step-{FIT_STEPS} "
-           f"opacity reset {after_reset['loss']:.5f}")
     say(8, f"step time {step_ms:.2f} ms (host clock with sync, median of "
            f"steps 3-{FIT_STEPS}; min {min(times[2:]):.2f}, max "
            f"{max(times[2:]):.2f}); in one step the fused forward kernel "
@@ -788,8 +922,6 @@ def phase8_fitbench(g, dev):
            f"{peak:.2f} GiB")
     say(8, "one step's device stages (CUDA events, median of 3): "
            + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
-    check(last - first >= MIN_PSNR_RISE, f"PSNR rose {last - first:.3f} dB,"
-          f" less than {MIN_PSNR_RISE} dB")
     check(share < MAX_DROPPED, f"dropped share {share} >= {MAX_DROPPED}")
     return dict(step_ms=step_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
 
@@ -921,13 +1053,6 @@ def phase9_case(label, g, cfg, dev):
           f"packed table differs from the fused path's by {pk_err} per lane")
     grads_f2 = scene_grad(False)[2]
 
-    def field_err(got, ref):
-        """(relative L2, q99 and max of |got − ref| / max |ref|)."""
-        diff = got - ref
-        rel = diff.abs() / (ref.abs().max() + 1e-30)
-        return (float(diff.norm() / (ref.norm() + 1e-30)),
-                quantile(rel, 0.99), float(rel.max()))
-
     grad_errs, floor_errs = {}, {}
     for f in SCENE_FIELDS:
         check(bool(torch.isfinite(grads_k[f]).all()),
@@ -970,7 +1095,8 @@ def phase9_case(label, g, cfg, dev):
                        for (k, (l2, q, m)), fl in zip(grad_errs.items(),
                                                       floor_errs.values())))
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
-                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, launches=launches)
+                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, launches=launches,
+                shape=launch_shape(packed, cand, pix, sl_k))
 
 
 def quantile(x, q):
@@ -978,6 +1104,14 @@ def quantile(x, q):
     (``torch.quantile`` refuses more than 2²⁴ elements)."""
     flat = x.flatten()
     return float(flat.kthvalue(max(1, round(q * flat.numel()))).values)
+
+
+def field_err(got, ref):
+    """(relative L2, q99 and max of |got − ref| / max |ref|)."""
+    diff = got - ref
+    rel = diff.abs() / (ref.abs().max() + 1e-30)
+    return (float(diff.norm() / (ref.norm() + 1e-30)),
+            quantile(rel, 0.99), float(rel.max()))
 
 
 def compare_images(label, img, ref):
@@ -1138,6 +1272,569 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
             f"{ORACLE_N}-splat scene, {SMALL_FIT['views']} views: '{line}' "
             f"in {wall:.2f} s wall; peak device memory {peak:.2f} GiB")
 
+def scene_grads(g, cam, render, **kw):
+    """The image and the gradients of Σ image for every scene field."""
+    leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+              for f in SCENE_FIELDS}
+    img = render(type(g)(mask=g.mask, **leaves), cam, depth=DEPTH,
+                 tile=TILE, **kw)
+    img.sum().backward()
+    return img.detach(), {f: x.grad for f, x in leaves.items()}
+
+
+def phase12_gradients(g, dev):
+    """The shade backward against autograd of the plain forward, and the
+    keys path's scene gradients against the fused path's, at the fit
+    configuration."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.render.tiled import (_shade_forward,
+                                             render_tiled_keys,
+                                             render_tiled_pallas,
+                                             shade_winners_kp)
+
+    cam, packed, cand, counts, lb, pix = keys_inputs(g, CFG_FIT, dev)
+    _, sid = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cots = [torch.randn(sid.shape, generator=gen, device=dev)
+            for _ in range(4)]
+
+    def table_grad(shade):
+        leaf = packed.detach().clone().requires_grad_()
+        torch.autograd.backward(shade(leaf, sid, pix), cots)
+        return leaf.grad
+
+    d_hand, d_auto = table_grad(shade_winners_kp), table_grad(_shade_forward)
+    torch.cuda.synchronize()
+    n = packed.shape[0] - 1
+    check(bool(torch.isfinite(d_hand).all()), "shade backward: non-finite")
+    check(bool((d_hand[n] == 0).all()), "shade backward: the sentinel row "
+          "has a gradient")
+    lane = float(((d_hand[:n] - d_auto[:n]).abs().amax(0)
+                  / (d_auto[:n].abs().amax(0) + 1e-30)).max())
+    check(lane <= BWD_LANE_RTOL, f"shade backward per-lane error {lane} > "
+          f"{BWD_LANE_RTOL}")
+    ms_hand = time_ms(lambda: table_grad(shade_winners_kp), reps=3)
+    ms_auto = time_ms(lambda: table_grad(_shade_forward), reps=3)
+    vacant = float((sid < 0).float().mean())
+    w, h = CFG_FIT["res"]
+    say(12, f"shade_winners_kp at 100k@{w}x{h} (T={cand.shape[0]} K={DEPTH} "
+            f"P={pix.shape[1]}, vacant {vacant:.2%}): backward vs torch "
+            f"autograd of the plain forward, per lane {lane:.3e} of the "
+            f"lane's largest (limit {BWD_LANE_RTOL:g}), sentinel row exactly "
+            f"0; forward+backward {ms_hand:.2f} ms, through autograd "
+            f"{ms_auto:.2f} ms (CUDA events, median of 3)")
+    del d_hand, d_auto, cots
+
+    kw = dict(max_candidates=CFG_FIT["max_candidates"],
+              max_global=CFG_FIT["max_global"])
+    img_k, gk = scene_grads(g, cam, render_tiled_keys, **kw)
+    img_b, gb = scene_grads(g, cam, render_tiled_keys, tile_bands=2, **kw)
+    img_p, gp = scene_grads(g, cam, render_tiled_pallas, **kw)
+    _, gk2 = scene_grads(g, cam, render_tiled_keys, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(img_b, img_k), "banded image differs from unbanded")
+    img_err = float((img_k - img_p).abs().max())
+    parts = []
+    for f in SCENE_FIELDS:
+        check(bool(torch.isfinite(gk[f]).all())
+              and bool(torch.isfinite(gb[f]).all()),
+              f"non-finite keys-path gradient of {f}")
+        limit = ROT_SCALE_Q99 if f in ("quats", "scales") else SCENE_Q99
+        errs = [field_err(gk[f], gp[f]), field_err(gb[f], gk[f]),
+                field_err(gk2[f], gk[f])]
+        for label, e in zip(("vs pallas", "banded vs unbanded"), errs):
+            check(e[1] <= limit, f"keys scene gradient of {f} {label}: "
+                  f"{e} (relative L2, q99, max; q99 limit {limit:g})")
+        parts.append(f"{f} " + " ".join(
+            f"{e[0]:.1e}/{e[1]:.1e}/{e[2]:.1e}" for e in errs))
+    say(12, f"scene gradients of Σ image at 100k@{w}x{h}, keys vs pallas | "
+            f"keys in 2 bands vs unbanded | keys vs a second run of itself, "
+            f"each relative L2 / q99 (limit {SCENE_Q99:g}, quats and scales "
+            f"{ROT_SCALE_Q99:g}) / max of the field's largest: "
+            + "; ".join(parts) + f"; image keys vs pallas max |diff| "
+            f"{img_err:.2e}, banded image bitwise the unbanded one; no NaN")
+
+
+def host_ms(fn, reps=5):
+    """Median host-clock ms of ``fn`` ending in a synchronize, after one
+    warm-up."""
+    import torch
+
+    def once():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    once()
+    return statistics.median(once() for _ in range(reps))
+
+
+def device_busy(fn, reps=3):
+    """Device time (ms) and device kernels of one ``fn()``: the kernels'
+    own times summed from a ``torch.profiler`` trace of ``reps`` calls.
+    Beside the untraced host time of the same call it gives the device's
+    busy share; (0, 0) means the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
+            round(sum(e.count for e in events) / reps))
+
+
+def phase12_bench(cfg, g, dev):
+    """The repository's benchmark protocol at one configuration; returns
+    the keys kernel's launches of one forward+backward."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+
+    cam = camera(cfg["res"], dev)
+    kw = dict(depth=DEPTH, tile=TILE, max_candidates=cfg["max_candidates"],
+              max_global=BENCH_MAX_GLOBAL, bin_narrow=cfg["bin_narrow"],
+              tile_bands=cfg["tile_bands"])
+
+    def fwd():
+        with torch.no_grad():
+            return render_tiled_keys(g, cam, with_stats=True, **kw)
+
+    leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+              for f in SCENE_FIELDS}
+    scene = type(g)(mask=g.mask, **leaves)
+
+    def step():
+        for x in leaves.values():
+            x.grad = None
+        render_tiled_keys(scene, cam, **kw).sum().backward()
+
+    peel_keys_cuda.launches = 0
+    img, stats = fwd()
+    fwd_launches = peel_keys_cuda.launches
+    stats = {k: int(v) for k, v in stats.items()}
+    dropped = stats["local_overflow"] + stats["global_overflow"]
+    check(dropped == 0, f"bench {cfg['label']}: {dropped} candidates dropped")
+    check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.05,
+          f"bench {cfg['label']}: image not finite or black")
+    del img
+    t_fwd = host_ms(fwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    peel_keys_cuda.launches = 0
+    step()
+    torch.cuda.synchronize()
+    step_launches = peel_keys_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for f, x in leaves.items():
+        check(x.grad is not None and bool(torch.isfinite(x.grad).all()),
+              f"bench {cfg['label']}: gradient of {f} missing or non-finite")
+    check(float(leaves["means"].grad.abs().max()) > 0,
+          f"bench {cfg['label']}: zero gradient")
+    t_step = host_ms(step)
+    busy = []
+    for wall, fn in ((t_fwd, fwd), (t_step, step)):
+        dev_ms, n_kernels = device_busy(fn)
+        busy.append(f"{dev_ms:.2f} ms in {n_kernels} kernels = "
+                    f"{dev_ms / wall:.1%} of the host time"
+                    if dev_ms > 0 else "not measured")
+    bands = cfg["tile_bands"] or 1
+    want = 2 * bands if bands > 1 else 1
+    check(fwd_launches == bands and step_launches == want,
+          f"bench {cfg['label']}: keys kernel launched {fwd_launches} times "
+          f"in a forward and {step_launches} in a forward+backward, expected "
+          f"{bands} and {want}")
+    rays = cfg["res"][0] * cfg["res"][1]
+    say(12, f"bench {cfg['label']}, K {DEPTH}, bands {bands}: forward "
+            f"{t_fwd:.2f} ms = {rays / t_fwd / 1e3:.2f} M rays/s; "
+            f"forward+backward of Σ image {t_step:.2f} ms = "
+            f"{rays / t_step / 1e3:.2f} M rays/s (host clock with sync, "
+            f"median of 5); binning {stats}, 0 dropped; peak device memory "
+            f"of a forward+backward {peak:.2f} GiB; keys kernel launches "
+            f"{fwd_launches} a forward, {step_launches} a forward+backward; "
+            f"device busy (torch.profiler, kernel times summed over 3 "
+            f"traced calls): forward {busy[0]}, forward+backward {busy[1]}")
+    return fwd_launches + step_launches
+
+
+BENCH_LINE = re.compile(r"([\d.]+)M rays/s \(([\d.]+) ms/frame compute")
+
+
+def phase13_keys_cli(g, tmp):
+    """``fit --renderer keys`` and ``bench`` through the CLI; returns the
+    keys kernel's launches."""
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
+                                         peel_fused_cuda, peel_keys_cuda)
+    from rtgs_tpu_torch.scene import save_scene
+
+    ply, out = tmp / "scene_100k.ply", tmp / "fit_keys.ply"
+    save_scene(ply, g)
+    w, h = CFG_FIT["res"]
+    common = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
+              "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+              "--renderer", "keys", "--max-candidates",
+              str(CFG_FIT["max_candidates"]), "--device", g.device.type]
+    argv = ["fit", *common, "--views", str(FIT_VIEWS), "--steps",
+            str(FIT_CLI_STEPS), "--from-scratch", "--tile-bands",
+            str(FIT_CLI_BANDS), "--output", str(out)]
+    peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
+    peel_keys_cuda.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_launches = peel_keys_cuda.launches
+    want = FIT_CLI_BANDS * (FIT_VIEWS + 2 * FIT_CLI_STEPS)
+    line = printed.getvalue().strip()
+    say(13, f"CLI fit --renderer keys ({FIT_VIEWS} views, {FIT_CLI_STEPS} "
+            f"steps, {FIT_CLI_BANDS} bands): {wall:.2f} s wall; printed "
+            f"'{line}'; keys kernel launches {fit_launches} (expected "
+            f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + 2 x {FIT_CLI_STEPS}): every "
+            f"step runs each band twice); fused kernels "
+            f"{peel_fused_cuda.launches}/{peel_fused_bwd_cuda.launches}")
+    check(fit_launches == want, f"keys kernel launched {fit_launches} times "
+          f"in fit --renderer keys, expected {want}")
+    check(peel_fused_cuda.launches == 0 and peel_fused_bwd_cuda.launches == 0,
+          "fit --renderer keys launched the fused kernels")
+    m = FIT_LINE.search(line)
+    check(m is not None, f"fit --renderer keys printed {line!r}")
+    check(math.isfinite(float(m.group(2))) and math.isfinite(
+        float(m.group(3))), f"fit --renderer keys: {line!r}")
+    check(out.is_file() and out.stat().st_size > 0, "fit wrote no .ply")
+
+    iters = 5
+    peel_keys_cuda.launches = 0
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli(["bench", *common, "--theta", str(POSE["theta"]), "--phi",
+             str(POSE["phi"]), "--iters", str(iters)])
+    bench_launches = peel_keys_cuda.launches
+    line = printed.getvalue().strip()
+    frames = 1 + iters + max(iters // 2, 3)
+    say(13, f"CLI bench --renderer keys at 100k@{w}x{h}: '{line}'; keys "
+            f"kernel launches {bench_launches} (expected {frames}: a warm-up, "
+            f"{iters} timed, {max(iters // 2, 3)} with the image read back)")
+    m = BENCH_LINE.search(line)
+    check(m is not None and float(m.group(1)) > 0,
+          f"bench printed {line!r}")
+    check(bench_launches == frames, f"keys kernel launched {bench_launches} "
+          f"times in bench, expected {frames}")
+    return fit_launches + bench_launches
+
+
+def same_bits(got, ref):
+    """Bitwise equality with NaNs at the same places."""
+    import torch
+
+    return (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(torch.nan_to_num(got, nan=0.0),
+                            torch.nan_to_num(ref, nan=0.0)))
+
+
+def finite_abs_err(got, ref):
+    import torch
+
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    return float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
+
+
+def run_captured(phase, main, argv):
+    """Run a probe's ``main`` and print its lines under the phase's tag."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        main(argv)
+    for ln in printed.getvalue().splitlines():
+        say(phase, "  " + ln)
+
+
+def phase14_kmicro(dev):
+    """Every kmicro variant against its plain version at 960x256x128, then
+    the probe as a program. Returns the line's numbers for the family: the
+    sums of the variants' times and bounds, the largest error."""
+    import torch
+
+    from rtgs_tpu_torch.probes import kmicro
+
+    x = kmicro.make_input(960, 256, 128, dev)
+    t, p, c = x.shape
+    n, nbytes = x.numel(), 2 * x.numel() * 4
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0,
+               library_ms=0.0, library_kernel_ms=0.0, library_variants=[])
+    # The variants that one PyTorch call computes.
+    library = dict(copy=torch.clone, mult=lambda v: torch.mul(v, 1.0001),
+                   div=torch.reciprocal, sqrt=torch.sqrt, exp=torch.exp,
+                   exp2=torch.exp2)
+
+    def plain(name, inp):
+        return plain_in_bands(lambda xb: kmicro.micro_torch(name, xb), t, inp)
+
+    def compare(name, got, ref):
+        if name in ULP_VARIANTS:
+            ulp = int((got.view(torch.int32).long()
+                       - ref.view(torch.int32).long()).abs().max())
+            check(ulp <= 2, f"kmicro {name}: {ulp} ulp from torch")
+            return f"{ulp} ulp"
+        if name == "matvec_ones":
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            check(rel <= SUM_RTOL, f"kmicro {name}: relative error {rel}")
+            return f"rel {rel:.1e}"
+        if name == "chunkbody":
+            k = kmicro.K
+            qa_g, qa_r = got[..., 2 * k:3 * k], ref[..., 2 * k:3 * k]
+            fin = torch.isfinite(qa_r)
+            rest = torch.ones(c, dtype=torch.bool, device=dev)
+            rest[2 * k:3 * k] = False
+            check(same_bits(got[..., rest], ref[..., rest])
+                  and torch.equal(fin, torch.isfinite(qa_g))
+                  and torch.equal(qa_r.isnan(), qa_g.isnan()),
+                  "kmicro chunkbody: slots, t1 or colors differ")
+            rel = (float(((qa_g - qa_r)[fin].abs()
+                          / (qa_r[fin].abs() + 1e-6)).max())
+                   if bool(fin.any()) else 0.0)
+            check(rel <= 1e-5, f"kmicro chunkbody: qa off by {rel} (log)")
+            return f"bitwise, qa rel {rel:.1e}"
+        check(same_bits(got, ref), f"kmicro {name}: differs from the plain "
+              f"version at {int((got != ref).sum())} entries")
+        return "bitwise"
+
+    for name in kmicro.VARIANTS:
+        got = kmicro.micro_cuda(name, x)
+        ref = plain(name, x)
+        torch.cuda.synchronize()
+        verdict = compare(name, got, ref)
+        if name == "chunkbody":
+            # Uniform positive rows never hit; signed ones do.
+            xs = (x - 1.5).contiguous()
+            got_s, ref_s = kmicro.micro_cuda(name, xs), plain(name, xs)
+            hits = float(torch.isfinite(ref_s[..., :kmicro.K]).float().mean())
+            check(hits > 0.05, f"chunkbody: signed rows hit {hits:.2%}")
+            verdict += (f"; on signed rows ({hits:.1%} of the layers hit) "
+                        + compare(name, got_s, ref_s))
+            tot["err"] = max(tot["err"], finite_abs_err(got_s, ref_s))
+            del xs, got_s, ref_s
+        tot["err"] = max(tot["err"], finite_abs_err(got, ref))
+        del got, ref
+        ms = time_ms(kmicro.timed_call(name, x))
+        plain_ms = time_ms(lambda: plain(name, x), reps=2)
+        lib = ""
+        if name in library:
+            lib_ms = time_ms(lambda: library[name](x))
+            tot["library_ms"] += lib_ms
+            tot["library_kernel_ms"] += ms
+            tot["library_variants"].append(name)
+            lib = f", one PyTorch call {lib_ms:.3f} ms"
+        b_ms, by = bound(nbytes, n * MICRO_F32.get(name, 1),
+                         n * MICRO_F64.get(name, 0))
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += b_ms
+        tot["ops"] += b_ms if by == "operations" else 0.0
+        say(14, f"kmicro {name:18s} {verdict}; kernel {ms:.3f} ms = "
+                f"{nbytes / ms / 1e6:.0f} GB/s, plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.3f} ms ({by}){lib}")
+    check_refusals(kmicro, x)
+    kmicro.micro_cuda.launches = 0
+    run_captured(14, kmicro.main, ["--iters", "5"])
+    launches = kmicro.micro_cuda.launches
+    check(launches == 6 * len(kmicro.VARIANTS), f"kmicro launched "
+          f"{launches} kernels, expected {6 * len(kmicro.VARIANTS)}")
+    return tot, launches
+
+
+def check_refusals(kmicro, x):
+    """A wrapper raises on what its kernel does not take, and the plain
+    version is taken for a CPU tensor only."""
+    for bad in (x.cpu(), x.transpose(1, 2), x[:, :64].contiguous()):
+        try:
+            kmicro.micro_cuda("chunkbody", bad)
+        except ValueError:
+            continue
+        raise SmokeFailure("kmicro took a wrong input")
+
+
+def phase14_scene_probes(dev):
+    """kprobe's and lpprobe's variants against their plain versions at
+    100k@640x384 with the budget at which nothing drops, then both probes
+    as programs. Returns the two families' numbers."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import _counts, peel_fused_cuda
+    from rtgs_tpu_torch.probes import _common, kprobe, lpprobe
+
+    cfg = CFG_100K
+    w, h = cfg["res"]
+    packed, cand, lb, pix, binning = _common.scene_tables(
+        cfg["n"], w, h, cfg["max_candidates"], cfg["max_global"],
+        cfg["bin_narrow"], dev)
+    dropped = int(binning.local_overflow) + int(binning.global_overflow)
+    check(dropped == 0, f"the probes' scene drops {dropped} candidates")
+    counts = _counts(cand)
+    t, c = cand.shape
+    p = pix.shape[1]
+    live = int((cand >= 0).sum())
+    rows = min(live, packed.shape[0])
+    pairs = live * p
+    rad, trans, slots = peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+    prod_ref = torch.cat([rad, trans[:, None]], dim=1)
+    winners = int((slots >= 0).sum())
+    # Bytes: the live ids, counts, the pixel lanes a variant reads (the
+    # sweep 9, the SH dots 15 more, empty 4), the row lanes it reads of each
+    # referenced row, the (T, 4, P) output.
+    def io_bytes(pix_lanes, row_bytes):
+        return (live * 4 + t * 4 + t * p * pix_lanes * 4 + rows * row_bytes
+                + t * 4 * p * 4)
+
+    work = {   # bytes, f32 operations, f64 operations
+        "empty": (t * 8 + t * p * 4 * 4 + t * 4 * p * 4, 0, 0),
+        "intersect": (io_bytes(9, 40), 0, pairs * SWEEP_F64),
+        "merge_t1": (io_bytes(9, 40), 0, pairs * SWEEP_F64),
+        "shade_nomerge": (io_bytes(24, 236), pairs * 120, pairs * SWEEP_F64),
+        "shade_qa": (io_bytes(9, 44), pairs * 30, pairs * SWEEP_F64),
+        "shade_dots": (io_bytes(24, 232), pairs * 93, pairs * SWEEP_F64),
+    }
+
+    def plain(name, *qa):
+        return plain_in_bands(
+            lambda cb, nb, qb: kprobe.ablate_torch(name, packed, cb, nb, qb,
+                                                   DEPTH, *qa),
+            t, cand, counts, pix)
+
+    abl = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0)
+    for name in kprobe.VARIANTS:
+        got = kprobe.ablate_cuda(name, packed, cand, counts, pix, DEPTH)
+        torch.cuda.synchronize()
+        if name in ("prod", "prod_static"):
+            check(torch.equal(got, prod_ref), f"kprobe {name} differs from "
+                  f"peel_fused_cuda")
+            cnt = kprobe.prod_counts(name, cand, counts)
+            ms = time_ms(lambda: peel_fused_cuda(packed, cand, cnt, pix,
+                                                 DEPTH))
+            say(14, f"kprobe {name:13s} bitwise peel_fused_cuda's radiance "
+                    f"and transmittance; {ms:.3f} ms = "
+                    f"{w * h / ms / 1e3:.1f} M rays/s")
+            continue
+        ms = time_ms(lambda: kprobe.ablate_cuda(name, packed, cand, counts,
+                                                pix, DEPTH))
+        ref = plain(name)
+        check(same_bits(got, ref), f"kprobe {name}: differs from the plain "
+              f"version at {int((got != ref).sum())} entries")
+        plain_ms = time_ms(lambda: plain(name), reps=2)
+        b_ms, by = bound(*work[name])
+        abl["ms"] += ms
+        abl["plain_ms"] += plain_ms
+        abl["bound_ms"] += b_ms
+        abl["ops"] += b_ms if by == "operations" else 0.0
+        abl["err"] = max(abl["err"], finite_abs_err(got, ref))
+        hit = float(torch.isfinite(ref[:, 0]).float().mean())
+        say(14, f"kprobe {name:13s} bitwise the plain version (channel 0 "
+                f"finite on {hit:.1%} of the pixels); kernel {ms:.3f} ms = "
+                f"{work[name][0] / ms / 1e6:.1f} GB/s, {w * h / ms / 1e3:.1f} "
+                f"M rays/s, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
+                f"({by})")
+        del got, ref
+    # The shade variants' result above is intersect's whatever they shade
+    # (their channel 1 starts at −inf). With +inf for the initial state and
+    # for a missed candidate it is the minimum of their shading terms: held
+    # here against the plain minimum of the same terms, which runs the same
+    # IEEE operations in the same order (--fmad=false). Only logf against
+    # torch.log may differ (2 ulp), which the last sum rounds into at most
+    # an ulp of the result: SHADE_TOL of max(1, |result|).
+    for name in kprobe.SHADE_VARIANTS:
+        got = kprobe.ablate_cuda(name, packed, cand, counts, pix, DEPTH,
+                                 math.inf, math.inf)
+        ref = plain(name, math.inf, math.inf)
+        torch.cuda.synchronize()
+        rest = [0, 2, 3]
+        fin = torch.isfinite(ref[:, 1])
+        check(same_bits(got[:, rest], ref[:, rest])
+              and torch.equal(fin, torch.isfinite(got[:, 1]))
+              and not bool(torch.isnan(got[:, 1]).any()),
+              f"kprobe {name} (+inf state): t1 or the hit pattern differs")
+        diff = ((got[:, 1] - ref[:, 1]).abs()
+                / ref[:, 1].abs().clamp(min=1.0))[fin]
+        limit = SHADE_TOL
+        check(bool(fin.any()) and float(diff.max()) <= limit,
+              f"kprobe {name} (+inf state): shading off by "
+              f"{float(diff.max())} > {limit} of max(1, |result|)")
+        abl["err"] = max(abl["err"], float(diff.max()))
+        say(14, f"kprobe {name:13s} with a +inf state: the minimum of its "
+                f"shading terms, finite on {float(fin.float().mean()):.1%} "
+                f"of the pixels, max |diff| {float(diff.max()):.2e} from the "
+                f"plain version (limit {limit:.2e}; bitwise on "
+                f"{float((diff == 0).float().mean()):.2%})")
+        del got, ref
+    say(14, f"kprobe scene: T={t} C={c} P={p}, {live} live pairs, {winners} "
+            f"winners, 0 dropped")
+
+    outs = {tag: fn() for tag, fn in
+            lpprobe.keys_forms(packed, cand, lb, pix, DEPTH).items()}
+    agree = lpprobe.forms_agree(outs)
+    check(all(agree.values()), f"keys forms differ: {agree}")
+    del outs
+    flo = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0)
+    shape = (t, 2 * DEPTH, p)
+    for name in lpprobe.FLOOR_VARIANTS:
+        got = lpprobe.floor_cuda(name, packed, cand, p, DEPTH)
+        ref = lpprobe.floor_torch(name, packed, cand, p, DEPTH)
+        torch.cuda.synchronize()
+        if name == "nothing":
+            check(torch.equal(got, ref), "floor nothing is not +inf")
+            verdict, nbytes = "bitwise", got.numel() * 4
+        else:
+            rel = float(((got - ref).abs() / ref.abs()).max())
+            check(rel <= SUM_RTOL, f"floor touch: relative error {rel} > "
+                  f"{SUM_RTOL} (f32 sums of {c} terms in another order)")
+            verdict = f"rel {rel:.1e} (limit {SUM_RTOL:g})"
+            nbytes = got.numel() * 4 + t * c * 4 + rows * 4
+            flo["err"] = finite_abs_err(got, ref)
+            flo["max_rel_err"] = rel
+        ms = time_ms(lambda: lpprobe.floor_cuda(name, packed, cand, p, DEPTH))
+        plain_ms = time_ms(lambda: lpprobe.floor_torch(name, packed, cand, p,
+                                                       DEPTH))
+        b_ms, _ = bound(nbytes)
+        if name == "nothing":
+            # One PyTorch call computes it; touch takes a gather and a sum.
+            flo["library_ms"] = time_ms(
+                lambda: torch.full(shape, math.inf, device=dev))
+            flo["library_kernel_ms"] = ms
+            flo["library_variants"] = [name]
+            verdict += f" (torch.full: {flo['library_ms']:.4f} ms)"
+        flo["ms"] += ms
+        flo["plain_ms"] += plain_ms
+        flo["bound_ms"] += b_ms
+        say(14, f"lpprobe floor {name:8s} {verdict}; kernel {ms:.4f} ms = "
+                f"{nbytes / ms / 1e6:.0f} GB/s, plain {plain_ms:.4f} ms, "
+                f"bound {b_ms:.4f} ms (bytes)")
+    say(14, "lpprobe: the keys kernel's four forms agree bitwise")
+
+    argv = [str(cfg["n"]), str(w), str(h), "--cand",
+            str(cfg["max_candidates"]), "--glob", str(cfg["max_global"]),
+            "--narrow", str(cfg["bin_narrow"])]
+    kprobe.ablate_cuda.launches = 0
+    run_captured(14, kprobe.main, [*argv, "--variants",
+                                   ",".join(kprobe.VARIANTS), "--iters", "8"])
+    abl_launches = kprobe.ablate_cuda.launches
+    check(abl_launches == 9 * len(kprobe.KERNEL_VARIANTS),
+          f"kprobe launched {abl_launches} ablation kernels")
+    lpprobe.floor_cuda.launches = 0
+    run_captured(14, lpprobe.main, [*argv, "--iters", "7"])
+    flo_launches = lpprobe.floor_cuda.launches
+    check(flo_launches == 8 * 6, f"lpprobe launched {flo_launches} floor "
+          f"kernels, expected 48")
+    return abl, abl_launches, flo, flo_launches
+
 
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
@@ -1190,42 +1887,111 @@ def run():
 
     topk_fit = phase9_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
     topk_1m = phase9_case("1M@256x192", g1m, CFG_1M_GATE, dev)
-    del g1m
     with tempfile.TemporaryDirectory() as tmp:
         ply_4k = phase10_oracle(dev, pathlib.Path(tmp))
         phase11_tiled(g100k, ply_4k, dev, pathlib.Path(tmp))
-    check("jax" not in sys.modules, "something imported jax")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    phase12_gradients(g100k, dev)
+    scenes = {100_000: g100k, 1_000_000: g1m}
+    for cfg in BENCH_CONFIGS:
+        g = scenes.get(cfg["n"])
+        if g is None:
+            g = random_scene(cfg["n"], device=dev, **SCENE)
+        launches += phase12_bench(cfg, g, dev)
+    del g, g1m, scenes
+    with tempfile.TemporaryDirectory() as tmp:
+        launches += phase13_keys_cli(g100k, pathlib.Path(tmp))
+    fit_keys = phase8_fitbench(g100k, dev, renderer="keys", phase=13)
+    say(13, f"step time at 100k@{w}x{h} in this run: keys "
+            f"{fit_keys['step_ms']:.2f} ms, pallas {fit['step_ms']:.2f} ms")
+    del g100k
+    micro, micro_launches = phase14_kmicro(dev)
+    ablate, ablate_launches, floor, floor_launches = phase14_scene_probes(dev)
+    check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
+          "something imported jax or the JAX package")
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
+              bound_by, library_ms=None):
+        # library_ms stays null for the production kernels: no single
+        # PyTorch call selects the K nearest of a ragged candidate list per
+        # pixel, composites them or chains their gradient.
         return {"name": name, "route": "cuda",
                 "source": f"rtgs_tpu_torch/ops/csrc/{source}",
-                "replaces": f"rtgs_tpu/ops/peel.py:{replaces}",
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+
+    def peel(name, source, line, launches, err, ms, plain_ms, shape):
+        return entry(name, source, f"rtgs_tpu/ops/peel.py:{line}", launches,
+                     err, ms, plain_ms, *peel_bound(name, shape))
+
+    def family(name, source, replaces, launches, tot):
+        # ms, plain_ms and bound_ms are sums over the family's variants.
+        # library_ms sums the single PyTorch calls of library_variants, the
+        # variants that one call computes, and library_kernel_ms is the
+        # kernels' time on those same variants (null where there is none).
+        by = "operations" if tot["ops"] > tot["bound_ms"] / 2 else "bytes"
+        out = entry(name, source, replaces, launches, tot["err"], tot["ms"],
+                    tot["plain_ms"], tot["bound_ms"], by,
+                    tot.get("library_ms"))
+        out["library_variants"] = tot.get("library_variants", [])
+        out["library_kernel_ms"] = tot.get("library_kernel_ms")
+        if "max_rel_err" in tot:
+            out["max_rel_err"] = tot["max_rel_err"]
+        return out
 
     kernels = [
-        entry("keys_sid", "keys.cu", 589, launches,
-              max(case_100k["max_abs_err"], case_1m["max_abs_err"]),
-              case_100k["ms"], case_100k["ms_twin"]),
-        entry("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
-              max(fused_fit["fwd_err"], fused_1m["fwd_err"]),
-              fused_fit["ms"], fused_fit["ms_plain"]),
-        entry("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
-              max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
-              fused_fit["ms_bwd"], fused_fit["ms_bwd_plain"]),
-        entry("peel_topk_fwd", "peel_topk_fwd.cu", 892,
-              topk_fit["launches"][0] + topk_1m["launches"][0],
-              max(topk_fit["fwd_err"], topk_1m["fwd_err"]),
-              topk_fit["ms"], topk_fit["ms_plain"]),
-        entry("peel_topk_bwd", "peel_topk_bwd.cu", 913,
-              topk_fit["launches"][1] + topk_1m["launches"][1],
-              max(topk_fit["bwd_err"], topk_1m["bwd_err"]),
-              topk_fit["ms_bwd"], topk_fit["ms_bwd_plain"]),
+        peel("keys_sid", "keys.cu", 589, launches,
+             max(case_100k["max_abs_err"], case_1m["max_abs_err"]),
+             case_100k["ms"], case_100k["ms_twin"], case_100k["shape"]),
+        peel("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
+             max(fused_fit["fwd_err"], fused_1m["fwd_err"]),
+             fused_fit["ms"], fused_fit["ms_plain"], fused_fit["shape"]),
+        peel("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
+             max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
+             fused_fit["ms_bwd"], fused_fit["ms_bwd_plain"],
+             fused_fit["shape"]),
+        peel("peel_topk_fwd", "peel_topk_fwd.cu", 892,
+             topk_fit["launches"][0] + topk_1m["launches"][0],
+             max(topk_fit["fwd_err"], topk_1m["fwd_err"]),
+             topk_fit["ms"], topk_fit["ms_plain"], topk_fit["shape"]),
+        peel("peel_topk_bwd", "peel_topk_bwd.cu", 913,
+             topk_fit["launches"][1] + topk_1m["launches"][1],
+             max(topk_fit["bwd_err"], topk_1m["bwd_err"]),
+             topk_fit["ms_bwd"], topk_fit["ms_bwd_plain"], topk_fit["shape"]),
+        # The probe families: times, bounds and plain times summed over the
+        # family's variants (one launch of each), the largest error.
+        family("probe_micro", "probe_micro.cu", "scripts/kmicro.py:34",
+               micro_launches, micro),
+        family("probe_ablate", "probe_ablate.cu", "scripts/kprobe.py:153",
+               ablate_launches, ablate),
+        family("probe_floor", "probe_floor.cu", "scripts/lpprobe.py:162",
+               floor_launches, floor),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was launched no time on its "
+              f"main path")
+        lib = ""
+        if k["library_ms"] is not None:
+            lib = (f"; {', '.join(k['library_variants'])} as single PyTorch "
+                   f"calls {k['library_ms']:.4f} ms against the kernels' "
+                   f"{k['library_kernel_ms']:.4f} ms")
+        say(14, f"{k['name']}: {k['ms']:.4f} ms against a bound of "
+                f"{k['bound_ms']:.4f} ms ({k['bound_by']}): "
+                f"{k['bound_ms'] / k['ms']:.1%} of the card's peak; "
+                f"launches on its main path {k['launches']}{lib}")
+    dense = dense_grad_ms(fused_fit["shape"])
+    say(14, f"peel_bwd and peel_topk_bwd hand out a dense (T, C, 64) block "
+            f"of per-slot gradients, {fused_fit['shape']['live']} rows of "
+            f"{fused_fit['shape']['t'] * fused_fit['shape']['c']} live: one "
+            f"pass over it is {dense:.4f} ms at the memory rate, outside "
+            f"their bounds")
     say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
            f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd and "
-           f"peel_topk_fwd/peel_topk_bwd ms and plain_ms below are "
-           f"100k@{w}x{h}")
+           f"peel_topk_fwd/peel_topk_bwd ms, plain_ms and bound_ms below "
+           f"are 100k@{w}x{h}, keys_sid's 100k@640x384; the probe families' "
+           f"are sums over their variants")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

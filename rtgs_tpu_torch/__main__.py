@@ -3,14 +3,15 @@
   * ``render`` — render one frame from an orbit-camera pose to an image;
   * ``orbit``  — render a turntable sweep of N frames;
   * ``fit``    — optimize a scene against multiview targets (a
-    ``transforms.json`` dataset, or orbit renders of the input scene).
+    ``transforms.json`` dataset, or orbit renders of the input scene);
+  * ``bench``  — measure rays/s of the chosen renderer on the device.
 
 Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
 ``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ...), plus
 ``--device`` (default ``cuda``): with no CUDA device the command fails
 instead of running on the CPU; pass ``--device cpu`` for that. ``render``
 and ``orbit`` run under ``torch.inference_mode()``; ``fit`` trains through
-the fused-payload renderer (``--renderer oracle|tiled`` through those).
+the fused-payload renderer (``--renderer keys|oracle|tiled`` through those).
 ``LOG_LEVEL`` sets logging.
 
     python -m rtgs_tpu_torch render -o scene.ply -r 1920,1088 -d 16
@@ -65,9 +66,9 @@ def _add_common_flags(p: argparse.ArgumentParser):
                    help="render/orbit: auto and keys render the keys path, "
                         "pallas the fused-payload path, oracle brute force, "
                         "tiled the per-tile argmin peel. fit: auto and "
-                        "pallas train through the fused-payload path, "
-                        "oracle and tiled through autograd; keys cannot "
-                        "train yet.")
+                        "pallas train through the fused-payload path, keys "
+                        "through the keys path, oracle and tiled through "
+                        "autograd.")
     p.add_argument("--max-candidates", type=int, default=None,
                    help="Per-tile candidate budget (default 512; raise "
                         "until the overflow counters read 0).")
@@ -223,6 +224,44 @@ def cmd_fit(args):
           f"psnr={metrics['psnr']:.2f} live={solver.num_live} -> {out}")
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _median_seconds(fn, device: torch.device, iters: int) -> float:
+    """Median host-clock seconds of ``fn()`` over ``iters`` calls, each
+    ending in a device synchronize."""
+    ts = []
+    for _ in range(iters):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
+def cmd_bench(args):
+    """Rays/s of one frame, in two passes after a warm-up frame: the
+    compute rate (render, then synchronize; median of ``--iters``), and the
+    frame with the whole image read to the host (what an interactive viewer
+    pays per displayed frame; median of max(iters/2, 3))."""
+    device = _device(args)
+    g = _load(args, device)
+    cam = _camera(args, args.theta, device)
+    _render(g, cam, args).cpu()  # warm-up: builds the kernels at first use
+    dt = _median_seconds(lambda: _render(g, cam, args), device, args.iters)
+    d2 = _median_seconds(lambda: _render(g, cam, args).cpu(), device,
+                         max(args.iters // 2, 3))
+    rays = args.res[0] * args.res[1]
+    print(f"{rays / dt / 1e6:.2f}M rays/s ({dt * 1e3:.1f} ms/frame compute, "
+          f"{1.0 / dt:.1f} FPS; {d2 * 1e3:.1f} ms/frame with full image "
+          f"readback, {1.0 / d2:.1f} FPS; {g.num} splats, depth "
+          f"{args.depth})")
+
+
 def main(argv=None):
     _setup_logging()
     parser = argparse.ArgumentParser(
@@ -260,6 +299,11 @@ def main(argv=None):
     p_fit.add_argument("--checkpoint-every", type=int, default=0)
     p_fit.add_argument("--output", type=str, default=None)
     p_fit.set_defaults(func=cmd_fit)
+
+    p_bench = sub.add_parser("bench", help="Measure rays/s.")
+    _add_common_flags(p_bench)
+    p_bench.add_argument("--iters", type=int, default=10)
+    p_bench.set_defaults(func=cmd_bench)
 
     args = parser.parse_args(argv)
     return args.func(args)

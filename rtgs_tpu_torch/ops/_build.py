@@ -4,8 +4,9 @@
 source, all at once) and links them into one shared library with a plain C
 interface, at first use, into ``rtgs_tpu_torch/_build/``; the library's
 name carries a hash of the sources, their shared header
-(``peel_common.cuh``) and the flags, so an edited source rebuilds. It is loaded with ``ctypes``. Nothing here runs at import time: the CPU-only tests import
-every module, and there is no ``nvcc`` there.
+(``peel_common.cuh``) and the flags, so an edited source rebuilds. It is
+loaded with ``ctypes``. Nothing here runs at import time: the CPU-only
+tests import every module, and there is no ``nvcc`` there.
 """
 
 from __future__ import annotations
@@ -105,6 +106,13 @@ def load_library() -> ctypes.CDLL:
     lib.rtgs_peel_topk_fwd.restype = i
     lib.rtgs_peel_topk_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
     lib.rtgs_peel_topk_bwd.restype = i
+    lib.rtgs_probe_micro.argtypes = [i, vp, vp, i, i, i, vp, vp, vp, i, vp]
+    lib.rtgs_probe_micro.restype = i
+    lib.rtgs_probe_ablate.argtypes = ([i] + [vp] * 5 + [i] * 5
+                                      + [ctypes.c_float] * 2 + [i, vp])
+    lib.rtgs_probe_ablate.restype = i
+    lib.rtgs_probe_floor.argtypes = [i, vp, vp, vp] + [i] * 6 + [vp]
+    lib.rtgs_probe_floor.restype = i
     lib.rtgs_cuda_error_string.argtypes = [i]
     lib.rtgs_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,7 @@
-"""Tile-binned renderers: the keys path (port of the forward of
-:func:`rtgs_tpu.render.tiled.render_tiled_keys`), the fused-payload path
-(:func:`render_tiled_pallas`, differentiable, under the JAX name), and the
+"""Tile-binned renderers: the keys path (port of
+:func:`rtgs_tpu.render.tiled.render_tiled_keys`, differentiable through
+the hand-written backward of :func:`shade_winners_kp`), the fused-payload
+path (:func:`render_tiled_pallas`, differentiable, under the JAX name), and the
 per-tile argmin peel (:func:`render_tiled`, differentiable through torch
 autograd, with no kernel: it is plain XLA in the JAX package too).
 
@@ -138,24 +139,12 @@ def _tile_pixel_features(camera: Camera, tile, pixel_offset=None):
             .reshape(ntx * nty, tw * th, G_DIM))
 
 
-def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
-                     pix: torch.Tensor):
-    """α and rgb of the K winning layers per pixel.
-
-    ``sid_kp``: (T, K, P) int32 winner ids, −1 vacant (shaded as the
-    sentinel row N, which gets α = 0). ``pix``: (T, P, 24). Returns
-    (alpha, r, g, b), each (T, K, P). Shading accepts Δ > 0 (the keys
-    stage accepts Δ ≥ 0): a tangent ray is a hit with α = 0.
-    """
-    n_sentinel = packed.shape[0] - 1
-    safe = torch.where(sid_kp >= 0, sid_kp, n_sentinel).long()
-    rows = packed[safe]                                # (T, K, P, F)
-
-    def pf(j):
-        return pix[:, None, :, j]                      # (T, 1, P)
-
-    a = sum(pf(3 + j) * rows[..., j] for j in range(6))
-    b = 2.0 * sum(pf(j) * rows[..., 6 + j] for j in range(3))
+def _shade_chain(rows: torch.Tensor, pixq):
+    """The quadratic chain of shading, for feature rows (..., 64) and a
+    pixel-feature accessor ``pixq(j)`` that broadcasts against
+    ``rows[..., j]``. Returns (a, b, cq, op, delta, valid, rho)."""
+    a = sum(pixq(3 + j) * rows[..., j] for j in range(6))
+    b = 2.0 * sum(pixq(j) * rows[..., 6 + j] for j in range(3))
     cq = torch.clamp(rows[..., 9], max=1e30)
     op = rows[..., 10]
     delta = b * b - 4.0 * a * cq
@@ -164,12 +153,102 @@ def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
     valid = (delta > 0.0) & (t1 > 0.0)
     rho = torch.exp(torch.where(delta > 0.0, b * b / (4.0 * a) - (cq + 3.0),
                                 -math.inf))
+    return a, b, cq, op, delta, valid, rho
+
+
+def _shade_forward(packed, sid_kp, pix):
+    """The plain forward of :func:`shade_winners_kp`: torch autograd of it
+    is the reference of the hand-written backward."""
+    safe = torch.where(sid_kp >= 0, sid_kp, packed.shape[0] - 1).long()
+    rows = packed[safe]                                # (T, K, P, F)
+
+    def pf(j):
+        return pix[:, None, :, j]                      # (T, 1, P)
+
+    _a, _b, _cq, op, _delta, valid, rho = _shade_chain(rows, pf)
     alpha = torch.where(valid, op * rho, 0.0)
     chans = [rows[..., 11 + ch]
              + sum(pf(9 + j) * rows[..., 14 + 15 * ch + j]
                    for j in range(15))
              for ch in range(3)]
     return alpha, chans[0], chans[1], chans[2]
+
+
+class _ShadeWinnersKP(torch.autograd.Function):
+    """Winner shading with a hand-written backward: the counterpart of the
+    JAX ``shade_winners_kp`` custom VJP (``_shade_kp_fwd``/``_shade_kp_bwd``).
+    Residuals are ``packed``, the int winner ids and ``pix`` only: the
+    backward gathers the rows again and recomputes the chain, so no
+    (T, K, P, 64) tensor outlives the forward."""
+
+    @staticmethod
+    def forward(ctx, packed, sid_kp, pix):
+        ctx.save_for_backward(packed, sid_kp, pix)
+        return _shade_forward(packed, sid_kp, pix)
+
+    @staticmethod
+    def backward(ctx, d_alpha, d_r, d_g, d_bl):
+        packed, sid_kp, pix = ctx.saved_tensors
+        # Vacant winners shade the sentinel row, whose gradient nobody
+        # reads; they are dropped before the gather, so neither their rows
+        # nor their cotangents are built and the scatter-add below does not
+        # pile them onto one row.
+        ti, ki, pi = torch.nonzero(sid_kp >= 0, as_tuple=True)
+        ids = sid_kp[ti, ki, pi].long()                # (L,)
+        rows = packed[ids]                             # (L, F)
+        pixl = pix[ti, pi]                             # (L, 24)
+        d_alpha, d_r, d_g, d_bl = (x[ti, ki, pi]
+                                   for x in (d_alpha, d_r, d_g, d_bl))
+
+        a, b, cq, op, delta, valid, rho = _shade_chain(
+            rows, lambda j: pixl[:, j])
+        validf = valid.to(rho.dtype)
+        pos = (delta > 0.0).to(rho.dtype)
+        d_op = validf * rho * d_alpha
+        d_rho = validf * op * d_alpha
+        d_q = pos * rho * d_rho      # rho = exp(q) where delta > 0, else 0
+        d_b = (b / (2.0 * a)) * d_q
+        d_a = -(b * b) / (4.0 * a * a) * d_q
+        d_c0 = torch.where(cq < 1e30, -d_q, 0.0)
+
+        # Row cotangent, lane by lane (the lane map of ops/peel.py): each
+        # lane is one chain factor times one pixel feature (or 1).
+        d_rows = torch.empty_like(rows)
+        d_rows[:, 0:6] = d_a[:, None] * pixl[:, 3:9]
+        d_rows[:, 6:9] = (2.0 * d_b)[:, None] * pixl[:, 0:3]
+        d_rows[:, 9] = d_c0
+        d_rows[:, 10] = d_op
+        y = pixl[:, 9:24]
+        for ch, d_ch in enumerate((d_r, d_g, d_bl)):
+            d_rows[:, 11 + ch] = d_ch
+            lo = 14 + 15 * ch
+            d_rows[:, lo:lo + 15] = d_ch[:, None] * y
+        d_rows[:, 59:] = 0.0
+        d_packed = torch.zeros_like(packed).index_add_(0, ids, d_rows)
+        return d_packed, None, None
+
+
+def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
+                     pix: torch.Tensor):
+    """α and rgb of the K winning layers per pixel.
+
+    ``sid_kp``: (T, K, P) int32 winner ids, −1 vacant (shaded as the
+    sentinel row N, which gets α = 0). ``pix``: (T, P, 24). Returns
+    (alpha, r, g, b), each (T, K, P). Shading accepts Δ > 0 (the keys
+    stage accepts Δ ≥ 0): a tangent ray is a hit with α = 0.
+
+    Differentiable in ``packed`` only, through a hand-written backward
+    (``sid_kp`` is index selection, and ``pix`` gets no gradient on this
+    path, as in the JAX package). The backward re-gathers the winners' rows,
+    recomputes the quadratic chain, and adds each winner's (64-lane) row
+    cotangent into its splat's row with ``index_add_``. Vacant winners are
+    dropped before that, so row N of the gradient is exactly zero (the JAX
+    scatter form adds the vacant layers' color cotangents there; that row is
+    the constant sentinel and its gradient is discarded either way).
+    ``index_add_`` sums in no fixed order on the card, so gradients agree
+    run to run only to f32 rounding; the forward is deterministic.
+    """
+    return _ShadeWinnersKP.apply(packed, sid_kp, pix)
 
 
 def composite_layers_kp(alpha, r, g, b):
@@ -209,38 +288,55 @@ def render_tiled_keys(
     keys_impl: str = "auto",
     bin_narrow: int | None = None,
 ):
-    """Full-frame forward render through the keys path. Returns (W, H, 3)
-    radiance on the scene's device.
+    """Full-frame render through the keys path, differentiable in the
+    scene through the hand-written backward of :func:`shade_winners_kp`.
+    Returns (W, H, 3) radiance on the scene's device.
 
-    ``tile_bands``: run stages 3-5 over the tile axis in this many
-    sequential bands, bounding the (tiles, K·P, 64) winner-row gather of
-    the shading stage to one band. ``with_stats=True`` also returns the
-    binning counters: ``live`` candidate slots, ``local_overflow`` and
-    ``global_overflow`` (pairs dropped) and ``swept_pairs`` (the
-    chunk-padded candidate total, an upper bound on what the keys stage
-    sweeps). ``keys_impl`` is passed to :func:`peel_keys`.
+    The binning and the keys kernel select only: both run under
+    ``no_grad``. ``tile_bands``: run stages 3-5 over the tile axis in this
+    many sequential bands, bounding the (tiles, K·P, 64) winner-row gather
+    of the shading stage to one band. With gradients on, each band runs
+    under activation checkpointing (the counterpart of the JAX per-band
+    ``jax.checkpoint``): autograd keeps a band's inputs and its (tiles, P, 3)
+    radiance, and the backward runs the band again, keys kernel included, so
+    a banded forward+backward launches it 2 × bands times. Without
+    gradients, and unbanded, the bands are a plain loop.
+    ``with_stats=True`` also returns the binning counters: ``live``
+    candidate slots, ``local_overflow`` and ``global_overflow`` (pairs
+    dropped) and ``swept_pairs`` (the chunk-padded candidate total, an upper
+    bound on what the keys stage sweeps). ``keys_impl`` is passed to :func:`peel_keys`.
     """
     w, h = camera.buf_size
     tw, th = tile
     ntx, nty = -(-w // tw), -(-h // th)
-    binning = tile_candidates(
-        g, camera, tile=tile, max_candidates=max_candidates,
-        max_global=max_global, max_tiles_local=max_tiles_local,
-        pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow,
-        chunk=CHUNK)
+    with torch.no_grad():
+        binning = tile_candidates(
+            g, camera, tile=tile, max_candidates=max_candidates,
+            max_global=max_global, max_tiles_local=max_tiles_local,
+            pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow,
+            chunk=CHUNK)
     cand, lb = binning.candidates, binning.chunk_lb
     packed = pack_features(precompute_features(g, camera))
     pix = _tile_pixel_features(camera, tile, pixel_offset)
 
-    def band(cand_b, pix_b, lb_b):
-        _t1, sid = peel_keys(packed, cand_b, pix_b, depth, impl=keys_impl,
-                             chunk_lb=lb_b)
+    def band(packed, cand_b, pix_b, lb_b):
+        with torch.no_grad():
+            _t1, sid = peel_keys(packed, cand_b, pix_b, depth,
+                                 impl=keys_impl, chunk_lb=lb_b)
         return composite_layers_kp(*shade_winners_kp(packed, sid, pix_b))
 
     t = cand.shape[0]
     nb = _band_size(t, tile_bands)
-    rad = torch.cat([band(cand[s:s + nb], pix[s:s + nb], lb[s:s + nb])
-                     for s in range(0, t, nb)])
+    remat = nb < t and torch.is_grad_enabled() and packed.requires_grad
+    rads = []
+    for s in range(0, t, nb):
+        args = (packed, cand[s:s + nb], pix[s:s + nb], lb[s:s + nb])
+        if remat:
+            rads.append(torch.utils.checkpoint.checkpoint(
+                band, *args, use_reentrant=False, preserve_rng_state=False))
+        else:
+            rads.append(band(*args))
+    rad = torch.cat(rads)
     img = _tiles_to_image(rad, ntx, nty, tile)[:w, :h]
     if with_stats:
         stats = {

@@ -5,8 +5,9 @@
     round-trips through ``save_scene``;
   * a differentiable forward through the fused-payload renderer
     (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`, whose
-    backward is the hand-written Hopper kernel on the card), or through the
-    oracle or the ``tiled`` renderer (torch autograd); Adam with the
+    backward is the hand-written Hopper kernel on the card), through the
+    keys path (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`), or
+    through the oracle or the ``tiled`` renderer (torch autograd); Adam with the
     standard per-parameter-group 3DGS learning rates as ``torch.optim.Adam``
     parameter groups;
   * adaptive density control with static capacity: clone/split/prune
@@ -38,27 +39,16 @@ from rtgs_tpu_torch.utils import quaternion as quat
 
 logger = logging.getLogger(__name__)
 
-# Renderers that cannot train yet, with the ROADMAP item that ports their
-# gradient. The keys path is differentiable through torch autograd of its
-# shading, but that gradient is untested, so it must not train silently.
-_NOT_TRAINABLE = {
-    "keys": "ROADMAP queue 1, item 5 (the keys path's backward)",
-}
-
-
 def training_renderer(renderer: str) -> str:
     """The renderer a training step uses: ``auto`` and ``pallas`` train
     through the fused-payload path (what the JAX ``auto`` picks on its
-    chip); ``oracle`` and ``tiled`` train through torch autograd of their
-    plain code, as they train through JAX autodiff; ``keys`` raises."""
+    chip); ``keys`` trains through the keys path and the hand-written
+    backward of its shading; ``oracle`` and ``tiled`` train through torch
+    autograd of their plain code, as they train through JAX autodiff."""
     if renderer in ("auto", "pallas"):
         return "pallas"
-    if renderer in ("oracle", "tiled"):
+    if renderer in ("keys", "oracle", "tiled"):
         return renderer
-    if renderer in _NOT_TRAINABLE:
-        raise NotImplementedError(
-            f"training through renderer {renderer!r} is not ported yet; see "
-            f"{_NOT_TRAINABLE[renderer]}")
     raise ValueError(f"unknown renderer {renderer!r}")
 
 

@@ -474,10 +474,21 @@ def test_cli_fit_writes_ply(scene_path, tmp_path, capsys):
 
 @pytest.mark.parametrize("renderer", ["keys"])
 def test_cli_fit_refuses_untrainable_renderers(scene_path, tmp_path,
-                                               renderer):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        main(["fit", "-o", str(scene_path), *FIT_ARGS, "--renderer",
-              renderer, "--output", str(tmp_path / "x.ply")])
+                                               renderer, capsys):
+    """No renderer is left to refuse: the last one, ``keys``, trains (in
+    two bands, so through the per-band recomputation), and an unknown name
+    still raises."""
+    from rtgs_tpu_torch.scene import load_scene
+
+    out = tmp_path / "x.ply"
+    main(["fit", "-o", str(scene_path), *FIT_ARGS, "--renderer", renderer,
+          "--tile-bands", "2", "--output", str(out)])
+    line = capsys.readouterr().out
+    assert "fit 3 steps: loss=" in line and f"-> {out}" in line
+    assert load_scene(out).num == 120
+    assert tsolver.training_renderer(renderer) == renderer
+    with pytest.raises(ValueError, match="unknown renderer"):
+        tsolver.training_renderer("nope")
 
 
 def test_fit_never_imports_jax(scene_path, tmp_path):
