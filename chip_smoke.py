@@ -10,8 +10,16 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
   2. build the CUDA kernels from the sources in this checkout;
   3. the keys kernel against its plain torch twin at the main path's
      shapes — 100k splats at 640x384 and 1M splats at 256x192 — bitwise,
-     with and without the early-exit bounds, timed with CUDA events; and a
-     whole 256x192 frame through the kernel against one through the twin;
+     with and without the early-exit bounds, timed with CUDA events (and
+     once more with the stream kept busy: device time without the wrapper's
+     host time), with the share of (pixel, candidate) pairs its f32 screen
+     rejects; a whole 256x192 frame through the kernel against one through
+     the twin; and a scene that strains the screen, needles and discs
+     (scale ratio >= 100 within a splat) seen from 0.2 and from 50 units
+     away: the full sweep bitwise the twin's, and the early exit bitwise on
+     every tile whose chunk_lb is a lower bound of the twin's t1 field (the
+     f32 feature table loses such splats' definiteness, and with it the
+     binning's bound: counted and printed);
   4. precision of the kernel's winning t1 against float64 recomputed from
      the same f32 inputs;
   5. the render path through the CLI: ``render`` and a 3-frame ``orbit``
@@ -22,9 +30,12 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
   6. the fused-peel kernels (forward and backward) against their plain
      torch twins at the fit configuration (100k splats at 512x384, K 16,
      1536 candidates) and at 1M splats at 256x192: winners' slots bitwise,
-     radiance and transmittance to an absolute tolerance, per-slot feature
-     gradients per lane relative to the lane's largest entry; times with
-     CUDA events; the winners' α against float64 from the same f32 inputs;
+     radiance and transmittance to an absolute tolerance, the backward's
+     (N+1, 64) table gradient against index_add_ of the twin's per-slot
+     gradients, per lane relative to the lane's largest entry, its sentinel
+     row exactly 0; times with CUDA events (the backward's also with the
+     stream kept busy); the winners' α against float64 from the same f32
+     inputs;
   7. the training path through the CLI: ``fit --renderer pallas`` from
      scratch on the 100k scene at 512x384, depth 16, 12 views, 20 steps, 2
      tile bands, a checkpoint every 10 steps; the forward kernel must have
@@ -38,7 +49,8 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
   9. the K-list path (the top-K peel, uncomposited) at the fit
      configuration and at 1M splats at 256x192: both top-K kernels against
      their plain twins (slots and t1 bitwise, α and rgb to an absolute
-     tolerance, per-slot feature gradients per lane); the winners and their
+     tolerance, the (N+1, 64) table gradient per lane as in phase 6); the
+     winners and their
      α equal to the fused forward kernel's; the NaN/inf share of each
      output (t1 is +inf exactly on vacant layers); then the main path, a
      scene gradient of Σ w·radiance + Σ transmittance through
@@ -74,7 +86,9 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      time beside phase 8's;
  14. the probes: every variant of the three probe kernels against its
      plain version at the probes' sizes (kmicro 960x256x128; kprobe and
-     lpprobe at 100k, 640x384, budget 1536), each with its time and GB/s;
+     lpprobe at 100k, 640x384, budget 1536), each with its time and GB/s,
+     the floor kernels' also with the stream kept busy (how much of a
+     wrapper call is the kernel's);
      kprobe's shade variants once more with a +inf state, where their
      result is the minimum of their shading terms, against the plain
      minimum; then the three probes as programs (``python -m
@@ -114,6 +128,12 @@ CFG_100K = dict(n=100_000, res=(640, 384), max_candidates=1536,
                 max_global=128, bin_narrow=3)
 CFG_1M_GATE = dict(n=1_000_000, res=(256, 192), max_candidates=3584,
                    max_global=128, bin_narrow=4)
+# The scene that strains the keys kernel's screen: needles and discs in a
+# cube of half-size 0.5, the camera `gap` units from the cube's
+# circumscribed sphere, with a field of view that keeps the cloud in frame.
+CFG_ANISO = dict(n=50_000, extent=0.5, seed=4, res=(256, 192),
+                 max_candidates=3584, max_global=512)
+ANISO_VIEWS = ((0.2, 60.0), (50.0, 2.0))   # (gap, vertical FOV in degrees)
 FULL_RES = (1920, 1088)
 BANDS = 8
 ORBIT_FRAMES = 3
@@ -130,8 +150,10 @@ FIT_STEPS = 50
 # Tiles per call of a plain twin (bounds its (T, P, C) float64 fields).
 PLAIN_BAND = 96
 # Kernel vs twin: same f32 shading in the same order, so radiance and
-# transmittance agree to 1e-5; the backward's float atomics sum in no
-# fixed order, so each lane agrees to 1e-4 of the lane's largest entry.
+# transmittance agree to 1e-5; the backward sums a slot's row in the order
+# of an integer-atomic fill and adds rows into the table with device-memory
+# atomics, in no fixed order, so each lane of the (N+1, 64) table agrees to
+# 1e-4 of the lane's largest entry.
 FWD_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
 MIN_PSNR_RISE = 0.5
@@ -235,10 +257,16 @@ def ptxas_summary(log: str) -> str:
             what = ("variant " if k and k.group(1) in (
                 "micro_kernel", "sweep_kernel") else "K=")
             name = f"{k.group(1)} {what}{k.group(2)}" if k else m.group(1)
+            if "ELb1E" in m.group(1):
+                name += " counting"
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
-            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}")
+            # Registers are granted in units of 8 a thread; an SM has 65,536.
+            regs = int(re.search(r"Used (\d+) registers", ln).group(1))
+            fit = 65536 // (-(-regs // 8) * 8 * 256)
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}; "
+                       f"registers let {fit} blocks of 256 threads on an SM")
     return " | ".join(out)
 
 
@@ -260,6 +288,17 @@ def time_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def busy_ms(fn, reps=5):
+    """Median device time of ``fn`` with the stream kept busy by a
+    preceding long kernel: the wrapper's host time (allocation, ctypes,
+    launch) is hidden behind it, so what is left is the kernels' own."""
+    import torch
+
+    from rtgs_tpu_torch.probes._common import busy_ms as probe_busy_ms
+
+    return probe_busy_ms(fn, reps, torch.device("cuda", 0))
+
+
 def bound(nbytes, f32_ops=0.0, f64_ops=0.0):
     """The least time (ms) the card could take: the bytes over the memory
     rate against the operations over the peak of their type. Returns
@@ -277,10 +316,8 @@ def peel_bound(kind, shape):
     kernel, which reads lanes 0-9; 236 for the others), the pixel lanes the
     kernel reads (9 for the keys kernel: direction and quadratic features;
     all 24 for the others, which also shade), counts and bounds. Outputs
-    once, and of the backwards' per-slot gradient only the live pairs' rows:
-    the padded slots of the dense (T, C, 64) block the wrappers hand out are
-    zeros that the function does not need (their cost is a finding of the
-    design, printed beside the bound, not part of it)."""
+    once, and of the backwards' gradient one row a live pair (the rows the
+    kernels add into the table): the same work whatever implements it."""
     t, c, p = shape["t"], shape["c"], shape["p"]
     live, k = shape["live"], DEPTH
     rows = min(live, shape["n"])
@@ -298,12 +335,6 @@ def peel_bound(kind, shape):
         return bound(common + 6 * layers, shade, sweep)
     grads = t * p * 16 if kind == "peel_bwd" else 4 * layers
     return bound(common + layers + grads + live * 64 * 4, shade)
-
-
-def dense_grad_ms(shape):
-    """The least time (ms) of one pass over the backwards' dense (T, C, 64)
-    output, which the wrapper zero-fills before the kernel adds into it."""
-    return shape["t"] * shape["c"] * 64 * 4 / HBM_BPS * 1e3
 
 
 def launch_shape(packed, cand, pix, slots=None):
@@ -376,6 +407,8 @@ def phase3_case(label, g, cfg, dev):
     check(torch.equal(sid_f, sid_k) and torch.equal(t1_f, t1_k),
           f"{label}: early exit changed the result")
     check(bool((sid_k >= 0).any()), f"{label}: no pixel has a hit")
+    pairs, rejected = screen_share(packed, cand, counts, zeros, pix,
+                                   (t1_f, sid_f))
     ms = time_ms(kernel)
     ms_full = time_ms(kernel_full)
     ms_twin = time_ms(twin)
@@ -384,10 +417,108 @@ def phase3_case(label, g, cfg, dev):
            f"t1 bitwise equal to the twin, and with chunk_lb bitwise equal "
            f"to the full sweep; kernel {ms:.3f} ms (full sweep "
            f"{ms_full:.3f} ms), twin {ms_twin:.3f} ms (CUDA events, median "
-           f"of 5)")
+           f"of 5); the f32 screen rejects {rejected} of {pairs} (pixel, "
+           f"live candidate) pairs of the full sweep = {rejected / pairs:.2%} "
+           f"before the float64 chain")
+    say(3, f"keys {label} with the stream kept busy (device time without "
+           f"the wrapper's host time): {busy_ms(kernel):.3f} ms")
     return dict(ms=ms, ms_full=ms_full, ms_twin=ms_twin, max_abs_err=err,
                 packed=packed, pix=pix, t1=t1_k, sid=sid_k, cam=cam,
                 shape=launch_shape(packed, cand, pix))
+
+
+def screen_share(packed, cand, counts, lb, pix, want):
+    """(pairs evaluated, pairs the screen rejected) of one sweep, from the
+    kernel's counting instantiation, whose result must equal ``want``."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+
+    counters = torch.zeros(2, dtype=torch.int64, device=packed.device)
+    t1, sid = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH,
+                             screen_counts=counters)
+    check(torch.equal(t1, want[0]) and torch.equal(sid, want[1]),
+          "the counting keys kernel differs from the timed one")
+    pairs, rejected = (int(x) for x in counters)
+    check(0 <= rejected <= pairs and pairs > 0,
+          f"screen counters {pairs}, {rejected}")
+    return pairs, rejected
+
+
+def phase3_anisotropic(dev):
+    """The keys kernel against its twin on needles and discs seen from very
+    near and very far, where Δ cancels hardest and the screen's margin is
+    widest."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.camera import camera_from_fov
+    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, _safe_ids,
+                                         entry_depth, peel_keys_cuda,
+                                         peel_keys_torch)
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             pack_features,
+                                             precompute_features)
+    from rtgs_tpu_torch.scene import anisotropic_scene
+    from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
+
+    cfg = CFG_ANISO
+    g = anisotropic_scene(cfg["n"], extent=cfg["extent"], seed=cfg["seed"],
+                          device=dev)
+    ratio = g.scales.amax(-1) / g.scales.amin(-1)
+    for gap, fov in ANISO_VIEWS:
+        pos, rot, _, _ = orbit_camera_pose(
+            POSE["theta"], POSE["phi"], cfg["extent"] * math.sqrt(3.0) + gap,
+            np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
+        cam = camera_from_fov(pos, rot, cfg["res"], fov, device=dev)
+        b = tile_candidates(g, cam, tile=TILE,
+                            max_candidates=cfg["max_candidates"],
+                            max_global=cfg["max_global"], chunk=CHUNK)
+        packed = pack_features(precompute_features(g, cam))
+        pix = _tile_pixel_features(cam, TILE)
+        cand, lb = b.candidates, b.chunk_lb
+        counts = _counts(cand)
+        t, c = cand.shape
+        zeros = torch.zeros_like(lb)
+        t1_f, sid_f = peel_keys_cuda(packed, cand, counts, zeros, pix, DEPTH)
+        t1_k, sid_k = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH)
+        t1_t, sid_t = plain_in_bands(
+            lambda cb, qb: peel_keys_torch(packed, cb, qb, DEPTH), t, cand,
+            pix)
+        torch.cuda.synchronize()
+        label = f"anisotropic, camera {gap:g} away, FOV {fov:g}"
+        check(bool((sid_f >= 0).any()), f"{label}: no pixel has a hit")
+        check(torch.equal(sid_f, sid_t) and torch.equal(t1_f, t1_t),
+              f"{label}: the full sweep differs from the twin at "
+              f"{int((sid_f != sid_t).sum())} ids")
+        # The early exit is exact where chunk_lb[t, c] is a lower bound of
+        # every t1 of the chunks from c on.
+        def bound_holds(cb, qb, lbb):
+            rows = packed[:, :10][_safe_ids(packed, cb)]
+            cmin = entry_depth(rows, qb).amin(1).reshape(
+                cb.shape[0], c // CHUNK, CHUNK).amin(2)
+            suffix = torch.cummin(cmin.flip(1), dim=1).values.flip(1)
+            return (suffix >= lbb[:, :-1]).all(dim=1)
+
+        valid = plain_in_bands(bound_holds, t, cand, pix, lb)
+        same = ((sid_k == sid_t) & (t1_k == t1_t)).all(dim=2).all(dim=1)
+        check(bool(same[valid].all()), f"{label}: the early exit changed "
+              f"{int((~same[valid]).sum())} tiles whose bounds hold")
+        pairs, rejected = screen_share(packed, cand, counts, zeros, pix,
+                                       (t1_f, sid_f))
+        hits = int((sid_f >= 0).sum())
+        indefinite = int((packed[:-1, 0] <= 0).sum())
+        say(3, f"keys {label}: {g.num} splats, scale ratio within a splat "
+               f"{float(ratio.min()):.0f}-{float(ratio.max()):.0f}, T={t} "
+               f"C={c} P={pix.shape[1]} K={DEPTH}, {int((cand >= 0).sum())} "
+               f"live pairs, {hits} winners: the full sweep's ids and t1 "
+               f"bitwise equal to the twin's; with chunk_lb bitwise equal on "
+               f"all {int(valid.sum())} of {t} tiles whose bounds hold "
+               f"({int((~same).sum())} other tiles differ: {indefinite} rows "
+               f"of the f32 table have m00 <= 0, so the binning's bound is "
+               f"none there); the f32 screen rejects {rejected} of {pairs} "
+               f"pairs = {rejected / pairs:.2%}")
 
 
 def phase4_precision(case):
@@ -586,6 +717,40 @@ def phase5_main_path(g, dev, tmp):
     return launches, med["keys"]
 
 
+def table_in_bands(packed, fn, t, cand, *tiled):
+    """The (N+1, 64) table gradient through a plain backward twin: its
+    per-slot gradients (T, C, 64), band by band, scatter-added with
+    ``index_add_``."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import F_DIM, _safe_ids
+
+    out = torch.zeros_like(packed)
+    for s in range(0, t, PLAIN_BAND):
+        band = cand[s:s + PLAIN_BAND]
+        dfeats = fn(band, *(x[s:s + PLAIN_BAND] for x in tiled))
+        out.index_add_(0, _safe_ids(packed, band).reshape(-1),
+                       dfeats.reshape(-1, F_DIM))
+    return out
+
+
+def table_errors(label, got, ref):
+    """A backward kernel's table gradient against the plain one: finite,
+    the sentinel row exactly 0, each lane within ``BWD_LANE_RTOL`` of the
+    lane's largest entry. Returns (max |diff|, the worst lane's share)."""
+    import torch
+
+    check(got.shape == ref.shape, f"{label}: shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite gradient")
+    check(bool((got[-1] == 0).all()), f"{label}: the sentinel row has a "
+          f"gradient")
+    diff = (got - ref).abs()
+    lane = float((diff.amax(dim=0) / (ref.abs().amax(dim=0) + 1e-30)).max())
+    check(lane <= BWD_LANE_RTOL, f"{label}: per-lane error {lane} > "
+          f"{BWD_LANE_RTOL}")
+    return float(diff.max()), lane
+
+
 def plain_in_bands(fn, t, *tiled):
     """Run a plain twin over tile bands of ``PLAIN_BAND`` tiles (its
     (T, P, C) float64 fields would not fit at once) and concatenate."""
@@ -665,20 +830,14 @@ def phase6_case(label, g, cfg, dev):
                                    g_tr, DEPTH)
 
     def plain_bwd():
-        return plain_in_bands(
-            lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
+        return table_in_bands(
+            packed, lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
                 packed, c, q, sl, gr, gt),
             t, cand, pix, sl_k, g_rad, g_tr)
 
     d_k, d_p = kernel_bwd(), plain_bwd()
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(d_k).all()), f"{label}: non-finite gradient")
-    bwd_abs = float((d_k - d_p).abs().max())
-    scale = d_p.abs().amax(dim=(0, 1))
-    bwd_lane = float(((d_k - d_p).abs().amax(dim=(0, 1))
-                      / (scale + 1e-30)).max())
-    check(bwd_lane <= BWD_LANE_RTOL, f"{label}: backward per-lane error "
-          f"{bwd_lane} > {BWD_LANE_RTOL}")
+    bwd_abs, bwd_lane = table_errors(f"{label}: backward", d_k, d_p)
     ms, ms_plain = time_ms(kernel), time_ms(plain)
     ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
     alpha = alpha_precision(packed, cand, pix, sl_k)
@@ -695,6 +854,10 @@ def phase6_case(label, g, cfg, dev):
            f"{alpha['p999']:.3e}, max {alpha['max']:.3e}; {alpha['zeroed']} "
            f"winners have α = 0 in f32 (f32 Δ ≤ 0) but not in float64 "
            f"(gate: finite)")
+    say(6, f"fused {label} with the stream kept busy (device time without "
+           f"the wrapper's host time): backward kernel "
+           f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
+           f"gradient, sentinel row exactly 0")
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
                 ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain,
                 shape=launch_shape(packed, cand, pix, sl_k))
@@ -1000,18 +1163,14 @@ def phase9_case(label, g, cfg, dev):
                                   DEPTH)
 
     def plain_bwd():
-        return plain_in_bands(
-            lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl, gl),
+        return table_in_bands(
+            packed, lambda c, q, sl, gl: peel_topk_bwd_torch(
+                packed, c, q, sl, gl),
             t, cand, pix, sl_k, g_lay)
 
     d_k, d_p = kernel_bwd(), plain_bwd()
     torch.cuda.synchronize()
-    check(bool(torch.isfinite(d_k).all()), f"{label}: non-finite gradient")
-    bwd_abs = float((d_k - d_p).abs().max())
-    bwd_lane = float(((d_k - d_p).abs().amax(dim=(0, 1))
-                      / (d_p.abs().amax(dim=(0, 1)) + 1e-30)).max())
-    check(bwd_lane <= BWD_LANE_RTOL, f"{label}: top-K backward per-lane "
-          f"error {bwd_lane} > {BWD_LANE_RTOL}")
+    bwd_abs, bwd_lane = table_errors(f"{label}: top-K backward", d_k, d_p)
     del lay_p, sl_p, d_p, alpha_f
 
     # The main path: a scene gradient through the K-list, composited
@@ -1078,6 +1237,10 @@ def phase9_case(label, g, cfg, dev):
            f"{ms:.3f} ms, twin {ms_plain:.3f} ms; backward kernel "
            f"{ms_bwd:.3f} ms, twin {ms_bwd_plain:.3f} ms (CUDA events, "
            f"median of 5)")
+    say(9, f"top-K {label} with the stream kept busy (device time without "
+           f"the wrapper's host time): backward kernel "
+           f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
+           f"gradient, sentinel row exactly 0")
     say(9, f"outputs {label} (vacant share {vacant:.2%}): "
            + "; ".join(shares))
     say(9, f"main path {label}: scene gradient of Σ w·radiance + Σ "
@@ -1571,7 +1734,8 @@ def phase14_kmicro(dev):
     t, p, c = x.shape
     n, nbytes = x.numel(), 2 * x.numel() * 4
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0,
-               library_ms=0.0, library_kernel_ms=0.0, library_variants=[])
+               library_ms=0.0, library_kernel_ms=0.0, library_variants=[],
+               library_device_ms=0.0, library_kernel_device_ms=0.0)
     # The variants that one PyTorch call computes.
     library = dict(copy=torch.clone, mult=lambda v: torch.mul(v, 1.0001),
                    div=torch.reciprocal, sqrt=torch.sqrt, exp=torch.exp,
@@ -1631,10 +1795,16 @@ def phase14_kmicro(dev):
         lib = ""
         if name in library:
             lib_ms = time_ms(lambda: library[name](x))
+            dev_ms = busy_ms(kmicro.timed_call(name, x))
+            lib_dev_ms = busy_ms(lambda: library[name](x))
             tot["library_ms"] += lib_ms
             tot["library_kernel_ms"] += ms
+            tot["library_device_ms"] += lib_dev_ms
+            tot["library_kernel_device_ms"] += dev_ms
             tot["library_variants"].append(name)
-            lib = f", one PyTorch call {lib_ms:.3f} ms"
+            lib = (f", one PyTorch call {lib_ms:.3f} ms; with the stream kept "
+                   f"busy the kernel {dev_ms:.4f} ms, the call "
+                   f"{lib_dev_ms:.4f} ms")
         b_ms, by = bound(nbytes, n * MICRO_F32.get(name, 1),
                          n * MICRO_F64.get(name, 0))
         tot["ms"] += ms
@@ -1650,6 +1820,12 @@ def phase14_kmicro(dev):
     launches = kmicro.micro_cuda.launches
     check(launches == 6 * len(kmicro.VARIANTS), f"kmicro launched "
           f"{launches} kernels, expected {6 * len(kmicro.VARIANTS)}")
+    say(14, f"kmicro {', '.join(tot['library_variants'])}: the six kernels "
+            f"{tot['library_kernel_ms']:.4f} ms against the six PyTorch "
+            f"calls {tot['library_ms']:.4f} ms around the wrapper; with the "
+            f"stream kept busy (device time) "
+            f"{tot['library_kernel_device_ms']:.4f} against "
+            f"{tot['library_device_ms']:.4f} ms")
     return tot, launches
 
 
@@ -1801,6 +1977,8 @@ def phase14_scene_probes(dev):
             flo["err"] = finite_abs_err(got, ref)
             flo["max_rel_err"] = rel
         ms = time_ms(lambda: lpprobe.floor_cuda(name, packed, cand, p, DEPTH))
+        dev_ms = busy_ms(lambda: lpprobe.floor_cuda(name, packed, cand, p,
+                                                    DEPTH))
         plain_ms = time_ms(lambda: lpprobe.floor_torch(name, packed, cand, p,
                                                        DEPTH))
         b_ms, _ = bound(nbytes)
@@ -1810,13 +1988,18 @@ def phase14_scene_probes(dev):
                 lambda: torch.full(shape, math.inf, device=dev))
             flo["library_kernel_ms"] = ms
             flo["library_variants"] = [name]
-            verdict += f" (torch.full: {flo['library_ms']:.4f} ms)"
+            lib_dev_ms = busy_ms(
+                lambda: torch.full(shape, math.inf, device=dev))
+            verdict += (f" (torch.full: {flo['library_ms']:.4f} ms, "
+                        f"{lib_dev_ms:.4f} ms with the stream kept busy)")
         flo["ms"] += ms
         flo["plain_ms"] += plain_ms
         flo["bound_ms"] += b_ms
         say(14, f"lpprobe floor {name:8s} {verdict}; kernel {ms:.4f} ms = "
-                f"{nbytes / ms / 1e6:.0f} GB/s, plain {plain_ms:.4f} ms, "
-                f"bound {b_ms:.4f} ms (bytes)")
+                f"{nbytes / ms / 1e6:.0f} GB/s, of which {dev_ms:.4f} ms is "
+                f"the kernel's (stream kept busy) and the rest the wrapper's "
+                f"host time; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"(bytes)")
     say(14, "lpprobe: the keys kernel's four forms agree bitwise")
 
     argv = [str(cfg["n"]), str(w), str(h), "--cand",
@@ -1867,6 +2050,7 @@ def run():
     g1m = random_scene(CFG_1M_GATE["n"], device=dev, **SCENE)
     case_1m = phase3_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     frame_parity(g1m, CFG_1M_GATE, dev)
+    phase3_anisotropic(dev)
     phase4_precision(case_100k)
     for case in (case_100k, case_1m):
         del case["packed"], case["pix"]
@@ -1981,12 +2165,6 @@ def run():
                 f"{k['bound_ms']:.4f} ms ({k['bound_by']}): "
                 f"{k['bound_ms'] / k['ms']:.1%} of the card's peak; "
                 f"launches on its main path {k['launches']}{lib}")
-    dense = dense_grad_ms(fused_fit["shape"])
-    say(14, f"peel_bwd and peel_topk_bwd hand out a dense (T, C, 64) block "
-            f"of per-slot gradients, {fused_fit['shape']['live']} rows of "
-            f"{fused_fit['shape']['t'] * fused_fit['shape']['c']} live: one "
-            f"pass over it is {dense:.4f} ms at the memory rate, outside "
-            f"their bounds")
     say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
            f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd and "
            f"peel_topk_fwd/peel_topk_bwd ms, plain_ms and bound_ms below "

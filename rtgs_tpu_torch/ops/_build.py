@@ -24,7 +24,8 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 SRC_DIR = _PKG / "ops" / "csrc"
 BUILD_DIR = _PKG / "_build"
 # IEEE sqrt and division (no --use_fast_math), and no FMA contraction, so
-# the kernels' t1 is bitwise the plain torch twins'.
+# the kernels' t1 is bitwise the plain torch twins' (the keys kernel's f32
+# screen asks for its FMAs explicitly).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
@@ -96,7 +97,7 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare the C entry points."""
     lib = ctypes.CDLL(str(build()))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtgs_keys_sid.argtypes = [vp] * 7 + [i] * 5 + [vp]
+    lib.rtgs_keys_sid.argtypes = [vp] * 8 + [i] * 5 + [vp]
     lib.rtgs_keys_sid.restype = i
     lib.rtgs_peel_fwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
     lib.rtgs_peel_fwd.restype = i

@@ -1,34 +1,36 @@
 // Fused-payload tile peel, backward, on Hopper (sm_90a).
 //
 // Replaces rtgs_tpu/ops/peel.py:_bwd_kernel (with _layer_cotangents and
-// _sweep2_feature_grads): the per-candidate-slot feature gradients
-// (T, C, 64) of Σ ḡ·radiance + Σ ḡ_T·transmittance for the forward's
+// _sweep2_feature_grads): the gradient, with respect to the (N+1, 64)
+// feature table, of Σ ḡ·radiance + Σ ḡ_T·transmittance for the forward's
 // winners. Per pixel, with layers k in depth order, αₖ, rgbₖ and
 // Tₖ = Π_{j<k} (1 − αⱼ):
 //   ∂L/∂αₖ = Σ_ch ḡ_ch·Tₖ·(c_ch,k − U_ch) − ḡ_T·Tₖ·Vₖ, ∂L/∂rgbₖ = ḡ·Tₖ·αₖ,
 // from the division-free suffix recurrences U = α·c + (1−α)·U and
 // V = (1−α)·V (no division by 1 − α, so α → 1 stays finite); then through
-// α and rgb into the row lanes by add_slot_grads (peel_common.cuh). The
-// caller scatter-adds the (T, C, 64) rows into (N+1, 64).
+// α and rgb into the row lanes (peel_common.cuh, the contraction).
 //
-// Design. One block per tile, one thread per pixel (peel_common.cuh). The
-// TPU kernel re-runs the selection sweep; here the forward kernel hands
-// over the winners' slots (T, K, P), so a thread reads its K slots, shades
-// its K rows in f32 (the forward's arithmetic), and runs the prefix and
-// suffix recurrences in registers. The pixel contraction, per 128-slot
-// chunk with shared-memory atomics and chunks without a winner skipped, is
-// add_slot_grads.
+// Design. One block per tile, one thread per pixel. The TPU kernel re-runs
+// the selection sweep and scatters per slot into a dense (T, C, 64) block
+// that the caller scatter-adds again; here the forward kernel hands over
+// the winners' slots (T, K, P), so a thread reads its K slots, shades each
+// winner once in f32 (the forward's arithmetic; it keeps α, ρ, rgb and the
+// two quotients of the quadratic), runs the prefix and suffix recurrences
+// in registers and puts each winning layer's seven gradient scalars into
+// shared memory. contract_slot_grads() then sums them per slot over the
+// tile's pixels and adds one row a (tile, winning slot) into the table:
+// no float atomic in shared memory, no dense block.
 //
-// Bound. Per (pixel, layer): one 59-lane row read (shared by the tile's
-// pixels through L1), ~150 f32 flops and 59 shared atomics, of which the
-// atomics on a tile's front splats serialise within a warp; writes are
-// 256 B per touched slot. The (T, C, 64) output, mostly zeros, is the
-// largest memory traffic (the wrapper's memset and the caller's
-// scatter-add), as in the TPU design.
+// Bound. Bytes: the winners' rows read once (59 lanes, shared by a tile's
+// pixels through L1), the slots and cotangents, and one 236-byte row added
+// a live pair. Per (pixel, layer) ~150 f32 flops. The kernel's time is the
+// scattered row reads of the shading and the device-memory adds of the
+// rows (one a (tile, winning slot) and lane), not arithmetic.
 //
-// Numerics. f32 throughout, in the order of
-// rtgs_tpu_torch.ops.peel.peel_fused_bwd_torch; the atomics sum in no
-// fixed order, so the result varies run to run in its low bits.
+// Numerics. f32 throughout, the scalars in the order of
+// rtgs_tpu_torch.ops.peel.peel_fused_bwd_torch; a slot's sum runs in the
+// order its entries were filled and rows of different tiles meet in
+// device-memory atomics, so the result varies run to run in its low bits.
 
 #include "peel_common.cuh"
 
@@ -43,18 +45,19 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ slots,
                     const float* __restrict__ grad_rad,
                     const float* __restrict__ grad_trans,
-                    float* __restrict__ out, int C, int P, int depth) {
-  __shared__ float s_acc[kLanes][kChunk];
+                    float* __restrict__ dpacked, int C, int P, int depth) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  GradStage& stage = *reinterpret_cast<GradStage*>(smem);
 
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
-  const int n_chunks = (counts[t] + kChunk - 1) / kChunk;
-  const bool one_group = P <= static_cast<int>(blockDim.x);
+  const int n_slots = counts[t];
 
   for (int p0 = 0; p0 < P; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
     const bool active = p < P;
     const int pp = active ? p : 0;
+    const float* pix_g = pix + (static_cast<size_t>(t) * P + p0) * kPixFeat;
     const Pixel px =
         load_pixel(pix + (static_cast<size_t>(t) * P + pp) * kPixFeat);
     const float gr = grad_rad[(static_cast<size_t>(t) * 3 + 0) * P + pp];
@@ -62,20 +65,25 @@ __global__ void __launch_bounds__(kThreads)
     const float gb = grad_rad[(static_cast<size_t>(t) * 3 + 2) * P + pp];
     const float gt = grad_trans[static_cast<size_t>(t) * P + pp];
 
-    // Layers: slot, α, rgb and the prefix transmittance Tₖ (held in gk).
+    // Layers, each winner shaded once: slot, α, ρ, rgb, the quotients
+    // qa = −B²/4A² and qb = B/2A, and the prefix transmittance Tₖ (in gk).
     int sl[K];
-    float al[K], cr[K], cg[K], cb[K], gk[K];
+    float al[K], rho[K], qa[K], qb[K], cr[K], cg[K], cb[K], gk[K];
     float tr = 1.f;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       sl[k] = -1;
-      al[k] = cr[k] = cg[k] = cb[k] = 0.f;
+      al[k] = rho[k] = qa[k] = qb[k] = cr[k] = cg[k] = cb[k] = 0.f;
       if (active && k < depth) {
         const int s = slots[(static_cast<size_t>(t) * depth + k) * P + p];
         if (s >= 0) {
           const float* row = packed + static_cast<size_t>(cand_t[s]) * kFeat;
+          const Quad qd = quad(row, px);
           sl[k] = s;
-          al[k] = quad(row, px).alpha;
+          al[k] = qd.alpha;
+          rho[k] = qd.rho;
+          qa[k] = -(qd.b * qd.b) / ((4.f * qd.a) * qd.a);
+          qb[k] = qd.b / (2.f * qd.a);
           cr[k] = color(row, px, 0);
           cg[k] = color(row, px, 1);
           cb[k] = color(row, px, 2);
@@ -104,9 +112,19 @@ __global__ void __launch_bounds__(kThreads)
       v = (1.f - ak) * v;
     }
 
-    add_slot_grads<K>(packed, cand_t, n_chunks,
-                      out + static_cast<size_t>(t) * C * kFeat, one_group, px,
-                      sl, gk, cr, cg, cb, s_acc);
+#pragma unroll
+    for (int k0 = 0; k0 < K; k0 += kPassLayers) {
+      if (k0 >= depth) break;
+      __syncthreads();  // the last pass's scalars are read
+#pragma unroll
+      for (int k = k0; k < k0 + kPassLayers && k < K; ++k) {
+        if (sl[k] < 0) continue;
+        const float ga_alpha = gk[k] * al[k];
+        stage.put(k - k0, ga_alpha * qa[k], 2.f * (ga_alpha * qb[k]),
+                  -ga_alpha, gk[k] * rho[k], cr[k], cg[k], cb[k]);
+      }
+      contract_slot_grads<K>(stage, sl, k0, cand_t, n_slots, pix_g, dpacked);
+    }
   }
 }
 
@@ -115,18 +133,20 @@ __global__ void __launch_bounds__(kThreads)
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
 // f32, slots (T, depth, P) i32 (the forward's, −1 vacant), grad_rad
-// (T, 3, P) f32, grad_trans (T, P) f32; out (T, C, 64) f32, zeroed by the
-// caller.
+// (T, 3, P) f32, grad_trans (T, P) f32; dpacked (N+1, 64) f32, which the
+// kernel adds into (the caller zero-fills it).
 extern "C" int rtgs_peel_bwd(const float* packed, const int* cand,
                              const int* counts, const float* pix,
                              const int* slots, const float* grad_rad,
-                             const float* grad_trans, float* out, int T,
+                             const float* grad_trans, float* dpacked, int T,
                              int C, int P, int depth, int device,
                              void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
-    peel_bwd_kernel<decltype(cap)::value>
-        <<<T, threads_for(P), 0, static_cast<cudaStream_t>(stream)>>>(
-            packed, cand, counts, pix, slots, grad_rad, grad_trans, out, C, P,
-            depth);
+    constexpr int K = decltype(cap)::value;
+    if (!grad_stage_opt_in(peel_bwd_kernel<K>)) return;
+    peel_bwd_kernel<K><<<T, warp_threads_for(P), sizeof(GradStage),
+                         static_cast<cudaStream_t>(stream)>>>(
+        packed, cand, counts, pix, slots, grad_rad, grad_trans, dpacked, C, P,
+        depth);
   });
 }

@@ -1,20 +1,39 @@
-// Device code shared by the fused-payload peel (peel_fwd.cu, peel_bwd.cu)
-// and the top-K peel (peel_topk_fwd.cu, peel_topk_bwd.cu) on Hopper
-// (sm_90a): the per-pixel top-K sweep over a tile's candidate slots, the
-// f32 shading of one winner, the chain of per-layer cotangents into
-// per-slot feature gradients, and the launch dispatch over the list
-// capacity K.
+// Device code shared by the keys kernel (keys.cu), the fused-payload peel
+// (peel_fwd.cu, peel_bwd.cu) and the top-K peel (peel_topk_fwd.cu,
+// peel_topk_bwd.cu) on Hopper (sm_90a): the exact f32 screen in front of the
+// float64 entry depth, the per-pixel top-K sweep over a tile's candidate
+// slots, the f32 shading of one winner, the contraction of the winners'
+// per-layer gradient scalars over a tile's pixels into the (N+1, 64)
+// feature table, and the launch dispatch over the list capacity K.
+//
+// Replaces the shared bodies of rtgs_tpu/ops/peel.py: _intersect_t1 and
+// _merge_topk (the sweep) and _sweep2_feature_grads (the contraction).
 //
 // Geometry of every kernel here: one block per tile, one thread per pixel
 // (blocks of at most kThreads; a tile with more pixels is swept once per
 // group of kThreads).
 //
+// Bound, and what the design does about it. The sweep is bound by float64
+// instruction throughput (21 operations a (pixel, candidate) pair at half the
+// f32 rate, no FMA), and ~98% of the pairs miss: the keys kernel puts
+// screen_rejects() in front of the chain, ~13 f32 instructions that reject
+// a pair only when a proven error bound says the float64 Δ is negative, so
+// the result stays bitwise the unscreened one. The contraction is bound by
+// the bytes of the rows it adds into; the TPU design (and the first port)
+// scattered every winner's 59 lanes with float atomics into a dense
+// (T, C, 64) block. Per slot the gradient row is a sum over pixels of seven
+// scalars times per-pixel vectors, a reduction: contract_slot_grads()
+// groups a tile's winners by slot with an integer counting sort in shared
+// memory, sums each slot's row in registers (a warp a slot), and adds one
+// row a (tile, winning slot) straight into the table.
+//
 // Numerics. The entry depth runs in float64 from the f32 tables and is
 // rounded to f32 once (B² and 4A·c0 cancel in Δ), with the operations and
 // order of rtgs_tpu_torch.ops.peel.entry_depth; shading is f32 in the
-// order of rtgs_tpu_torch.ops.peel._shade_layers; the gradient chain
-// follows rtgs_tpu_torch.ops.peel._slot_grads. Built with IEEE sqrt and
-// division and --fmad=false, so the winners are bitwise the plain twins'.
+// order of rtgs_tpu_torch.ops.peel._shade_layers; the gradient scalars
+// follow rtgs_tpu_torch.ops.peel._slot_grads. Built with IEEE sqrt and
+// division and --fmad=false, so the winners are bitwise the plain twins';
+// the screen's FMAs are explicit (__fmaf_rn).
 
 #pragma once
 
@@ -33,9 +52,86 @@ constexpr int kPixFeat = 24;   // pixel feature row width
 constexpr int kStage = 10;     // staged lanes: m6 (0:6), Me (6:9), c0 (9)
 constexpr int kThreads = 256;  // pixels per group
 constexpr int kMaxDepth = 64;  // largest list capacity instantiated
+constexpr int kGradScalars = 7;  // gradient scalars a winning layer
 
 __device__ __forceinline__ bool lex_less(float ta, int sa, float tb, int sb) {
   return ta < tb || (ta == tb && sa < sb);
+}
+
+// ---------------------------------------------------------------------------
+// The screen: an f32 evaluation of Δ/4 = b² − A·c0 (b = d·Me, A = fd·m6)
+// that may reject a (pixel, candidate) pair before the float64 chain runs.
+//
+// It must never reject a pair the float64 chain accepts (Δ64 ≥ 0). With
+// u = 2⁻²⁴, γₙ = nu/(1 − nu), Ā = Σ|fdⱼ·mⱼ| and b̄ = Σ|dⱼ·Meⱼ| (sums of
+// absolute products), an f32 dot product of n terms, fused or not, in any
+// order, is off by at most γₙ times the sum of absolute products, so
+//   |Â − A| ≤ γ₆·Ā,  |b̂ − b| ≤ γ₃·b̄,  |b̂² − b²| ≤ (2γ₃ + γ₃²)·b̄²,
+//   t̂ = fl(Â·c0):  |t̂ − A·c0| ≤ (γ₆ + u(1 + γ₆))·Ā|c0|,
+//   q̂ = fl(b̂·b̂ − t̂), one rounding fused and two unfused:
+//   |q̂ − (b̂² − t̂)| ≤ u(2 + u)(1 + γ₃)²·b̄² + u(1 + γ₆)(1 + u)·Ā|c0|.
+// To first order that is 8u·(b̄² + Ā|c0|) for either evaluation (6u + 2u
+// and 6u + u + u). The margin is 12u·(b̄² + Ā|c0|): the remaining 4u covers
+// the second-order terms (~50u²), the margin's own f32 rounding (a sum of
+// non-negative terms, relative error below γ₁₄) and the float64 chain's
+// error against the exact Δ/4 (below 8·2⁻⁵³·(b̄² + Ā|c0|)). Gradual
+// underflow adds at most 2⁻¹⁵⁰ a product: 6 in Â (then times |c0|), 3 in b̂
+// (then times 2b̄), t̂ and the last, below 2⁻¹⁴⁷·(|c0| + b̄ + 1); the margin
+// adds 2⁻¹⁴⁶ of that. Overflow: when b̄² + Ā|c0| is not below 2¹²⁰ (or is
+// NaN) the margin is +inf and nothing is rejected; below it no intermediate
+// overflows. Ā and b̄ are taken from the tile's largest |fdⱼ| and |dⱼ|
+// (one block reduction), which only widens the margin, so the margin is a
+// candidate's own and is computed once at staging. The predicate is
+// q̂ < −margin: a NaN on either side compares false and the pair goes on to
+// float64. The plain version is rtgs_tpu_torch.ops.peel.screen_margin /
+// screen_rejects.
+constexpr float kScreenRel = 12.f * 5.9604644775390625e-8f;  // 12·2⁻²⁴
+constexpr float kScreenTiny = 1.1210387714598537e-44f;       // 2⁻¹⁴⁶
+constexpr float kScreenMax = 1.329227995784916e36f;          // 2¹²⁰
+
+// One staged candidate of the keys sweep: lanes 0-9 of its row (m6, Me,
+// c0), the screen's margin and its id; read as three 16-byte loads.
+struct alignas(16) ScreenRow {
+  float m[kStage];
+  float margin;
+  int id;
+};
+
+// The margin of one row against a tile whose largest |pix lanes 0:9| are
+// mx (direction 0:3, quadratic features 3:9).
+__device__ __forceinline__ float screen_margin(const float (&m)[kStage],
+                                               const float (&mx)[9]) {
+  float abar = mx[3] * fabsf(m[0]);
+#pragma unroll
+  for (int j = 1; j < 6; ++j) abar = __fmaf_rn(mx[3 + j], fabsf(m[j]), abar);
+  float bbar = mx[0] * fabsf(m[6]);
+#pragma unroll
+  for (int j = 1; j < 3; ++j) bbar = __fmaf_rn(mx[j], fabsf(m[6 + j]), bbar);
+  const float c0 = fabsf(m[9]);
+  const float s = __fmaf_rn(bbar, bbar, abar * c0);
+  const float margin =
+      __fmaf_rn(kScreenRel, s, kScreenTiny * ((c0 + bbar) + 1.f));
+  return s < kScreenMax ? margin : CUDART_INF_F;
+}
+
+// Whether the f32 Δ/4 of the pixel (d, fd) against the staged row (r0, r1,
+// r2: its three 16-byte words) is below −margin.
+__device__ __forceinline__ bool screen_rejects(const float (&d)[3],
+                                               const float (&fd)[6],
+                                               const float4& r0,
+                                               const float4& r1,
+                                               const float4& r2) {
+  float a = fd[0] * r0.x;
+  a = __fmaf_rn(fd[1], r0.y, a);
+  a = __fmaf_rn(fd[2], r0.z, a);
+  a = __fmaf_rn(fd[3], r0.w, a);
+  a = __fmaf_rn(fd[4], r1.x, a);
+  a = __fmaf_rn(fd[5], r1.y, a);
+  float b = d[0] * r1.z;
+  b = __fmaf_rn(d[1], r1.w, b);
+  b = __fmaf_rn(d[2], r2.x, b);
+  const float q = __fmaf_rn(b, b, -(a * r2.y));
+  return q < -r2.z;
 }
 
 // One pixel's features: its ray direction, the d-quadratic features and
@@ -169,78 +265,160 @@ __device__ __forceinline__ float color(const float* row, const Pixel& px,
   return row[11 + ch] + acc;
 }
 
-// Per-slot feature gradients of one pixel group's layers, added into the
-// tile's (C, 64) rows out_t. Layer k of this thread's pixel sits at slot
-// sl[k] (−1 vacant) with cotangents ga[k] = ∂L/∂α and (gr, gg, gb)[k] =
-// ∂L/∂rgb; through α = op·exp(B²/4A − (c0+3)) and rgb = color + y·SH, per
-// row lane:
+// ---------------------------------------------------------------------------
+// The contraction of the winners' gradients over a tile's pixels.
+//
+// Through α = op·exp(B²/4A − (c0+3)) and rgb = color + y·SH, a winner with
+// cotangents ga = ∂L/∂α and (gr, gg, gb) = ∂L/∂rgb gives its row, per lane,
 //   0:6  dA·fd      dA  = ga·α·(−B²/4A²)
 //   6:9  2·dB·d     dB  = ga·α·B/2A
 //   9    −ga·α      10  ga·ρ (masked by acceptance, not by α > 0)
-//   11:14 g_rgb     14:59 g_rgb·y per channel; 59:64 stay 0.
-// The pixels of a tile share their front splats, so this is the contended
-// part. The block walks the tile's 128-slot chunks and skips every chunk
-// that holds no winner (a block-wide __syncthreads_or vote, which is also
-// the barrier that frees the accumulator). For a chunk that does, the
-// threads add their layers' 59 lanes into a (59, 128) shared-memory
-// accumulator with shared float atomics, and the block then stores the
-// chunk's (128, 64) rows with coalesced writes (float atomics into device
-// memory when the tile takes several pixel groups, one_group false).
-// Untouched chunks stay at the zeros the wrapper allocates. Every thread
-// of the block must call this.
+//   11:14 g_rgb     14:59 g_rgb·y per channel; 59:64 stay 0:
+// seven scalars (dA, 2dB, −ga·α, ga·ρ, gr, gg, gb) times lanes of the
+// pixel's own row (fd, d, 1, y). A slot's row is the sum of that over the
+// pixels it won: a reduction. The kernels put the seven scalars of every
+// winning layer into shared memory (GradStage::put), kPassLayers layers a
+// pass, and contract_slot_grads() then
+//   B. groups the entries by slot with a counting sort: an integer
+//      histogram over the tile's slots (kRange slots a round), a block
+//      prefix sum that also compacts the winning slots, and a fill, all
+//      with integer atomics;
+//   C. gives every winning slot to a warp, whose 32 lanes own row lanes ℓ
+//      and ℓ + 32, walk the slot's entries and sum scalar(ℓ)·pixel(ℓ) in
+//      registers; and adds the finished row into the table row
+//      dpacked[cand[t, slot]] with red.global.add.f32.
+// No float atomic in shared memory, no (T, C, 64) block, no zero-fill by
+// the kernel; a vacant layer writes nothing, so the sentinel row stays 0.
+// The sums run in the fill's order and rows of different tiles meet in
+// device-memory atomics: results agree run to run to f32 rounding only.
+constexpr int kPassLayers = 8;   // layers a contraction pass
+constexpr int kRange = 2048;     // slots a histogram round
+constexpr int kEntries = kPassLayers * kThreads;
+constexpr int kLaneStride = kEntries + 1;  // scalar planes on distinct banks
+static_assert(kEntries < 65536, "entry indices are 16 bits");
+
+// Dynamic shared memory of the contraction.
+struct GradStage {
+  float sc[kGradScalars * kLaneStride];  // scalar si of entry e: si·stride + e
+  int offs[kRange];                      // histogram, then fill cursors
+  unsigned short order[kEntries];        // entries grouped by slot
+  unsigned short wslot[kRange];          // the round's winning slots, ascending
+  unsigned warp_tot[32];
+  unsigned total;
+
+  // Entry of layer k (within the pass) of this thread's pixel.
+  __device__ __forceinline__ static int entry(int k) {
+    return k * kThreads + threadIdx.x;
+  }
+  __device__ __forceinline__ void put(int k, float d_a, float d_b2,
+                                      float neg_ga_alpha, float d_op, float gr,
+                                      float gg, float gb) {
+    float* s = sc + entry(k);
+    s[0] = d_a;
+    s[kLaneStride] = d_b2;
+    s[2 * kLaneStride] = neg_ga_alpha;
+    s[3 * kLaneStride] = d_op;
+    s[4 * kLaneStride] = gr;
+    s[5 * kLaneStride] = gg;
+    s[6 * kLaneStride] = gb;
+  }
+};
+
+// Which scalar and which pixel lane make row lane l (pixel lane −1: the
+// factor is 1).
+__device__ __forceinline__ void row_lane_factors(int l, int& si, int& fi) {
+  if (l < 6) { si = 0; fi = 3 + l; }
+  else if (l < 9) { si = 1; fi = l - 6; }
+  else if (l < 14) { si = l - 7; fi = -1; }
+  else if (l < 29) { si = 4; fi = l - 5; }
+  else if (l < 44) { si = 5; fi = l - 20; }
+  else { si = 6; fi = l - 35; }
+}
+
+// Phases B and C for one pass: sl[k] (k in [k0, k0 + kPassLayers)) are the
+// slots of this thread's layers whose scalars st holds (−1: none), n_slots
+// the tile's swept slots, pix_g the pix row of the group's first pixel.
+// Every thread of the block must call this; blockDim.x is a multiple of 32
+// and at most kThreads.
 template <int K>
-__device__ __forceinline__ void add_slot_grads(
-    const float* __restrict__ packed, const int* __restrict__ cand_t,
-    int n_chunks, float* __restrict__ out_t, bool one_group, const Pixel& px,
-    const int (&sl)[K], const float (&ga)[K], const float (&gr)[K],
-    const float (&gg)[K], const float (&gb)[K], float (*s_acc)[kChunk]) {
-  for (int c = 0; c < n_chunks; ++c) {
-    const int lo = c * kChunk;
-    bool mine = false;
-#pragma unroll
-    for (int k = 0; k < K; ++k) mine |= sl[k] >= lo && sl[k] < lo + kChunk;
-    if (!__syncthreads_or(mine)) continue;
-    for (int e = threadIdx.x; e < kLanes * kChunk; e += blockDim.x)
-      (&s_acc[0][0])[e] = 0.f;
+__device__ __forceinline__ void contract_slot_grads(
+    GradStage& st, const int (&sl)[K], int k0, const int* __restrict__ cand_t,
+    int n_slots, const float* __restrict__ pix_g, float* __restrict__ dpacked) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
+  int si0, fi0, si1, fi1;
+  row_lane_factors(lane, si0, fi0);
+  row_lane_factors(lane + 32 < kLanes ? lane + 32 : 0, si1, fi1);
+
+  for (int r0 = 0; r0 < n_slots; r0 += kRange) {
+    const int n = min(kRange, n_slots - r0);
+    __syncthreads();  // the scalars are written; the last round is read
+    for (int s = tid; s < n; s += nt) st.offs[s] = 0;
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      if (sl[k] < lo || sl[k] >= lo + kChunk) continue;
-      const int i = sl[k] - lo;
-      const float* row = packed + static_cast<size_t>(cand_t[sl[k]]) * kFeat;
-      const Quad qd = quad(row, px);
-      const float g_a = ga[k];
-      const float ga_alpha = g_a * qd.alpha;
-      const float d_a = ga_alpha * (-(qd.b * qd.b) / ((4.f * qd.a) * qd.a));
-      const float d_b = ga_alpha * (qd.b / (2.f * qd.a));
-#pragma unroll
-      for (int j = 0; j < 6; ++j) atomicAdd(&s_acc[j][i], d_a * px.fd[j]);
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        atomicAdd(&s_acc[6 + j][i], 2.f * d_b * px.dir[j]);
-      atomicAdd(&s_acc[9][i], -ga_alpha);
-      atomicAdd(&s_acc[10][i], g_a * qd.rho);
-      atomicAdd(&s_acc[11][i], gr[k]);
-      atomicAdd(&s_acc[12][i], gg[k]);
-      atomicAdd(&s_acc[13][i], gb[k]);
-#pragma unroll
-      for (int j = 0; j < 15; ++j) {
-        atomicAdd(&s_acc[14 + j][i], gr[k] * px.y[j]);
-        atomicAdd(&s_acc[29 + j][i], gg[k] * px.y[j]);
-        atomicAdd(&s_acc[44 + j][i], gb[k] * px.y[j]);
-      }
+      const int s = sl[k] - r0;
+      if (k >= k0 && k < k0 + kPassLayers && s >= 0 && s < n)
+        atomicAdd(&st.offs[s], 1);
     }
     __syncthreads();
-    float* dst = out_t + static_cast<size_t>(lo) * kFeat;
-    for (int e = threadIdx.x; e < kChunk * kFeat; e += blockDim.x) {
-      const int i = e / kFeat;
-      const int lane = e - i * kFeat;
-      if (lane >= kLanes) continue;
-      const float val = s_acc[lane][i];
-      if (one_group)
-        dst[e] = val;
-      else if (val != 0.f)
-        atomicAdd(dst + e, val);
+
+    // Exclusive prefix sum of the counts, entries in the high half of a
+    // word and winning slots in the low half; a thread owns `per`
+    // consecutive slots.
+    const int per = (n + nt - 1) / nt;
+    const int lo = min(tid * per, n), hi = min(lo + per, n);
+    unsigned mine = 0;
+    for (int s = lo; s < hi; ++s) {
+      const unsigned c = st.offs[s];
+      mine += (c << 16) | (c > 0);
+    }
+    unsigned incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const unsigned up = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += up;
+    }
+    if (lane == 31) st.warp_tot[warp] = incl;
+    __syncthreads();
+    unsigned base = incl - mine;
+    for (int w = 0; w < warp; ++w) base += st.warp_tot[w];
+    if (tid == nt - 1) st.total = base + mine;
+    for (int s = lo; s < hi; ++s) {
+      const unsigned c = st.offs[s];
+      if (c > 0) st.wslot[base & 0xffffu] = static_cast<unsigned short>(s);
+      st.offs[s] = base >> 16;
+      base += (c << 16) | (c > 0);
+    }
+    __syncthreads();
+    const int n_won = st.total & 0xffffu;
+    if (n_won == 0) continue;
+
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int s = sl[k] - r0;
+      if (k >= k0 && k < k0 + kPassLayers && s >= 0 && s < n)
+        st.order[atomicAdd(&st.offs[s], 1)] =
+            static_cast<unsigned short>(GradStage::entry(k - k0));
+    }
+    __syncthreads();  // offs[s] is now the end of slot s's entries
+
+    for (int j = warp; j < n_won; j += n_warps) {
+      const int s = st.wslot[j];
+      const int begin = j > 0 ? st.offs[st.wslot[j - 1]] : 0;
+      const int end = st.offs[s];
+      float acc0 = 0.f, acc1 = 0.f;
+      for (int i = begin; i < end; ++i) {
+        const int e = st.order[i];
+        const float* q = pix_g + (e & (kThreads - 1)) * kPixFeat;
+        const float f0 = fi0 >= 0 ? __ldg(q + fi0) : 1.f;
+        const float f1 = fi1 >= 0 ? __ldg(q + fi1) : 1.f;
+        acc0 = acc0 + st.sc[si0 * kLaneStride + e] * f0;
+        acc1 = acc1 + st.sc[si1 * kLaneStride + e] * f1;
+      }
+      float* row = dpacked + static_cast<size_t>(cand_t[r0 + s]) * kFeat;
+      atomicAdd(row + lane, acc0);
+      if (lane + 32 < kLanes) atomicAdd(row + lane + 32, acc1);
     }
   }
 }
@@ -266,5 +444,19 @@ int launch_for_depth(int device, int C, int P, int depth, Launch&& launch) {
 }
 
 inline int threads_for(int P) { return P < kThreads ? P : kThreads; }
+
+// The contraction shuffles across whole warps.
+inline int warp_threads_for(int P) { return (threads_for(P) + 31) / 32 * 32; }
+
+// Let a backward kernel take the contraction's stage as dynamic shared
+// memory (it is above the 48 KB a kernel gets unasked). False on failure,
+// with the error left for cudaGetLastError.
+template <typename Kernel>
+bool grad_stage_opt_in(Kernel* kernel) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(sizeof(GradStage))) ==
+         cudaSuccess;
+}
 
 }  // namespace

@@ -20,7 +20,8 @@
 // thread per column (min_reduce_sub).
 //
 // Bound. Elementwise variants move 8 bytes per element and are bound by
-// bytes; the merges and the chunk body are bound by instruction throughput (the
+// bytes (they read and write 16 bytes a thread where the tile's element
+// count is a multiple of 4); the merges and the chunk body are bound by instruction throughput (the
 // list insertion, the shuffles, the float64 entry depth of sweep_topk).
 //
 // Numerics: built with IEEE sqrt and division and --fmad=false, so a*m+b
@@ -96,6 +97,26 @@ __device__ __forceinline__ void dump_merge_state(const float* xrow,
     orow[(1 + j) * kK + k] = hit ? v * (1.f + j + c) : 0.f;
 }
 
+// One element of an elementwise variant.
+template <int V>
+__device__ __forceinline__ float elementwise(float v) {
+  float r = v;
+  if constexpr (V == kMult) r = v * 1.0001f;
+  if constexpr (V == kChain10) {
+#pragma unroll
+    for (int i = 0; i < 10; ++i) r = r * 1.0001f + 1e-9f;
+  }
+  if constexpr (V == kFori16) {
+    for (int i = 0; i < 16; ++i) r = r * 1.0001f + 1e-9f;
+  }
+  if constexpr (V == kDiv) r = 1.0f / v;
+  if constexpr (V == kSqrt) r = sqrtf(v);
+  if constexpr (V == kExp) r = expf(v);
+  if constexpr (V == kExp2) r = exp2f(v);
+  if constexpr (V == kExpWhere) r = v > 1.0f ? expf(v) : 0.f;
+  return r;
+}
+
 template <int V>
 __global__ void __launch_bounds__(kThreads)
     micro_kernel(const float* __restrict__ x, float* __restrict__ out, int P,
@@ -113,23 +134,18 @@ __global__ void __launch_bounds__(kThreads)
   const int n = P * C;
 
   if constexpr (V <= kExpWhere || V == kFori16) {
-    for (int e = tid; e < n; e += nthr) {
-      const float v = xt[e];
-      float r = v;
-      if constexpr (V == kMult) r = v * 1.0001f;
-      if constexpr (V == kChain10) {
-#pragma unroll
-        for (int i = 0; i < 10; ++i) r = r * 1.0001f + 1e-9f;
+    // Streaming: 16-byte loads and stores a thread where the tile's element
+    // count allows (the tile then starts on a 16-byte boundary too).
+    if ((n & 3) == 0) {
+      const float4* x4 = reinterpret_cast<const float4*>(xt);
+      float4* o4 = reinterpret_cast<float4*>(ot);
+      for (int e = tid; e < n / 4; e += nthr) {
+        const float4 v = x4[e];
+        o4[e] = make_float4(elementwise<V>(v.x), elementwise<V>(v.y),
+                            elementwise<V>(v.z), elementwise<V>(v.w));
       }
-      if constexpr (V == kFori16) {
-        for (int i = 0; i < 16; ++i) r = r * 1.0001f + 1e-9f;
-      }
-      if constexpr (V == kDiv) r = 1.0f / v;
-      if constexpr (V == kSqrt) r = sqrtf(v);
-      if constexpr (V == kExp) r = expf(v);
-      if constexpr (V == kExp2) r = exp2f(v);
-      if constexpr (V == kExpWhere) r = v > 1.0f ? expf(v) : 0.f;
-      ot[e] = r;
+    } else {
+      for (int e = tid; e < n; e += nthr) ot[e] = elementwise<V>(xt[e]);
     }
   } else if constexpr (V == kMinReduce || V == kConcat144 ||
                        V == kMatvecOnes || V == kArgminPass) {

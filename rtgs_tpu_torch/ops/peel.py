@@ -31,9 +31,14 @@ and ``csrc/peel_bwd.cu``: :func:`peel_fused_cuda`, :func:`peel_fused_bwd_cuda`;
 :func:`peel_fused_bwd_torch`, :func:`peel_topk_torch`,
 :func:`peel_topk_bwd_torch`). Both evaluate t1 with the same operations in
 the same order, and the kernels are built without FMA contraction, so on
-the card the two select the same winners bitwise. The dispatchers
-(:func:`peel_keys`, :func:`peel_fused`, :func:`peel_topk`) pick by the
-tensors' device.
+the card the two select the same winners bitwise. The keys kernel puts an
+f32 screen in front of the float64 chain (plain version:
+:func:`screen_margin`, :func:`screen_rejects`), which rejects only pairs
+whose float64 Δ is negative and so changes no bit. The backward kernels
+return the gradient of the (N+1, 64) table itself; their plain twins return
+per-slot rows (T, C, 64), which ``index_add_`` scatters into the table. The
+dispatchers (:func:`peel_keys`, :func:`peel_fused`, :func:`peel_topk`) pick
+by the tensors' device.
 """
 
 from __future__ import annotations
@@ -84,6 +89,57 @@ def entry_depth(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
     sq = torch.sqrt(torch.where(delta > 0, delta, 0.0))
     t1 = (-b - sq) / (2.0 * a)
     return torch.where((delta >= 0) & (t1 > 0), t1, math.inf).float()
+
+
+# The screen's constants (csrc/peel_common.cuh, where the bound is derived):
+# 12·2⁻²⁴ of b̄² + Ā|c0|, 2⁻¹⁴⁶ of |c0| + b̄ + 1 for gradual underflow, and no
+# rejection at all once b̄² + Ā|c0| reaches 2¹²⁰.
+SCREEN_REL = 12.0 * 2.0**-24
+SCREEN_TINY = 2.0**-146
+SCREEN_MAX = 2.0**120
+
+
+def screen_margin(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """The keys kernel's screen margin (T, C) f32 of feature rows
+    (T, C, ≥10) f32 against the pixels (T, P, 24) f32 of their tile: a bound
+    of the error of an f32 evaluation of Δ/4 = b² − A·c0 (b = d·Me, A =
+    fd·m6), from the tile's largest |d_j| and |fd_j| and the row's |m_j|,
+    |Me_j| and |c0|: ``SCREEN_REL·(b̄² + Ā·|c0|) + SCREEN_TINY·(|c0| + b̄ +
+    1)`` with Ā and b̄ the sums of absolute products; +inf where b̄² + Ā·|c0|
+    is not below ``SCREEN_MAX`` (or is NaN), so that nothing there is
+    rejected. Plain version of ``screen_margin`` in
+    ``csrc/peel_common.cuh``; f32 throughout."""
+    mx = pix[..., :9].abs().amax(dim=1)[:, None, :]    # (T, 1, 9)
+    m = rows[..., :10].abs()
+    abar = mx[..., 3] * m[..., 0]
+    for j in range(1, 6):
+        abar = abar + mx[..., 3 + j] * m[..., j]
+    bbar = mx[..., 0] * m[..., 6]
+    for j in range(1, 3):
+        bbar = bbar + mx[..., j] * m[..., 6 + j]
+    c0 = m[..., 9]
+    s = bbar * bbar + abar * c0
+    margin = SCREEN_REL * s + SCREEN_TINY * ((c0 + bbar) + 1.0)
+    return torch.where(s < SCREEN_MAX, margin, math.inf)
+
+
+def screen_rejects(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
+    """Whether the keys kernel's screen rejects each (pixel, candidate)
+    pair, (T, P, C) bool: the f32 Δ/4 lies below −:func:`screen_margin`. It
+    is never true where :func:`entry_depth` finds a hit (the margin bounds
+    the f32 error, fused or not), and a NaN on either side compares false.
+    Plain version of ``screen_rejects`` in ``csrc/peel_common.cuh``; used by
+    the tests, by nothing on the card's path."""
+    m = rows[:, None, :, :10]                          # (T, 1, C, 10)
+    q = pix[:, :, None, :9]                            # (T, P, 1, 9)
+    a = q[..., 3] * m[..., 0]
+    for j in range(1, 6):
+        a = a + q[..., 3 + j] * m[..., j]
+    b = q[..., 0] * m[..., 6]
+    for j in range(1, 3):
+        b = b + q[..., j] * m[..., 6 + j]
+    quarter_delta = b * b - a * m[..., 9]
+    return quarter_delta < -screen_margin(rows, pix)[:, None, :]
 
 
 def peel_keys_torch(packed: torch.Tensor, candidates: torch.Tensor,
@@ -148,7 +204,8 @@ def _raise_on(err: int, lib, what: str) -> None:
 
 def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
                    counts: torch.Tensor, chunk_lb: torch.Tensor,
-                   pix: torch.Tensor, depth: int):
+                   pix: torch.Tensor, depth: int,
+                   screen_counts: torch.Tensor | None = None):
     """Launch the Hopper keys kernel (``csrc/keys.cu``) on the current
     stream.
 
@@ -160,6 +217,10 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ``tile_candidates(..., chunk=CHUNK)``; zeros disable the early exit.
       pix: (T, P, 24) f32 pixel features, P ≤ 1024.
       depth: K, 1..``MAX_DEPTH``.
+      screen_counts: None, or a (2,) int64 tensor into which the kernel adds
+        the (pixel, live candidate) pairs it evaluated and those its f32
+        screen rejected before the float64 chain (another instantiation of
+        the kernel: the one without counters is the one to time).
 
     Returns (t1 (T, K, P) f32, sid (T, K, P) int32). Every input must be a
     contiguous CUDA tensor on one device; a failed build or launch raises.
@@ -167,12 +228,15 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     """
     t, c = candidates.shape
     p = pix.shape[1]
-    dev = _check_launch("peel_keys_cuda", (
+    specs = [
         ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
         ("candidates", candidates, torch.int32, (t, c)),
         ("counts", counts, torch.int32, (t,)),
         ("chunk_lb", chunk_lb, torch.float32, (t, c // CHUNK + 1)),
-        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
+        ("pix", pix, torch.float32, (t, p, G_DIM))]
+    if screen_counts is not None:
+        specs.append(("screen_counts", screen_counts, torch.int64, (2,)))
+    dev = _check_launch("peel_keys_cuda", specs, c, p, depth)
 
     t1 = torch.empty((t, depth, p), dtype=torch.float32, device=dev)
     sid = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
@@ -186,6 +250,7 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
         ptr(counts.data_ptr()), ptr(chunk_lb.data_ptr()),
         ptr(pix.data_ptr()), ptr(t1.data_ptr()), ptr(sid.data_ptr()),
+        ptr(0 if screen_counts is None else screen_counts.data_ptr()),
         t, c, p, depth, _device_index(dev),
         ptr(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, lib, "keys")
@@ -453,10 +518,14 @@ def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     """Launch the Hopper fused backward kernel (``csrc/peel_bwd.cu``) on
     the current stream. Inputs as :func:`peel_fused_cuda`, plus the
     forward's ``slots`` (T, K, P) int32 and the cotangents ``grad_rad``
-    (T, 3, P) and ``grad_trans`` (T, P), f32. Returns the per-slot feature
-    gradients (T, C, 64) f32, summed over pixels with shared-memory float
-    atomics, so their low bits vary from run to run.
-    ``peel_fused_bwd_cuda.launches`` counts the launches."""
+    (T, 3, P) and ``grad_trans`` (T, P), f32. Returns the gradient of the
+    feature table, (N+1, 64) f32: the kernel sums each winning slot's row
+    over its tile's pixels and adds it into row ``candidates[t, slot]`` of a
+    zero-filled table (what ``index_add_`` of
+    :func:`peel_fused_bwd_torch`'s per-slot rows gives); the sentinel row N
+    stays exactly 0. The sums meet in device-memory atomics, so the low
+    bits vary from run to run. ``peel_fused_bwd_cuda.launches`` counts the
+    launches."""
     t, c = candidates.shape
     p = pix.shape[1]
     dev = _check_launch("peel_fused_bwd_cuda", (
@@ -467,9 +536,9 @@ def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("slots", slots, torch.int32, (t, depth, p)),
         ("grad_rad", grad_rad, torch.float32, (t, 3, p)),
         ("grad_trans", grad_trans, torch.float32, (t, p))), c, p, depth)
-    dfeats = torch.zeros((t, c, F_DIM), dtype=torch.float32, device=dev)
+    dpacked = torch.zeros_like(packed)
     if t == 0:
-        return dfeats
+        return dpacked
     from rtgs_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -478,14 +547,24 @@ def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
         ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
         ptr(grad_rad.data_ptr()), ptr(grad_trans.data_ptr()),
-        ptr(dfeats.data_ptr()), t, c, p, depth, _device_index(dev),
+        ptr(dpacked.data_ptr()), t, c, p, depth, _device_index(dev),
         ptr(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, lib, "fused backward")
     peel_fused_bwd_cuda.launches += 1
-    return dfeats
+    return dpacked
 
 
 peel_fused_bwd_cuda.launches = 0
+
+
+def _scatter_slot_grads(packed: torch.Tensor, candidates: torch.Tensor,
+                        dfeats: torch.Tensor) -> torch.Tensor:
+    """The (N+1, 64) table gradient from a plain twin's per-slot gradients
+    (T, C, 64): ``index_add_`` over the candidates' ids, the padding's zeros
+    into the sentinel row."""
+    return torch.zeros_like(packed).index_add_(
+        0, _safe_ids(packed, candidates).reshape(-1),
+        dfeats.reshape(-1, F_DIM))
 
 
 def _use_kernel(impl: str, packed: torch.Tensor) -> bool:
@@ -498,7 +577,8 @@ class PeelFused(torch.autograd.Function):
     """The fused peel with its hand-written backward: the counterpart of
     the JAX ``peel_pallas`` custom VJP. The forward saves its inputs and
     the winners' slots; the backward returns a gradient for ``packed``
-    only, scatter-adding the per-slot gradients into (N+1, 64) with
+    only: the kernel's (N+1, 64) table on CUDA tensors, and for the plain
+    twin its per-slot gradients scatter-added into (N+1, 64) with
     ``index_add_`` (the sentinel row takes the padding's zeros)."""
 
     @staticmethod
@@ -519,15 +599,14 @@ class PeelFused(torch.autograd.Function):
         # Autograd materializes an unused output's cotangent as zeros.
         packed, candidates, pix, slots = ctx.saved_tensors
         if ctx.use_kernel:
-            dfeats = peel_fused_bwd_cuda(
+            dpacked = peel_fused_bwd_cuda(
                 packed, candidates, _counts(candidates), pix, slots,
                 grad_rad.contiguous(), grad_trans.contiguous(), ctx.depth)
         else:
-            dfeats = peel_fused_bwd_torch(packed, candidates, pix, slots,
-                                          grad_rad, grad_trans)
-        dpacked = torch.zeros_like(packed).index_add_(
-            0, _safe_ids(packed, candidates).reshape(-1),
-            dfeats.reshape(-1, F_DIM))
+            dpacked = _scatter_slot_grads(packed, candidates,
+                                          peel_fused_bwd_torch(
+                                              packed, candidates, pix, slots,
+                                              grad_rad, grad_trans))
         return dpacked, None, None, None, None
 
 
@@ -552,9 +631,11 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
 
     Determinism: the forward is bitwise deterministic on the card (no
     atomics; winners in float64, bitwise those of the twin). The gradient
-    is not: the backward kernel sums over a tile's pixels with float
-    atomics, and ``index_add_`` sums over tiles with atomics, both in no
-    fixed order, so gradients agree run to run only to f32 rounding.
+    is not: the backward kernel sums a slot's row over its tile's pixels in
+    the order an integer-atomic fill left them, and the rows of different
+    tiles meet in device-memory float atomics, both in no fixed order, so
+    gradients agree run to run only to f32 rounding (held on the card to
+    1e-4 of each lane's largest entry against the plain twin).
     """
     return PeelFused.apply(packed, candidates, pix, depth, impl)
 
@@ -643,9 +724,9 @@ def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     """Launch the Hopper top-K backward kernel (``csrc/peel_topk_bwd.cu``)
     on the current stream. Inputs as :func:`peel_fused_cuda`, plus the
     forward's ``slots`` (T, K, P) int32 and the per-layer cotangents
-    ``grad_layers`` (T, 4, K, P) f32 of (α, r, g, b). Returns the per-slot
-    feature gradients (T, C, 64) f32, summed over pixels with shared-memory
-    float atomics, so their low bits vary from run to run.
+    ``grad_layers`` (T, 4, K, P) f32 of (α, r, g, b). Returns the gradient
+    of the feature table, (N+1, 64) f32, as :func:`peel_fused_bwd_cuda`
+    does (row N exactly 0; low bits vary from run to run).
     ``peel_topk_bwd_cuda.launches`` counts the launches."""
     t, c = candidates.shape
     p = pix.shape[1]
@@ -657,9 +738,9 @@ def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("slots", slots, torch.int32, (t, depth, p)),
         ("grad_layers", grad_layers, torch.float32, (t, 4, depth, p))),
         c, p, depth)
-    dfeats = torch.zeros((t, c, F_DIM), dtype=torch.float32, device=dev)
+    dpacked = torch.zeros_like(packed)
     if t == 0:
-        return dfeats
+        return dpacked
     from rtgs_tpu_torch.ops import _build
 
     lib = _build.load_library()
@@ -667,11 +748,11 @@ def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     err = lib.rtgs_peel_topk_bwd(
         ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
         ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
-        ptr(grad_layers.data_ptr()), ptr(dfeats.data_ptr()), t, c, p, depth,
+        ptr(grad_layers.data_ptr()), ptr(dpacked.data_ptr()), t, c, p, depth,
         _device_index(dev), ptr(torch.cuda.current_stream(dev).cuda_stream))
     _raise_on(err, lib, "top-K backward")
     peel_topk_bwd_cuda.launches += 1
-    return dfeats
+    return dpacked
 
 
 peel_topk_bwd_cuda.launches = 0
@@ -682,9 +763,8 @@ class PeelTopK(torch.autograd.Function):
     the JAX ``peel_topk_pallas`` custom VJP. The forward returns the layer
     table (T, 5, K, P) and saves its inputs and the winners' slots; the
     backward drops the t1 cotangent (the order is piecewise constant, as
-    the JAX rule does) and returns a gradient for ``packed`` only,
-    scatter-adding the per-slot gradients into (N+1, 64) with
-    ``index_add_``."""
+    the JAX rule does) and returns a gradient for ``packed`` only, as
+    :class:`PeelFused` does."""
 
     @staticmethod
     def forward(ctx, packed, candidates, pix, depth, impl):
@@ -703,15 +783,14 @@ class PeelTopK(torch.autograd.Function):
         packed, candidates, pix, slots = ctx.saved_tensors
         grad_layers = grad_layers[:, 1:].contiguous()     # (α, r, g, b)
         if ctx.use_kernel:
-            dfeats = peel_topk_bwd_cuda(packed, candidates,
-                                        _counts(candidates), pix, slots,
-                                        grad_layers, ctx.depth)
+            dpacked = peel_topk_bwd_cuda(packed, candidates,
+                                         _counts(candidates), pix, slots,
+                                         grad_layers, ctx.depth)
         else:
-            dfeats = peel_topk_bwd_torch(packed, candidates, pix, slots,
-                                         grad_layers)
-        dpacked = torch.zeros_like(packed).index_add_(
-            0, _safe_ids(packed, candidates).reshape(-1),
-            dfeats.reshape(-1, F_DIM))
+            dpacked = _scatter_slot_grads(packed, candidates,
+                                          peel_topk_bwd_torch(
+                                              packed, candidates, pix, slots,
+                                              grad_layers))
         return dpacked, None, None, None, None
 
 

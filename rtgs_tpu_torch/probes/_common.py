@@ -81,6 +81,32 @@ def median_ms(fn, iters: int, device: torch.device):
     return ts[len(ts) // 2], ts[0]
 
 
+def busy_ms(fn, iters: int, device: torch.device) -> float:
+    """Median device milliseconds of ``fn()`` with the host's share taken
+    out: the stream is first kept busy by a long kernel (an in-place pass
+    over 1 GiB, twice), so the host enqueues the start event, ``fn``'s
+    launches and the end event while the card still works on it, and the
+    events then bracket ``fn``'s device work alone. Beside
+    :func:`median_ms` it says how much of a wrapper's time is the host's
+    (allocation, ctypes, launch). CUDA only."""
+    ballast = torch.empty(2**28, dtype=torch.float32, device=device)
+    fn()
+    ts = []
+    for _ in range(iters):
+        torch.cuda.synchronize(device)
+        ballast.mul_(1.0)
+        ballast.mul_(1.0)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        ts.append(t0.elapsed_time(t1))
+    ts.sort()
+    return ts[len(ts) // 2]
+
+
 def check_cuda(who: str, specs) -> torch.device:
     """``specs``: (name, tensor, dtype, shape or None); all contiguous CUDA
     tensors on the first one's device. Raises ``ValueError`` otherwise."""

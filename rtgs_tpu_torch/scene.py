@@ -161,3 +161,28 @@ def random_scene(n: int, extent: float = 1.0, scale_range=(0.02, 0.1),
     bits differ from JAX's)."""
     return _from_numpy(device, **random_scene_arrays(n, extent, scale_range,
                                                      seed))
+
+
+def anisotropic_scene(n: int, extent: float = 0.5,
+                      minor_range=(1e-4, 1e-3), ratio_range=(100.0, 1000.0),
+                      seed: int = 0, device="cpu") -> G.Gaussians:
+    """Seeded scene of needles and discs: as :func:`random_scene`, but every
+    splat has one axis drawn log-uniformly from ``minor_range`` and each of
+    the other two either equal to it or ``ratio_range`` times longer (at
+    least one is), so the scale ratio within a splat is at least
+    ``ratio_range[0]``. Seen from very near and from very far it strains the
+    entry depth's cancellation and the keys kernel's f32 screen."""
+    fields = random_scene_arrays(n, extent, (1.0, 1.0), seed)
+    rng = np.random.default_rng(seed + 1)
+    minor = np.exp(rng.uniform(np.log(minor_range[0]),
+                               np.log(minor_range[1]), (n, 1)))
+    ratio = np.exp(rng.uniform(np.log(ratio_range[0]),
+                               np.log(ratio_range[1]), (n, 3)))
+    long_axis = rng.uniform(size=(n, 3)) < 0.5
+    long_axis[np.arange(n), rng.integers(0, 3, n)] = True     # at least one
+    long_axis[np.arange(n), rng.integers(0, 3, n)] = False    # the minor one
+    stretched = np.where(long_axis, ratio, 1.0)
+    none = ~long_axis.any(axis=1)
+    stretched[none, 0] = ratio[none, 0]
+    fields["scales"] = (minor * stretched).astype(np.float32)
+    return _from_numpy(device, **fields)

@@ -8,16 +8,20 @@ so it runs where only the port is installed:
 Both select by the same float64 t1 chain and (t1, slot) order, so the
 winners' slots must be bitwise equal. Shading is f32 in the same operation
 order (built without FMA contraction); radiance and transmittance must
-agree to 1e-5 absolute. The backward sums over pixels with float atomics
-in no fixed order, so each feature lane must agree to 1e-4 of that lane's
-largest entry."""
+agree to 1e-5 absolute. The backward kernel returns the gradient of the
+(N+1, 64) feature table: a slot's row summed over its tile's pixels in the
+order of an integer-atomic fill, and added into the table with device-memory
+atomics, in no fixed order; against ``index_add_`` of the twin's per-slot
+gradients each feature lane must agree to 1e-4 of that lane's largest entry,
+and the sentinel row N must be exactly 0."""
 
 import numpy as np
 import pytest
 import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
-from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, peel_fused,
+from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts,
+                                     _scatter_slot_grads, peel_fused,
                                      peel_fused_bwd_cuda,
                                      peel_fused_bwd_torch, peel_fused_cuda,
                                      peel_fused_torch)
@@ -51,10 +55,13 @@ def _frame(device, n=3000, res=(64, 48)):
     return g, cam, b.candidates, packed, _tile_pixel_features(cam, (16, 16))
 
 
-def assert_lanes_close(got, ref, rtol=BWD_LANE_RTOL):
-    scale = ref.abs().amax(dim=(0, 1)) + 1e-30          # per lane
-    err = ((got - ref).abs().amax(dim=(0, 1)) / scale).max()
+def assert_tables_close(got, ref, rtol=BWD_LANE_RTOL):
+    """(N+1, 64) table gradients: per lane, and the sentinel row exactly 0."""
+    assert got.shape == ref.shape
+    scale = ref.abs().amax(dim=0) + 1e-30               # per lane
+    err = ((got - ref).abs().amax(dim=0) / scale).max()
     assert float(err) <= rtol, float(err)
+    assert (got[-1] == 0).all()
 
 
 @pytest.mark.cuda
@@ -74,14 +81,38 @@ def test_kernels_match_twins(cuda, depth):
     g_tr = torch.randn(tr_k.shape, generator=gen, device=cuda)
     d_k = peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k, g_rad, g_tr,
                               depth)
-    d_t = peel_fused_bwd_torch(packed, cand, pix, sl_t, g_rad, g_tr)
+    d_t = _scatter_slot_grads(packed, cand, peel_fused_bwd_torch(
+        packed, cand, pix, sl_t, g_rad, g_tr))
     torch.cuda.synchronize()
     assert torch.isfinite(d_k).all() and d_k.abs().max() > 0
-    assert_lanes_close(d_k, d_t)
+    assert_tables_close(d_k, d_t)
     # The forward is deterministic, bitwise.
     rad_2, tr_2, sl_2 = peel_fused_cuda(packed, cand, counts, pix, depth)
     assert torch.equal(rad_2, rad_k) and torch.equal(tr_2, tr_k)
     assert torch.equal(sl_2, sl_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [(24, 24), (64, 48)])
+def test_backward_with_gaps_and_small_tiles(cuda, res):
+    """Interior −1 gaps in the candidate lists, vacant layers, and tiles of
+    fewer pixels than a warp group (8×8 tiles: blocks of 64 threads)."""
+    g, cam, _, packed, _ = _frame(cuda, n=1500, res=res)
+    pix = _tile_pixel_features(cam, (8, 8))
+    b = tile_candidates(g, cam, tile=(8, 8), max_candidates=1024,
+                        max_global=64, chunk=CHUNK)
+    cand = b.candidates.clone()
+    cand[:, 3::7] = -1
+    counts = _counts(cand)
+    rad, tr, sl = peel_fused_cuda(packed, cand, counts, pix, 16)
+    assert torch.equal(sl, peel_fused_torch(packed, cand, pix, 16)[2])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g_rad = torch.randn(rad.shape, generator=gen, device=cuda)
+    g_tr = torch.randn(tr.shape, generator=gen, device=cuda)
+    d_k = peel_fused_bwd_cuda(packed, cand, counts, pix, sl, g_rad, g_tr, 16)
+    d_t = _scatter_slot_grads(packed, cand, peel_fused_bwd_torch(
+        packed, cand, pix, sl, g_rad, g_tr))
+    assert_tables_close(d_k, d_t)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,10 @@ Imports no JAX, so it runs where only the port is installed:
 Kernel and twin select by the same float64 t1 chain and (t1, slot) order,
 so the winners' slots and t1 must be bitwise equal. α and rgb are f32 in
 the same operation order (built without FMA contraction) and must agree to
-1e-5 absolute. The backward sums over pixels with float atomics in no
-fixed order, so each feature lane must agree to 1e-4 of that lane's
-largest entry. The K-list composited by composite_hits equals the fused
+1e-5 absolute. The backward kernel returns the gradient of the (N+1, 64)
+table (sums in no fixed order): against ``index_add_`` of the twin's
+per-slot gradients each feature lane must agree to 1e-4 of that lane's
+largest entry, and the sentinel row must be exactly 0. The K-list composited by composite_hits equals the fused
 peel's radiance and transmittance to 1e-5 (the same layers, summed in
 another order)."""
 
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
-from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, peel_fused,
+from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts,
+                                     _scatter_slot_grads, peel_fused,
                                      peel_fused_cuda, peel_topk,
                                      peel_topk_bwd_cuda, peel_topk_bwd_torch,
                                      peel_topk_cuda, peel_topk_torch)
@@ -53,10 +55,13 @@ def _frame(device, n=3000, res=(64, 48)):
     return b.candidates, packed, _tile_pixel_features(cam, (16, 16))
 
 
-def assert_lanes_close(got, ref, rtol=BWD_LANE_RTOL):
-    scale = ref.abs().amax(dim=(0, 1)) + 1e-30          # per lane
-    err = ((got - ref).abs().amax(dim=(0, 1)) / scale).max()
+def assert_tables_close(got, ref, rtol=BWD_LANE_RTOL):
+    """(N+1, 64) table gradients: per lane, and the sentinel row exactly 0."""
+    assert got.shape == ref.shape
+    scale = ref.abs().amax(dim=0) + 1e-30               # per lane
+    err = ((got - ref).abs().amax(dim=0) / scale).max()
     assert float(err) <= rtol, float(err)
+    assert (got[-1] == 0).all()
 
 
 @pytest.mark.cuda
@@ -81,10 +86,11 @@ def test_kernels_match_twins(cuda, depth):
     g_lay = torch.randn((cand.shape[0], 4, depth, pix.shape[1]),
                         generator=gen, device=cuda)
     d_k = peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay, depth)
-    d_t = peel_topk_bwd_torch(packed, cand, pix, sl_t, g_lay)
+    d_t = _scatter_slot_grads(packed, cand, peel_topk_bwd_torch(
+        packed, cand, pix, sl_t, g_lay))
     torch.cuda.synchronize()
     assert torch.isfinite(d_k).all() and d_k.abs().max() > 0
-    assert_lanes_close(d_k, d_t)
+    assert_tables_close(d_k, d_t)
     # The forward is deterministic, bitwise.
     lay_2, sl_2 = peel_topk_cuda(packed, cand, counts, pix, depth)
     assert torch.equal(lay_2, lay_k) and torch.equal(sl_2, sl_k)
