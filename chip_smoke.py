@@ -16,26 +16,26 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      rejects; a whole 256x192 frame through the kernel against one through
      the twin; and a scene that strains the screen, needles and discs
      (scale ratio >= 100 within a splat) seen from 0.2 and from 50 units
-     away: the full sweep bitwise the twin's, and the early exit bitwise on
-     every tile whose chunk_lb is a lower bound of the twin's t1 field (the
-     f32 feature table loses such splats' definiteness, and with it the
-     binning's bound: counted and printed);
+     away: every row of the f32 table positive definite, chunk_lb a lower
+     bound of the twin's t1 field on every tile, the full sweep and the
+     early exit both bitwise the twin's on every tile (any failure fails
+     the run);
   4. precision of the kernel's winning t1 against float64 recomputed from
      the same f32 inputs;
   5. the render path through the CLI: ``render`` and a 3-frame ``orbit``
      of a 1M-splat scene at 1920x1088, depth 16, 8 tile bands; every frame
      must have launched the keys kernel once per band; the image is checked
      (finite, not black, dropped candidates < 0.1%) and its frame and
-     per-stage times measured;
+     per-stage times measured (the proven entry bound a stage of its own);
   6. the fused-peel kernels (forward and backward) against their plain
      torch twins at the fit configuration (100k splats at 512x384, K 16,
      1536 candidates) and at 1M splats at 256x192: winners' slots bitwise,
      radiance and transmittance to an absolute tolerance, the backward's
      (N+1, 64) table gradient against index_add_ of the twin's per-slot
      gradients, per lane relative to the lane's largest entry, its sentinel
-     row exactly 0; times with CUDA events (the backward's also with the
-     stream kept busy); the winners' α against float64 from the same f32
-     inputs;
+     row exactly 0; times with CUDA events (both kernels' also with the
+     stream kept busy), the share of pairs the forward sweep's f32 screen
+     rejects; the winners' α against float64 from the same f32 inputs;
   7. the training path through the CLI: ``fit --renderer pallas`` from
      scratch on the 100k scene at 512x384, depth 16, 12 views, 20 steps, 2
      tile bands, a checkpoint every 10 steps; the forward kernel must have
@@ -60,14 +60,15 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      1e-2 of the field's largest entry at the 0.99 quantile (5e-2 for
      rotations and scales; its maximum and relative L2 norm printed, and
      beside them the fused path against a second run of itself); times
-     with CUDA events;
+     with CUDA events, the forward's also with the stream kept busy;
  10. the oracle through the CLI: ``render --renderer oracle`` of a
      4096-splat scene at 640x384 against the keys render of the same scene
      (the statistic of tests/_utils.assert_images_close), its frame time and
      peak device memory; ``fit --renderer oracle`` for 5 steps at 128x96;
  11. the ``tiled`` renderer through the CLI: ``render --renderer tiled`` of
-     the 100k scene at 640x384 against its keys render, frame time and peak
-     memory; ``fit --renderer tiled`` for 5 steps on the 4096-splat scene
+     the 100k scene at 640x384 against its keys render (and the winners of
+     the pixel where the two differ most, as each lists them), frame time
+     and peak memory; ``fit --renderer tiled`` for 5 steps on the 4096-splat scene
      at 128x96;
  12. the keys path's backward at the fit configuration: the hand-written
      backward of ``shade_winners_kp`` against torch autograd of its plain
@@ -92,7 +93,9 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      kprobe's shade variants once more with a +inf state, where their
      result is the minimum of their shading terms, against the plain
      minimum; then the three probes as programs (``python -m
-     rtgs_tpu_torch.probes.<name>``'s main), launches counted.
+     rtgs_tpu_torch.probes.<name>``'s main), launches counted; lpprobe ends
+     with the host time of a wrapper call and of each step of the launch
+     path.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -361,15 +364,17 @@ def keys_inputs(g, cfg, dev):
     from rtgs_tpu_torch.ops.peel import CHUNK, _counts
     from rtgs_tpu_torch.render.binning import tile_candidates
     from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             entry_lower_bound,
                                              pack_features,
                                              precompute_features)
 
     cam = camera(cfg["res"], dev)
+    packed = pack_features(precompute_features(g, cam))
     b = tile_candidates(g, cam, tile=TILE,
                         max_candidates=cfg["max_candidates"],
                         max_global=cfg["max_global"],
-                        narrow=cfg["bin_narrow"], chunk=CHUNK)
-    packed = pack_features(precompute_features(g, cam))
+                        narrow=cfg["bin_narrow"], chunk=CHUNK,
+                        entry_lb=entry_lower_bound(g, cam, packed))
     pix = _tile_pixel_features(cam, TILE)
     return cam, packed, b.candidates, _counts(b.candidates), b.chunk_lb, pix
 
@@ -445,10 +450,31 @@ def screen_share(packed, cand, counts, lb, pix, want):
     return pairs, rejected
 
 
+def sweep_screen_share(packed, cand, counts, pix, want_slots):
+    """(pairs swept, pairs the screen rejected) of ``sweep_topk`` on these
+    inputs, from the fused forward's counting instantiation, whose winners
+    must equal ``want_slots``."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import peel_fused_cuda
+
+    counters = torch.zeros(2, dtype=torch.int64, device=packed.device)
+    slots = peel_fused_cuda(packed, cand, counts, pix, DEPTH,
+                            screen_counts=counters)[2]
+    check(torch.equal(slots, want_slots),
+          "the counting forward kernel differs from the timed one")
+    pairs, rejected = (int(x) for x in counters)
+    check(0 <= rejected <= pairs and pairs > 0,
+          f"sweep screen counters {pairs}, {rejected}")
+    return pairs, rejected
+
+
 def phase3_anisotropic(dev):
     """The keys kernel against its twin on needles and discs seen from very
-    near and very far, where Δ cancels hardest and the screen's margin is
-    widest."""
+    near and very far, where Δ cancels hardest, the screen's margin is
+    widest and the f32 table is farthest from the exact ellipsoid: every
+    row of the table positive definite, chunk_lb a bound on every tile, the
+    early exit bitwise the twin's on every tile."""
     import numpy as np
     import torch
 
@@ -458,6 +484,7 @@ def phase3_anisotropic(dev):
                                          peel_keys_torch)
     from rtgs_tpu_torch.render.binning import tile_candidates
     from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             entry_lower_bound,
                                              pack_features,
                                              precompute_features)
     from rtgs_tpu_torch.scene import anisotropic_scene
@@ -472,10 +499,12 @@ def phase3_anisotropic(dev):
             POSE["theta"], POSE["phi"], cfg["extent"] * math.sqrt(3.0) + gap,
             np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
         cam = camera_from_fov(pos, rot, cfg["res"], fov, device=dev)
-        b = tile_candidates(g, cam, tile=TILE,
-                            max_candidates=cfg["max_candidates"],
-                            max_global=cfg["max_global"], chunk=CHUNK)
         packed = pack_features(precompute_features(g, cam))
+        kw = dict(tile=TILE, max_candidates=cfg["max_candidates"],
+                  max_global=cfg["max_global"], chunk=CHUNK)
+        b = tile_candidates(g, cam, entry_lb=entry_lower_bound(g, cam, packed),
+                            **kw)
+        geometric = tile_candidates(g, cam, **kw).chunk_lb
         pix = _tile_pixel_features(cam, TILE)
         cand, lb = b.candidates, b.chunk_lb
         counts = _counts(cand)
@@ -492,33 +521,47 @@ def phase3_anisotropic(dev):
         check(torch.equal(sid_f, sid_t) and torch.equal(t1_f, t1_t),
               f"{label}: the full sweep differs from the twin at "
               f"{int((sid_f != sid_t).sum())} ids")
-        # The early exit is exact where chunk_lb[t, c] is a lower bound of
-        # every t1 of the chunks from c on.
-        def bound_holds(cb, qb, lbb):
+        m00, m01, m02, m11, m12, m22 = packed[:-1, :6].double().unbind(-1)
+        minor2 = m00 * m11 - m01 * m01
+        det = (m00 * (m11 * m22 - m12 * m12) - m01 * (m01 * m22 - m12 * m02)
+               + m02 * (m01 * m12 - m11 * m02))
+        indefinite = int(((m00 <= 0) | (minor2 <= 0) | (det <= 0)).sum())
+        check(indefinite == 0, f"{label}: {indefinite} rows of the f32 table "
+              f"are not positive definite")
+
+        # chunk_lb[t, c] must be a lower bound of every t1 of the chunks
+        # from c on: then the early exit is exact.
+        def bound_fails(cb, qb, lbb, geo):
             rows = packed[:, :10][_safe_ids(packed, cb)]
             cmin = entry_depth(rows, qb).amin(1).reshape(
                 cb.shape[0], c // CHUNK, CHUNK).amin(2)
             suffix = torch.cummin(cmin.flip(1), dim=1).values.flip(1)
-            return (suffix >= lbb[:, :-1]).all(dim=1)
+            return torch.stack([(suffix < lbb[:, :-1]).any(dim=1),
+                                (suffix < geo[:, :-1]).any(dim=1)], dim=1)
 
-        valid = plain_in_bands(bound_holds, t, cand, pix, lb)
+        fails = plain_in_bands(bound_fails, t, cand, pix, lb, geometric)
+        failing, geo_failing = (int(x) for x in fails.sum(dim=0))
+        check(failing == 0, f"{label}: chunk_lb is no lower bound on "
+              f"{failing} of {t} tiles")
         same = ((sid_k == sid_t) & (t1_k == t1_t)).all(dim=2).all(dim=1)
-        check(bool(same[valid].all()), f"{label}: the early exit changed "
-              f"{int((~same[valid]).sum())} tiles whose bounds hold")
+        check(bool(same.all()), f"{label}: the early exit changed "
+              f"{int((~same).sum())} of {t} tiles")
         pairs, rejected = screen_share(packed, cand, counts, zeros, pix,
                                        (t1_f, sid_f))
+        swept, _ = screen_share(packed, cand, counts, lb, pix, (t1_k, sid_k))
         hits = int((sid_f >= 0).sum())
-        indefinite = int((packed[:-1, 0] <= 0).sum())
         say(3, f"keys {label}: {g.num} splats, scale ratio within a splat "
                f"{float(ratio.min()):.0f}-{float(ratio.max()):.0f}, T={t} "
                f"C={c} P={pix.shape[1]} K={DEPTH}, {int((cand >= 0).sum())} "
-               f"live pairs, {hits} winners: the full sweep's ids and t1 "
-               f"bitwise equal to the twin's; with chunk_lb bitwise equal on "
-               f"all {int(valid.sum())} of {t} tiles whose bounds hold "
-               f"({int((~same).sum())} other tiles differ: {indefinite} rows "
-               f"of the f32 table have m00 <= 0, so the binning's bound is "
-               f"none there); the f32 screen rejects {rejected} of {pairs} "
-               f"pairs = {rejected / pairs:.2%}")
+               f"live pairs, {hits} winners: {indefinite} rows of the f32 "
+               f"table with m00 <= 0 or a non-positive minor; chunk_lb fails "
+               f"as a bound on {failing} of {t} tiles (depth - sqrt(3)*s_max "
+               f"alone, without the table's measured error: on "
+               f"{geo_failing}); the full sweep's ids and t1 bitwise equal "
+               f"to the twin's, and with chunk_lb bitwise equal on all {t} "
+               f"tiles, sweeping {swept} of {pairs} pairs = "
+               f"{swept / pairs:.2%}; the f32 screen rejects {rejected} of "
+               f"{pairs} pairs = {rejected / pairs:.2%}")
 
 
 def phase4_precision(case):
@@ -583,6 +626,7 @@ def stage_times(g, cam, kw):
     from rtgs_tpu_torch.render.binning import tile_candidates
     from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
                                              composite_layers_kp,
+                                             entry_lower_bound,
                                              pack_features,
                                              precompute_features,
                                              shade_winners_kp)
@@ -592,25 +636,30 @@ def stage_times(g, cam, kw):
         e.record()
         return e
 
-    marks = {"binning": [], "features": [], "keys": [], "shade": [],
-             "composite": []}
+    marks = {"features": [], "entry bound": [], "binning": [], "keys": [],
+             "shade": [], "composite": []}
     e0 = mark()
+    packed = pack_features(precompute_features(g, cam))
+    pix = _tile_pixel_features(cam, TILE)
+    e1 = mark()
+    entry_lb = entry_lower_bound(g, cam, packed)
+    e_lb = mark()
     b = tile_candidates(g, cam, tile=TILE,
                         max_candidates=kw["max_candidates"],
                         max_global=kw["max_global"],
-                        narrow=kw["bin_narrow"], chunk=CHUNK)
-    e1 = mark()
-    packed = pack_features(precompute_features(g, cam))
-    pix = _tile_pixel_features(cam, TILE)
+                        narrow=kw["bin_narrow"], chunk=CHUNK,
+                        entry_lb=entry_lb)
     e2 = mark()
-    marks["binning"].append((e0, e1))
-    marks["features"].append((e1, e2))
+    marks["features"].append((e0, e1))
+    marks["entry bound"].append((e1, e_lb))
+    marks["binning"].append((e_lb, e2))
     t = b.candidates.shape[0]
     nb = -(-t // kw["tile_bands"])
     for s in range(0, t, nb):
         a = mark()
         _, sid = peel_keys(packed, b.candidates[s:s + nb], pix[s:s + nb],
-                           DEPTH, chunk_lb=b.chunk_lb[s:s + nb])
+                           DEPTH, chunk_lb=b.chunk_lb[s:s + nb],
+                           counts=b.counts[s:s + nb])
         k = mark()
         layers = shade_winners_kp(packed, sid, pix[s:s + nb])
         sh = mark()
@@ -854,12 +903,17 @@ def phase6_case(label, g, cfg, dev):
            f"{alpha['p999']:.3e}, max {alpha['max']:.3e}; {alpha['zeroed']} "
            f"winners have α = 0 in f32 (f32 Δ ≤ 0) but not in float64 "
            f"(gate: finite)")
+    pairs, rejected = sweep_screen_share(packed, cand, counts, pix, sl_k)
+    ms_busy = busy_ms(kernel)
     say(6, f"fused {label} with the stream kept busy (device time without "
-           f"the wrapper's host time): backward kernel "
+           f"the wrapper's host time): forward kernel {ms_busy:.3f} ms "
+           f"({ms:.3f} around the wrapper); backward kernel "
            f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
-           f"gradient, sentinel row exactly 0")
+           f"gradient, sentinel row exactly 0; the forward sweep's f32 "
+           f"screen rejects {rejected} of {pairs} (pixel, live candidate) "
+           f"pairs = {rejected / pairs:.2%} before the float64 chain")
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
-                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain,
+                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, ms_busy=ms_busy,
                 shape=launch_shape(packed, cand, pix, sl_k))
 
 
@@ -1237,10 +1291,14 @@ def phase9_case(label, g, cfg, dev):
            f"{ms:.3f} ms, twin {ms_plain:.3f} ms; backward kernel "
            f"{ms_bwd:.3f} ms, twin {ms_bwd_plain:.3f} ms (CUDA events, "
            f"median of 5)")
+    pairs, rejected = sweep_screen_share(packed, cand, counts, pix, sl_k)
     say(9, f"top-K {label} with the stream kept busy (device time without "
-           f"the wrapper's host time): backward kernel "
+           f"the wrapper's host time): forward kernel {busy_ms(kernel):.3f} "
+           f"ms ({ms:.3f} around the wrapper); backward kernel "
            f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
-           f"gradient, sentinel row exactly 0")
+           f"gradient, sentinel row exactly 0; its sweep is the fused "
+           f"forward's (sweep_topk), whose f32 screen rejects {rejected} of "
+           f"{pairs} pairs = {rejected / pairs:.2%} on these inputs")
     say(9, f"outputs {label} (vacant share {vacant:.2%}): "
            + "; ".join(shares))
     say(9, f"main path {label}: scene gradient of Σ w·radiance + Σ "
@@ -1393,6 +1451,50 @@ def phase10_oracle(dev, tmp):
     return ply
 
 
+def worst_pixel_lists(g, cam, kw, img_t, img_k):
+    """The pixel where the ``tiled`` and the keys image differ most, and its
+    winners as each renderer lists them: (id, t1, α) a layer."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import CHUNK, peel_keys
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             intersect_candidates,
+                                             pack_features,
+                                             precompute_features,
+                                             shade_winners_kp)
+
+    diff = (img_t - img_k).abs().amax(-1)                  # (W, H)
+    x, y = divmod(int(diff.argmax()), diff.shape[1])
+    tw, th = TILE
+    nty = -(-cam.buf_size[1] // th)
+    t, p = (x // tw) * nty + y // th, (x % tw) * th + y % th
+    b = tile_candidates(g, cam, tile=TILE,
+                        max_candidates=kw["max_candidates"],
+                        max_global=kw["max_global"], narrow=kw["bin_narrow"],
+                        chunk=CHUNK)
+    feats = precompute_features(g, cam)
+    packed = pack_features(feats)
+    cand, pix = b.candidates[t:t + 1], _tile_pixel_features(cam, TILE)[t:t + 1]
+    t1_k, sid = peel_keys(packed, cand, pix, DEPTH)
+    a_k = shade_winners_kp(packed, sid, pix)[0]
+    t1, alpha, _ = intersect_candidates(feats, cand, pix[..., :3])
+    t1_s, order = torch.sort(t1[0, p], stable=True)
+    order = order[:DEPTH]
+    rows = []
+    for k in range(DEPTH):
+        if not (math.isfinite(float(t1_k[0, k, p]))
+                or math.isfinite(float(t1_s[k]))):
+            break
+        rows.append(
+            f"{k}: keys ({int(sid[0, k, p])}, {float(t1_k[0, k, p]):.9g}, "
+            f"{float(a_k[0, k, p]):.6g}) tiled ({int(cand[0, order[k]])} in "
+            f"slot {int(order[k])}, {float(t1_s[k]):.9g}, "
+            f"{float(alpha[0, p, order[k]]):.6g})")
+    return (f"pixel ({x}, {y}) = tile {t} pixel {p}, |diff| "
+            f"{float(diff[x, y]):.3e}: " + "; ".join(rows))
+
+
 def phase11_tiled(g100k, ply_4k, dev, tmp):
     import torch
 
@@ -1422,6 +1524,7 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
         check(bool(torch.isfinite(img_t).all()) and float(img_t.max()) > 0.05,
               "tiled image is not finite or black")
         q, worst = compare_images("tiled vs keys", img_t, img_k)
+        lists = worst_pixel_lists(g, cam, kw, img_t, img_k)
         frame_ms, peak = frame_stats(lambda: render_tiled(g, cam, **kw))
     say(11, f"CLI render --renderer tiled of {g.num} splats at "
             f"{res[0]}x{res[1]}: {wall:.2f} s wall (scene load included); "
@@ -1429,6 +1532,8 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
             f"{q:.2e} (limit {IMG_QTOL:g}), max {worst:.2e} (limit "
             f"{IMG_MAXTOL:g}); tiled frame {frame_ms:.2f} ms (host clock "
             f"with sync, median of 3), peak device memory {peak:.2f} GiB")
+    say(11, f"tiled vs keys, the worst pixel's winners (id, t1, alpha) a "
+            f"layer: {lists}")
     line, wall, peak = small_fit("tiled", ply_4k, tmp)
     say(11, f"CLI fit --renderer tiled, {SMALL_FIT['steps']} steps at "
             f"{SMALL_FIT['res'][0]}x{SMALL_FIT['res'][1]} on the "
@@ -2014,8 +2119,11 @@ def phase14_scene_probes(dev):
     lpprobe.floor_cuda.launches = 0
     run_captured(14, lpprobe.main, [*argv, "--iters", "7"])
     flo_launches = lpprobe.floor_cuda.launches
-    check(flo_launches == 8 * 6, f"lpprobe launched {flo_launches} floor "
-          f"kernels, expected 48")
+    # 6 timed lines of 8 calls, and the host-time table's warm-up and
+    # rounds of the whole wrapper call.
+    want = 8 * 6 + 1 + lpprobe.HOST_ROUNDS * lpprobe.HOST_CALLS
+    check(flo_launches == want, f"lpprobe launched {flo_launches} floor "
+          f"kernels through its wrapper, expected {want}")
     return abl, abl_launches, flo, flo_launches
 
 

@@ -177,6 +177,34 @@ def inv_covariance_packed6(quats: torch.Tensor, scales: torch.Tensor):
     return m00, m01, m02, m11, m12, m22
 
 
+def inv_covariance_direct6(quats: torch.Tensor, scales: torch.Tensor):
+    """``Σ⁻¹`` entries ``(m00, m01, m02, m11, m12, m22)`` in the direct form
+    ``R S⁻² Rᵀ``, in flat per-component arrays. The rotated basis vectors
+    ``c_k = q e_k q*`` are ``|q|²`` long, so ``Σ = C S² Cᵀ`` and its exact
+    inverse is ``Σ_k a_k a_kᵀ`` with ``a_k = c_k / (|q|⁴ s_k)``: the same
+    function of ``quats`` and ``scales`` as :func:`inv_covariance_packed6`
+    (the reference's adjugate of the assembled Σ), gradients included. Each
+    diagonal entry is a sum of squares and each entry is off by a few ulps
+    of ``1/s_min²``, so the matrix keeps its definiteness where the adjugate
+    cancels: at a scale ratio of 100 within a splat that one comes out
+    indefinite."""
+    mx, my, mz = _rotation_columns(quats)
+    qq = (quats * quats).sum(-1)
+    inv_n2 = 1.0 / (qq * qq)
+    ix, iy, iz = (inv_n2 / scales[..., 0], inv_n2 / scales[..., 1],
+                  inv_n2 / scales[..., 2])
+    ux, uy, uz = mx[..., 0] * ix, mx[..., 1] * ix, mx[..., 2] * ix
+    vx, vy, vz = my[..., 0] * iy, my[..., 1] * iy, my[..., 2] * iy
+    wx, wy, wz = mz[..., 0] * iz, mz[..., 1] * iz, mz[..., 2] * iz
+    m00 = ux * ux + vx * vx + wx * wx
+    m01 = ux * uy + vx * vy + wx * wy
+    m02 = ux * uz + vx * vz + wx * wz
+    m11 = uy * uy + vy * vy + wy * wy
+    m12 = uy * uz + vy * vz + wy * wz
+    m22 = uz * uz + vz * vz + wz * wz
+    return m00, m01, m02, m11, m12, m22
+
+
 def aabb(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor):
     """Axis-aligned bounds ``(p_min, p_max)`` from the principal-axis
     endpoints ``μ ± 3·scaleᵢ·(R eᵢ)``."""

@@ -92,28 +92,35 @@ def build() -> pathlib.Path:
     return lib
 
 
+# The C entry points' parameter kinds, in order: "ptr" (a device pointer or
+# the stream), "int" or "float". One table for every ``extern "C"`` launcher
+# in ``csrc/*.cu`` (read without building: the tests hold it against the
+# sources' parameter lists); each returns the ``cudaError_t`` of its launch
+# as an int.
+_P, _I, _F = "ptr", "int", "float"
+SIGNATURES = {
+    "rtgs_keys_sid": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "rtgs_peel_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "rtgs_peel_bwd": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "rtgs_peel_topk_fwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "rtgs_peel_topk_bwd": (_P,) * 7 + (_I,) * 5 + (_P,),
+    "rtgs_probe_micro": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
+    "rtgs_probe_ablate": (_I,) + (_P,) * 5 + (_I,) * 5 + (_F,) * 2 + (_I, _P),
+    "rtgs_probe_floor": (_I, _P, _P, _P) + (_I,) * 6 + (_P,),
+}
+_CTYPES = {_P: ctypes.c_void_p, _I: ctypes.c_int, _F: ctypes.c_float}
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare the C entry points."""
+    """Build if needed, load, and declare the C entry points
+    (``SIGNATURES``): with ``argtypes`` set, a pointer goes in as a plain
+    Python int (``tensor.data_ptr()``) and is not cut to 32 bits."""
     lib = ctypes.CDLL(str(build()))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.rtgs_keys_sid.argtypes = [vp] * 8 + [i] * 5 + [vp]
-    lib.rtgs_keys_sid.restype = i
-    lib.rtgs_peel_fwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
-    lib.rtgs_peel_fwd.restype = i
-    lib.rtgs_peel_bwd.argtypes = [vp] * 8 + [i] * 5 + [vp]
-    lib.rtgs_peel_bwd.restype = i
-    lib.rtgs_peel_topk_fwd.argtypes = [vp] * 6 + [i] * 5 + [vp]
-    lib.rtgs_peel_topk_fwd.restype = i
-    lib.rtgs_peel_topk_bwd.argtypes = [vp] * 7 + [i] * 5 + [vp]
-    lib.rtgs_peel_topk_bwd.restype = i
-    lib.rtgs_probe_micro.argtypes = [i, vp, vp, i, i, i, vp, vp, vp, i, vp]
-    lib.rtgs_probe_micro.restype = i
-    lib.rtgs_probe_ablate.argtypes = ([i] + [vp] * 5 + [i] * 5
-                                      + [ctypes.c_float] * 2 + [i, vp])
-    lib.rtgs_probe_ablate.restype = i
-    lib.rtgs_probe_floor.argtypes = [i, vp, vp, vp] + [i] * 6 + [vp]
-    lib.rtgs_probe_floor.restype = i
-    lib.rtgs_cuda_error_string.argtypes = [i]
+    for name, kinds in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_CTYPES[k] for k in kinds]
+        fn.restype = ctypes.c_int
+    lib.rtgs_cuda_error_string.argtypes = [ctypes.c_int]
     lib.rtgs_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,7 +18,9 @@
 // thread keeps its pixel's direction features in registers, in f32 and in
 // float64, and a sorted list of K (t1, id) pairs in registers (K is a
 // template parameter, so every list access is a compile-time index). The
-// block sweeps the tile's candidates in chunks of 128. Staging, one thread
+// block sweeps the tile's candidates in chunks of 128, with the staging and
+// the chunk sweep it shares with the fused and top-K peels (stage_chunk and
+// sweep_chunk, peel_common.cuh). Staging, one thread
 // a candidate: lanes 0-11 of packed[cand[t, c]] as three 16-byte loads (no
 // (T, C, 64) gather exists), the screen's margin for this tile (from the
 // tile's largest |d| and |fd|, one block reduction a pixel group), and the
@@ -56,8 +58,6 @@
 
 namespace {
 
-constexpr int kBatch = 32;  // candidates screened before their survivors run
-
 // kCount: also count the evaluated and the rejected pairs into
 // screen_counts[0:2] (the timed instantiation carries no counter).
 template <int K, bool kCount>
@@ -70,8 +70,7 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
                     float* __restrict__ out_t1, int* __restrict__ out_sid,
                     unsigned long long* __restrict__ screen_counts, int C,
                     int P, int depth) {
-  __shared__ ScreenRow s_row[kChunk];
-  __shared__ unsigned s_max[9];
+  __shared__ SweepStage stage;
 
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
@@ -84,127 +83,25 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
     const bool active = p < P;
     const float* q =
         pix + (static_cast<size_t>(t) * P + (active ? p : P - 1)) * kPixFeat;
-    const float d[3] = {q[0], q[1], q[2]};
-    const float fd[6] = {q[3], q[4], q[5], q[6], q[7], q[8]};
-    const double d0 = d[0], d1 = d[1], d2 = d[2];
-    const double f0 = fd[0], f1 = fd[1], f2 = fd[2], f3 = fd[3], f4 = fd[4],
-                 f5 = fd[5];
+    const SweepPixel px = load_sweep_pixel(q);
+    stage_pixel_max(stage, q);
 
-    // The group's largest |d| and |fd|, as bit patterns: they order like
-    // the values, and a NaN orders above +inf and so survives.
-    __syncthreads();  // the last group's staging is done with s_max
-    if (threadIdx.x < 9) s_max[threadIdx.x] = 0u;
-    __syncthreads();
-    {
-      const unsigned mask = __activemask();
-#pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        const unsigned m =
-            __reduce_max_sync(mask, __float_as_uint(fabsf(q[j])));
-        if ((threadIdx.x & 31) == 0) atomicMax(&s_max[j], m);
-      }
-    }
-
-    // Vacant entries are (+inf, INT_MAX): every hit orders before them.
     float kt[K];
     int ks[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      kt[k] = CUDART_INF_F;
-      ks[k] = INT_MAX;
-    }
+    clear_list(kt, ks);
 
     for (int c = 0; c < n_chunks; ++c) {
       float kth = kt[0];
 #pragma unroll
       for (int k = 1; k < K; ++k) kth = (k == depth - 1) ? kt[k] : kth;
       // The vote is also the barrier that frees the staging rows (and, in
-      // the first chunk, publishes s_max).
+      // the first chunk, publishes the group's largest |d| and |fd|).
       if (!__syncthreads_or(active && kth > lb_t[c])) break;
-
-      for (int i = threadIdx.x; i < kChunk; i += blockDim.x) {
-        const int id = cand_t[c * kChunk + i];
-        ScreenRow row;
-        if (id >= 0) {
-          const float4* src = reinterpret_cast<const float4*>(
-              packed + static_cast<size_t>(id) * kFeat);
-          const float4 r0 = __ldg(src), r1 = __ldg(src + 1),
-                       r2 = __ldg(src + 2);
-          const float m[kStage] = {r0.x, r0.y, r0.z, r0.w, r1.x,
-                                   r1.y, r1.z, r1.w, r2.x, r2.y};
-          float mx[9];
-#pragma unroll
-          for (int j = 0; j < 9; ++j) mx[j] = __uint_as_float(s_max[j]);
-#pragma unroll
-          for (int j = 0; j < kStage; ++j) row.m[j] = m[j];
-          row.margin = screen_margin(m, mx);
-        } else {
-          // Padding: Δ/4 = −0 < 1, rejected by the screen (and by its id
-          // should a NaN pixel carry it past).
-#pragma unroll
-          for (int j = 0; j < kStage; ++j) row.m[j] = 0.f;
-          row.margin = -1.f;
-        }
-        row.id = id;
-        s_row[i] = row;
-      }
+      stage_chunk(stage, packed, cand_t, c);
       __syncthreads();
-      if (!active) continue;
-
-      for (int i0 = 0; i0 < kChunk; i0 += kBatch) {
-        // The screen for kBatch candidates at once (independent chains),
-        // then this pixel's survivors, each through the float64 chain: a
-        // warp takes as many turns as its busiest lane has survivors.
-        unsigned pending = 0;
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          const float4* rp = reinterpret_cast<const float4*>(&s_row[i0 + j]);
-          const bool rejected = screen_rejects(d, fd, rp[0], rp[1], rp[2]);
-          pending |= static_cast<unsigned>(!rejected) << j;
-          if (kCount) {
-            const int live = s_row[i0 + j].id >= 0;
-            n_pairs += live;
-            n_rejected += live && rejected;
-          }
-        }
-        while (pending) {
-          const ScreenRow& row = s_row[i0 + __ffs(pending) - 1];
-          pending &= pending - 1;
-          const int id = row.id;
-          if (id < 0) continue;  // padding: never a hit
-          double a = f0 * static_cast<double>(row.m[0]);
-          a = a + f1 * static_cast<double>(row.m[1]);
-          a = a + f2 * static_cast<double>(row.m[2]);
-          a = a + f3 * static_cast<double>(row.m[3]);
-          a = a + f4 * static_cast<double>(row.m[4]);
-          a = a + f5 * static_cast<double>(row.m[5]);
-          double b = d0 * static_cast<double>(row.m[6]);
-          b = b + d1 * static_cast<double>(row.m[7]);
-          b = b + d2 * static_cast<double>(row.m[8]);
-          b = 2.0 * b;
-          const double delta =
-              b * b - (4.0 * a) * static_cast<double>(row.m[9]);
-          if (!(delta >= 0.0)) continue;  // miss (or NaN)
-          const double sq = sqrt(delta > 0.0 ? delta : 0.0);
-          const double t1d = (-b - sq) / (2.0 * a);
-          if (!(t1d > 0.0)) continue;
-          const float t1 = static_cast<float>(t1d);
-          if (!lex_less(t1, id, kt[K - 1], ks[K - 1])) continue;
-          // Insert: one compare-exchange pass carries the larger pair down.
-          float ct = t1;
-          int cs = id;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const bool lt = lex_less(ct, cs, kt[k], ks[k]);
-            const float tk = kt[k];
-            const int sk = ks[k];
-            kt[k] = lt ? ct : tk;
-            ks[k] = lt ? cs : sk;
-            ct = lt ? tk : ct;
-            cs = lt ? sk : cs;
-          }
-        }
-      }
+      if (active)
+        sweep_chunk<K, true, kCount>(stage, 0, px, kt, ks, n_pairs,
+                                     n_rejected);
     }
 
     if (!active) continue;

@@ -143,7 +143,7 @@ extern "C" int rtgs_peel_bwd(const float* packed, const int* cand,
                              void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
     constexpr int K = decltype(cap)::value;
-    if (!grad_stage_opt_in(peel_bwd_kernel<K>)) return;
+    if (!grad_stage_opt_in<peel_bwd_kernel<K>>(device)) return;
     peel_bwd_kernel<K><<<T, warp_threads_for(P), sizeof(GradStage),
                          static_cast<cudaStream_t>(stream)>>>(
         packed, cand, counts, pix, slots, grad_rad, grad_trans, dpacked, C, P,

@@ -1,8 +1,9 @@
 // Device code shared by the keys kernel (keys.cu), the fused-payload peel
 // (peel_fwd.cu, peel_bwd.cu) and the top-K peel (peel_topk_fwd.cu,
 // peel_topk_bwd.cu) on Hopper (sm_90a): the exact f32 screen in front of the
-// float64 entry depth, the per-pixel top-K sweep over a tile's candidate
-// slots, the f32 shading of one winner, the contraction of the winners'
+// float64 entry depth, the staging of a candidate chunk and its sweep into
+// a pixel's top-K list (by splat id for the keys kernel, by candidate slot
+// for the peels: sweep_topk), the f32 shading of one winner, the contraction of the winners'
 // per-layer gradient scalars over a tile's pixels into the (N+1, 64)
 // feature table, and the launch dispatch over the list capacity K.
 //
@@ -15,10 +16,13 @@
 //
 // Bound, and what the design does about it. The sweep is bound by float64
 // instruction throughput (21 operations a (pixel, candidate) pair at half the
-// f32 rate, no FMA), and ~98% of the pairs miss: the keys kernel puts
+// f32 rate, no FMA), and ~98% of the pairs miss: every sweep puts
 // screen_rejects() in front of the chain, ~13 f32 instructions that reject
 // a pair only when a proven error bound says the float64 Δ is negative, so
-// the result stays bitwise the unscreened one. The contraction is bound by
+// the result stays bitwise the unscreened one. The screen runs for 32
+// candidates at once (independent chains), then each lane runs its own
+// survivors through the float64 chain; a chunk is staged candidate-major
+// in f32 (three 16-byte loads a row, 6 KB a block), never as float64. The contraction is bound by
 // the bytes of the rows it adds into; the TPU design (and the first port)
 // scattered every winner's 59 lanes with float atomics into a dense
 // (T, C, 64) block. Per slot the gradient row is a sum over pixels of seven
@@ -42,6 +46,8 @@
 #include <math_constants.h>
 
 #include <type_traits>
+
+#include "launch_common.cuh"
 
 namespace {
 
@@ -89,8 +95,9 @@ constexpr float kScreenRel = 12.f * 5.9604644775390625e-8f;  // 12·2⁻²⁴
 constexpr float kScreenTiny = 1.1210387714598537e-44f;       // 2⁻¹⁴⁶
 constexpr float kScreenMax = 1.329227995784916e36f;          // 2¹²⁰
 
-// One staged candidate of the keys sweep: lanes 0-9 of its row (m6, Me,
-// c0), the screen's margin and its id; read as three 16-byte loads.
+// One staged candidate of a sweep: lanes 0-9 of its row (m6, Me, c0), the
+// screen's margin and its id (negative: a padding slot); read as three
+// 16-byte loads.
 struct alignas(16) ScreenRow {
   float m[kStage];
   float margin;
@@ -151,75 +158,142 @@ __device__ __forceinline__ Pixel load_pixel(const float* q) {
   return px;
 }
 
-// Shared memory of the sweep: lanes 0-9 of one chunk's rows, as float64.
+// Shared memory of a sweep: one chunk's candidates, candidate-major (6 KB),
+// and the pixel group's largest |pix lanes 0:9| as bit patterns.
 struct SweepStage {
-  double feat[kStage][kChunk];
-  int live[kChunk];
+  ScreenRow row[kChunk];
+  unsigned max_bits[9];
 };
 
-// The K nearest hits of the pixel whose pix row is q, among the tile's
-// slots [0, n_chunks·128), as a (t1, slot) list sorted lexicographically;
-// vacant entries stay (+inf, INT_MAX). The block stages lanes 0-9 of each
-// chunk's candidate rows straight from packed[cand[t, c]] (as float64, once
-// per block), so no (T, C, 64) gather exists; a −1 slot is skipped (it
-// would read the sentinel row, which never hits). Slots arrive in
-// increasing order, so a hit whose t1 equals a listed one sorts after it:
-// the TPU merge's lower-lane tie-break. Every thread of the block must call
-// this (it synchronises); an inactive one only helps to stage.
-template <int K>
-__device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
-                                           const int* __restrict__ cand_t,
-                                           int n_chunks, bool active,
-                                           const float* q, SweepStage& st,
-                                           float (&kt)[K], int (&ks)[K]) {
-  const double d0 = q[0], d1 = q[1], d2 = q[2];
-  const double f0 = q[3], f1 = q[4], f2 = q[5], f3 = q[6], f4 = q[7],
-               f5 = q[8];
+// What the sweep keeps of one pixel: its direction and d-quadratic
+// features (pix lanes 0:3 and 3:9), in f32 for the screen and in float64
+// for the deciding chain.
+struct SweepPixel {
+  float d[3], fd[6];
+  double d64[3], fd64[6];
+};
+
+__device__ __forceinline__ SweepPixel load_sweep_pixel(const float* q) {
+  SweepPixel px;
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    kt[k] = CUDART_INF_F;
-    ks[k] = INT_MAX;
+  for (int j = 0; j < 3; ++j) px.d64[j] = px.d[j] = q[j];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) px.fd64[j] = px.fd[j] = q[3 + j];
+  return px;
+}
+
+// The pixel group's largest |d| and |fd| into st.max_bits, as bit patterns:
+// they order like the values, and a NaN orders above +inf and so survives.
+// Every thread of the block calls this with the pix row of a pixel of the
+// group (an inactive thread with any of them); a __syncthreads() must
+// follow before stage_chunk() reads the result.
+__device__ __forceinline__ void stage_pixel_max(SweepStage& st,
+                                                const float* q) {
+  __syncthreads();  // the last group's staging is done with max_bits
+  if (threadIdx.x < 9) st.max_bits[threadIdx.x] = 0u;
+  __syncthreads();
+  const unsigned mask = __activemask();
+#pragma unroll
+  for (int j = 0; j < 9; ++j) {
+    const unsigned m = __reduce_max_sync(mask, __float_as_uint(fabsf(q[j])));
+    if ((threadIdx.x & 31) == 0) atomicMax(&st.max_bits[j], m);
   }
+}
 
-  for (int c = 0; c < n_chunks; ++c) {
-    __syncthreads();  // the previous chunk's readers are done
-    for (int e = threadIdx.x; e < kChunk * kStage; e += blockDim.x) {
-      const int i = e / kStage;
-      const int lane = e - i * kStage;
-      const int id = cand_t[c * kChunk + i];
-      if (lane == 0) st.live[i] = id >= 0;
-      st.feat[lane][i] =
-          id >= 0 ? static_cast<double>(
-                        packed[static_cast<size_t>(id) * kFeat + lane])
-                  : 0.0;
+// Stage chunk c of the tile's candidates, one thread a candidate: lanes
+// 0-11 of packed[cand_t[c·128 + i]] as three 16-byte loads (no (T, C, 64)
+// gather exists), the screen's margin against this pixel group, and the id.
+// A padding slot (id < 0) is staged so that the screen rejects it: Δ/4 = 0
+// is below its margin of −1 (and its id stops it should a NaN pixel carry
+// it past).
+__device__ __forceinline__ void stage_chunk(SweepStage& st,
+                                            const float* __restrict__ packed,
+                                            const int* __restrict__ cand_t,
+                                            int c) {
+  for (int i = threadIdx.x; i < kChunk; i += blockDim.x) {
+    const int id = cand_t[c * kChunk + i];
+    ScreenRow row;
+    if (id >= 0) {
+      const float4* src = reinterpret_cast<const float4*>(
+          packed + static_cast<size_t>(id) * kFeat);
+      const float4 r0 = __ldg(src), r1 = __ldg(src + 1), r2 = __ldg(src + 2);
+      const float m[kStage] = {r0.x, r0.y, r0.z, r0.w, r1.x,
+                               r1.y, r1.z, r1.w, r2.x, r2.y};
+      float mx[9];
+#pragma unroll
+      for (int j = 0; j < 9; ++j) mx[j] = __uint_as_float(st.max_bits[j]);
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) row.m[j] = m[j];
+      row.margin = screen_margin(m, mx);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) row.m[j] = 0.f;
+      row.margin = -1.f;
     }
-    __syncthreads();
-    if (!active) continue;
+    row.id = id;
+    st.row[i] = row;
+  }
+}
 
-#pragma unroll 2
-    for (int i = 0; i < kChunk; ++i) {
-      if (!st.live[i]) continue;
-      double a = f0 * st.feat[0][i];
-      a = a + f1 * st.feat[1][i];
-      a = a + f2 * st.feat[2][i];
-      a = a + f3 * st.feat[3][i];
-      a = a + f4 * st.feat[4][i];
-      a = a + f5 * st.feat[5][i];
-      double b = d0 * st.feat[6][i];
-      b = b + d1 * st.feat[7][i];
-      b = b + d2 * st.feat[8][i];
+constexpr int kBatch = 32;  // candidates screened before their survivors run
+
+// One staged chunk against one pixel. The screen runs for kBatch
+// candidates at once (independent f32 chains); then the pixel's survivors
+// of the batch run, in increasing slot order, through the float64 chain
+// (operations and order of rtgs_tpu_torch.ops.peel.entry_depth), and a hit
+// that beats the K-th pair is inserted with one unrolled compare-exchange
+// pass: a warp takes as many float64 turns as its busiest lane has
+// survivors, not one a candidate that any lane kept. The list is ordered by
+// (t1, key), the key being the candidate's id (kById) or its slot
+// slot_base + i; candidates arrive in increasing slot order, so among equal
+// (t1, key) the earlier one stays in front. kCount: also count the live
+// pairs and those the screen rejected.
+template <int K, bool kById, bool kCount>
+__device__ __forceinline__ void sweep_chunk(const SweepStage& st,
+                                            int slot_base,
+                                            const SweepPixel& px,
+                                            float (&kt)[K], int (&ks)[K],
+                                            unsigned long long& n_pairs,
+                                            unsigned long long& n_rejected) {
+  for (int i0 = 0; i0 < kChunk; i0 += kBatch) {
+    unsigned pending = 0;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const float4* rp = reinterpret_cast<const float4*>(&st.row[i0 + j]);
+      const bool rejected = screen_rejects(px.d, px.fd, rp[0], rp[1], rp[2]);
+      pending |= static_cast<unsigned>(!rejected) << j;
+      if (kCount) {
+        const int live = st.row[i0 + j].id >= 0;
+        n_pairs += live;
+        n_rejected += live && rejected;
+      }
+    }
+    while (pending) {
+      const int i = i0 + __ffs(pending) - 1;
+      pending &= pending - 1;
+      const ScreenRow& row = st.row[i];
+      if (row.id < 0) continue;  // padding: never a hit
+      double a = px.fd64[0] * static_cast<double>(row.m[0]);
+      a = a + px.fd64[1] * static_cast<double>(row.m[1]);
+      a = a + px.fd64[2] * static_cast<double>(row.m[2]);
+      a = a + px.fd64[3] * static_cast<double>(row.m[3]);
+      a = a + px.fd64[4] * static_cast<double>(row.m[4]);
+      a = a + px.fd64[5] * static_cast<double>(row.m[5]);
+      double b = px.d64[0] * static_cast<double>(row.m[6]);
+      b = b + px.d64[1] * static_cast<double>(row.m[7]);
+      b = b + px.d64[2] * static_cast<double>(row.m[8]);
       b = 2.0 * b;
-      const double delta = b * b - (4.0 * a) * st.feat[9][i];
+      const double delta = b * b - (4.0 * a) * static_cast<double>(row.m[9]);
       if (!(delta >= 0.0)) continue;  // miss (or NaN)
       const double sq = sqrt(delta > 0.0 ? delta : 0.0);
       const double t1d = (-b - sq) / (2.0 * a);
       if (!(t1d > 0.0)) continue;
       const float t1 = static_cast<float>(t1d);
-      const int slot = c * kChunk + i;
-      if (!lex_less(t1, slot, kt[K - 1], ks[K - 1])) continue;
+      const int key = kById ? row.id : slot_base + i;
+      if (!lex_less(t1, key, kt[K - 1], ks[K - 1])) continue;
       // Insert: one compare-exchange pass carries the larger pair down.
       float ct = t1;
-      int cs = slot;
+      int cs = key;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const bool lt = lex_less(ct, cs, kt[k], ks[k]);
@@ -232,6 +306,60 @@ __device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
       }
     }
   }
+}
+
+// Vacant entries are (+inf, INT_MAX): every hit orders before them.
+template <int K>
+__device__ __forceinline__ void clear_list(float (&kt)[K], int (&ks)[K]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    kt[k] = CUDART_INF_F;
+    ks[k] = INT_MAX;
+  }
+}
+
+// The K nearest hits of the pixel whose pix row is q, among the tile's
+// slots [0, n_chunks·128), as a (t1, slot) list sorted lexicographically;
+// vacant entries stay (+inf, INT_MAX). The block stages each chunk once
+// (stage_chunk) and every pixel sweeps it (sweep_chunk): the f32 screen in
+// front of the float64 chain, so the list is bitwise the unscreened one. A
+// hit whose t1 equals a listed one sorts after it: the TPU merge's
+// lower-lane tie-break. Every thread of the block must call this (it
+// synchronises); an inactive one passes the pix row of any pixel of the
+// tile and only helps to stage. n_pairs, n_rejected: counters of sweep_chunk
+// (kCount).
+template <int K, bool kCount = false>
+__device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
+                                           const int* __restrict__ cand_t,
+                                           int n_chunks, bool active,
+                                           const float* q, SweepStage& st,
+                                           float (&kt)[K], int (&ks)[K],
+                                           unsigned long long& n_pairs,
+                                           unsigned long long& n_rejected) {
+  const SweepPixel px = load_sweep_pixel(q);
+  clear_list(kt, ks);
+  stage_pixel_max(st, q);
+  for (int c = 0; c < n_chunks; ++c) {
+    // The previous chunk's readers are done (and, in the first chunk,
+    // max_bits is complete).
+    __syncthreads();
+    stage_chunk(st, packed, cand_t, c);
+    __syncthreads();
+    if (active)
+      sweep_chunk<K, false, kCount>(st, c * kChunk, px, kt, ks, n_pairs,
+                                    n_rejected);
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
+                                           const int* __restrict__ cand_t,
+                                           int n_chunks, bool active,
+                                           const float* q, SweepStage& st,
+                                           float (&kt)[K], int (&ks)[K]) {
+  unsigned long long n_pairs = 0, n_rejected = 0;
+  sweep_topk<K, false>(packed, cand_t, n_chunks, active, q, st, kt, ks,
+                       n_pairs, n_rejected);
 }
 
 // f32 response of one row to one pixel: the quadratic (a, b), ρ and α.
@@ -263,6 +391,52 @@ __device__ __forceinline__ float color(const float* row, const Pixel& px,
 #pragma unroll
   for (int j = 1; j < 15; ++j) acc = acc + px.y[j] * sh[j];
   return row[11 + ch] + acc;
+}
+
+// ---------------------------------------------------------------------------
+// Shading from staged rows. A pixel shades its K winners from their 59-lane
+// rows, and the 32 pixels of a warp hold up to 32 different winners: 32 rows
+// a load instruction when the rows are read where they lie. A tile's pixels
+// share its few hundred candidates, so where the tile's swept slots fit
+// (kShadeRows of them: 99 KB, two blocks an SM), the block first copies
+// every live slot's row into shared memory, slot s at s·kRowStride (16-byte
+// loads; an odd stride, so the rows of a warp fall on different banks),
+// and the pixels shade from there; a longer tile shades from device memory
+// as before. The values and the arithmetic are the same either way.
+constexpr int kShadeRows = 416;
+constexpr int kRowStride = 61;
+constexpr int kShadeBytes = kShadeRows * kRowStride * sizeof(float);
+
+// Copy the rows of the tile's slots [0, n_slots) into s_rows if they fit;
+// returns whether they did (the same for every thread of the block, which
+// must all call this; it ends with a barrier when it staged).
+__device__ __forceinline__ bool stage_tile_rows(
+    float* s_rows, const float* __restrict__ packed,
+    const int* __restrict__ cand_t, int n_slots) {
+  if (n_slots > kShadeRows) return false;
+  constexpr int kWords = (kLanes + 3) / 4;  // 16-byte words a row
+  for (int e = threadIdx.x; e < n_slots * kWords; e += blockDim.x) {
+    const int slot = e / kWords, w = e - slot * kWords;
+    const int id = cand_t[slot];
+    if (id < 0) continue;  // a gap: never a winner
+    const float4 v = __ldg(reinterpret_cast<const float4*>(
+                               packed + static_cast<size_t>(id) * kFeat) + w);
+    float* dst = s_rows + slot * kRowStride + 4 * w;
+    dst[0] = v.x;
+    dst[1] = v.y;
+    dst[2] = v.z;
+    dst[3] = v.w;
+  }
+  __syncthreads();
+  return true;
+}
+
+// The row of the winner in `slot`: staged, or where it lies in the table.
+__device__ __forceinline__ const float* winner_row(
+    bool staged, const float* s_rows, const float* __restrict__ packed,
+    const int* __restrict__ cand_t, int slot) {
+  return staged ? s_rows + slot * kRowStride
+                : packed + static_cast<size_t>(cand_t[slot]) * kFeat;
 }
 
 // ---------------------------------------------------------------------------
@@ -428,7 +602,7 @@ __device__ __forceinline__ void contract_slot_grads(
 // the cudaError_t of the launch (0 on success).
 template <typename Launch>
 int launch_for_depth(int device, int C, int P, int depth, Launch&& launch) {
-  const cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (C % kChunk != 0 || P < 1 || P > 1024 || depth < 1 || depth > kMaxDepth)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -451,12 +625,10 @@ inline int warp_threads_for(int P) { return (threads_for(P) + 31) / 32 * 32; }
 // Let a backward kernel take the contraction's stage as dynamic shared
 // memory (it is above the 48 KB a kernel gets unasked). False on failure,
 // with the error left for cudaGetLastError.
-template <typename Kernel>
-bool grad_stage_opt_in(Kernel* kernel) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(sizeof(GradStage))) ==
-         cudaSuccess;
+template <auto kKernel>
+bool grad_stage_opt_in(int device) {
+  return dynamic_smem_opt_in<kKernel>(
+             device, static_cast<int>(sizeof(GradStage))) == cudaSuccess;
 }
 
 }  // namespace

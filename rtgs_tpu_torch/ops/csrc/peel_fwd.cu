@@ -20,12 +20,17 @@
 // winners' slots are written out (T, K, P) as the residual of the backward
 // kernel (csrc/peel_bwd.cu).
 //
-// Bound. The sweep costs ~20 float64 flops and a compare per (pixel,
-// candidate) plus a square root and a division per hit, against 40 staged
-// bytes per candidate shared by the whole block: it is bound by
-// instruction issue (FP64 at half the FP32 rate) and the list insertion.
-// Shading reads K rows of 59 lanes per pixel, which the pixels of a tile
-// share through L1; the composite is K register updates.
+// Bound. Operations: the float64 chain is 21 operations a (pixel,
+// candidate) pair without FMA at half the f32 rate, and ~98% of the pairs
+// miss; 48 staged bytes a candidate are shared by the whole block. The
+// sweep therefore screens in f32 first (sweep_topk: batches of 32
+// candidates, then each lane's survivors through the float64 chain and the
+// list insertion), as the keys kernel does, with which it shares the
+// staging and the chunk sweep; two blocks of 256 threads an SM at K ≤ 16.
+// Shading reads K rows of 59 lanes per pixel: the block copies its tile's
+// rows into shared memory once where they fit (stage_tile_rows), and a
+// longer tile's pixels share them through L1; the composite is K register
+// updates.
 //
 // Numerics as peel_common.cuh. No atomics: the output is bitwise
 // deterministic.
@@ -34,20 +39,27 @@
 
 namespace {
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// kCount: also count the swept and the screened-out pairs into
+// screen_counts[0:2] (the timed instantiation carries no counter).
+template <int K, bool kCount>
+__global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
     peel_fwd_kernel(const float* __restrict__ packed,
                     const int* __restrict__ cand,
                     const int* __restrict__ counts,
                     const float* __restrict__ pix,
                     float* __restrict__ out_rad,
                     float* __restrict__ out_trans,
-                    int* __restrict__ out_slot, int C, int P, int depth) {
+                    int* __restrict__ out_slot,
+                    unsigned long long* __restrict__ screen_counts, int C,
+                    int P, int depth) {
   __shared__ SweepStage stage;
+  extern __shared__ __align__(16) float s_rows[];
 
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
   const int n_chunks = (counts[t] + kChunk - 1) / kChunk;
+  const bool staged = stage_tile_rows(s_rows, packed, cand_t, counts[t]);
+  unsigned long long n_pairs = 0, n_rejected = 0;
 
   for (int p0 = 0; p0 < P; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
@@ -56,7 +68,8 @@ __global__ void __launch_bounds__(kThreads)
         pix + (static_cast<size_t>(t) * P + (active ? p : 0)) * kPixFeat;
     float kt[K];
     int ks[K];
-    sweep_topk<K>(packed, cand_t, n_chunks, active, q, stage, kt, ks);
+    sweep_topk<K, kCount>(packed, cand_t, n_chunks, active, q, stage, kt, ks,
+                          n_pairs, n_rejected);
     if (!active) continue;
 
     // Shade the winners in f32 and composite front to back.
@@ -70,7 +83,7 @@ __global__ void __launch_bounds__(kThreads)
             hit ? ks[k] : -1;
         if (hit) {
           const float* row =
-              packed + static_cast<size_t>(cand_t[ks[k]]) * kFeat;
+              winner_row(staged, s_rows, packed, cand_t, ks[k]);
           const float alpha = quad(row, px).alpha;
           const float w = tr * alpha;
           rr = rr + w * color(row, px, 0);
@@ -85,6 +98,10 @@ __global__ void __launch_bounds__(kThreads)
     out_rad[(static_cast<size_t>(t) * 3 + 2) * P + p] = rb;
     out_trans[static_cast<size_t>(t) * P + p] = tr;
   }
+  if (kCount) {
+    atomicAdd(screen_counts, n_pairs);
+    atomicAdd(screen_counts + 1, n_rejected);
+  }
 }
 
 }  // namespace
@@ -92,16 +109,31 @@ __global__ void __launch_bounds__(kThreads)
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
 // f32; out_rad (T, 3, P) f32, out_trans (T, P) f32, out_slot (T, depth, P)
-// i32 (−1 vacant).
+// i32 (−1 vacant); screen_counts: null, or two 64-bit counters the kernel
+// adds the swept and the screened-out (pixel, live candidate) pairs into.
 extern "C" int rtgs_peel_fwd(const float* packed, const int* cand,
                              const int* counts, const float* pix,
                              float* out_rad, float* out_trans, int* out_slot,
-                             int T, int C, int P, int depth, int device,
-                             void* stream) {
+                             unsigned long long* screen_counts, int T, int C,
+                             int P, int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
-    peel_fwd_kernel<decltype(cap)::value>
-        <<<T, threads_for(P), 0, static_cast<cudaStream_t>(stream)>>>(
-            packed, cand, counts, pix, out_rad, out_trans, out_slot, C, P,
-            depth);
+    constexpr int K = decltype(cap)::value;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (screen_counts) {
+      if (dynamic_smem_opt_in<peel_fwd_kernel<K, true>>(device, kShadeBytes) !=
+          cudaSuccess)
+        return;
+      peel_fwd_kernel<K, true><<<T, threads_for(P), kShadeBytes, s>>>(
+          packed, cand, counts, pix, out_rad, out_trans, out_slot,
+          screen_counts, C, P, depth);
+    } else {
+      if (dynamic_smem_opt_in<peel_fwd_kernel<K, false>>(device,
+                                                          kShadeBytes) !=
+          cudaSuccess)
+        return;
+      peel_fwd_kernel<K, false><<<T, threads_for(P), kShadeBytes, s>>>(
+          packed, cand, counts, pix, out_rad, out_trans, out_slot, nullptr, C,
+          P, depth);
+    }
   });
 }

@@ -103,7 +103,7 @@ extern "C" int rtgs_peel_topk_bwd(const float* packed, const int* cand,
                                   int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
     constexpr int K = decltype(cap)::value;
-    if (!grad_stage_opt_in(peel_topk_bwd_kernel<K>)) return;
+    if (!grad_stage_opt_in<peel_topk_bwd_kernel<K>>(device)) return;
     peel_topk_bwd_kernel<K><<<T, warp_threads_for(P), sizeof(GradStage),
                               static_cast<cudaStream_t>(stream)>>>(
         packed, cand, counts, pix, slots, grad_layers, dpacked, C, P, depth);

@@ -14,16 +14,17 @@
 //
 // Design. The sweep of peel_fwd.cu (sweep_topk in peel_common.cuh: one
 // block per tile, one thread per pixel, a register (t1, slot) list, the
-// tile's candidate rows staged into shared memory as float64), then the
-// K winners shaded in f32 from their rows. The layer table is written
+// tile's candidate rows staged candidate-major in f32 and screened in f32
+// before the float64 chain), then the K winners shaded in f32 from their
+// rows. The layer table is written
 // (T, 5, K, P) — lanes t1, α, r, g, b — so that the threads of a warp,
 // neighbouring pixels, write neighbouring words; the TPU kernel's
 // (T, P, 5K) lane layout is a transpose the caller takes as a view. The
 // winners' slots are written (T, K, P) as the residual of the backward
 // kernel (csrc/peel_topk_bwd.cu).
 //
-// Bound. The sweep, as in peel_fwd.cu: float64 instruction issue and the
-// list insertion. The output is 24 bytes per (pixel, layer), 6·K words
+// Bound. The sweep, as in peel_fwd.cu: the screen's f32 instructions, the
+// survivors' float64 chain and the list insertion. The output is 24 bytes per (pixel, layer), 6·K words
 // per pixel, where peel_fwd.cu writes 4 + K.
 //
 // Numerics as peel_common.cuh. No atomics: the output is bitwise
@@ -37,7 +38,7 @@ namespace {
 constexpr int kLayerLanes = 5;  // t1, α, r, g, b
 
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
     peel_topk_fwd_kernel(const float* __restrict__ packed,
                          const int* __restrict__ cand,
                          const int* __restrict__ counts,
@@ -46,10 +47,12 @@ __global__ void __launch_bounds__(kThreads)
                          int* __restrict__ out_slot, int C, int P,
                          int depth) {
   __shared__ SweepStage stage;
+  extern __shared__ __align__(16) float s_rows[];
 
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
   const int n_chunks = (counts[t] + kChunk - 1) / kChunk;
+  const bool staged = stage_tile_rows(s_rows, packed, cand_t, counts[t]);
   // Lane l of layer k of pixel p: out_layers[((t·5 + l)·depth + k)·P + p].
   float* layers_t = out_layers + static_cast<size_t>(t) * kLayerLanes *
                                      depth * P;
@@ -75,7 +78,7 @@ __global__ void __launch_bounds__(kThreads)
         float alpha = 0.f, r = 0.f, g = 0.f, b = 0.f;
         if (hit) {
           const float* row =
-              packed + static_cast<size_t>(cand_t[ks[k]]) * kFeat;
+              winner_row(staged, s_rows, packed, cand_t, ks[k]);
           alpha = quad(row, px).alpha;
           r = color(row, px, 0);
           g = color(row, px, 1);
@@ -104,8 +107,13 @@ extern "C" int rtgs_peel_topk_fwd(const float* packed, const int* cand,
                                   int C, int P, int depth, int device,
                                   void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
-    peel_topk_fwd_kernel<decltype(cap)::value>
-        <<<T, threads_for(P), 0, static_cast<cudaStream_t>(stream)>>>(
+    constexpr int K = decltype(cap)::value;
+    if (dynamic_smem_opt_in<peel_topk_fwd_kernel<K>>(device, kShadeBytes) !=
+        cudaSuccess)
+      return;
+    peel_topk_fwd_kernel<K>
+        <<<T, threads_for(P), kShadeBytes,
+           static_cast<cudaStream_t>(stream)>>>(
             packed, cand, counts, pix, out_layers, out_slot, C, P, depth);
   });
 }

@@ -13,7 +13,8 @@
 //   intersect     — min over the swept candidates of the float64 entry
 //                   depth; channels 1-3 stay at the initial state
 //                   (qa_init, 0, 0);
-//   merge_t1      — the sweep with the top-K register merge (sweep_topk):
+//   merge_t1      — the production sweep (sweep_topk: the f32 screen, the
+//                   float64 chain on its survivors, the register merge):
 //                   the nearest t1 in all four channels (a pixel with no
 //                   hit: +inf, 0, 0, 0; a tile with no chunk keeps the
 //                   initial state);
@@ -66,15 +67,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The sweep of sweep_topk without the list: per pixel the minimum entry
-// depth, and per variant a min-reduction of shading terms into acc.
+// Shared memory of sweep_kernel: lanes 0-9 of one chunk's rows, as float64.
+struct ChainStage {
+  double feat[kStage][kChunk];
+  int live[kChunk];
+};
+
+// The float64 chain on every (pixel, candidate) pair, with no screen and no
+// list: per pixel the minimum entry depth, and per variant a min-reduction
+// of shading terms into acc.
 template <int V>
 __global__ void __launch_bounds__(kThreads)
     sweep_kernel(const float* __restrict__ packed,
                  const int* __restrict__ cand, const int* __restrict__ counts,
                  const float* __restrict__ pix, float* __restrict__ out,
                  int C, int P, float qa_init, float qa_miss) {
-  __shared__ SweepStage st;
+  __shared__ ChainStage st;
   __shared__ int s_id[kChunk];
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
@@ -200,7 +208,7 @@ extern "C" int rtgs_probe_ablate(int variant, const float* packed,
       merge_kernel<decltype(cap)::value><<<T, threads_for(P), 0, s>>>(
           packed, cand, counts, pix, out, C, P, qa_init);
     });
-  const cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (C % kChunk != 0 || C < kChunk || P < 1 || T < 1)
     return static_cast<int>(cudaErrorInvalidValue);

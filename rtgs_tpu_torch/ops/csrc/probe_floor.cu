@@ -10,24 +10,44 @@
 //             gather would), broadcast over the tile's output: adds one
 //             dependent read of every candidate's row to the floor.
 //
-// Bound: bytes. nothing writes T·2K·P·4 bytes; touch also reads T·C ids
+// Bound: bytes. A tile's output is contiguous, so a block fills it with
+// 16-byte stores (fill_tile). nothing writes T·2K·P·4 bytes; touch also reads T·C ids
 // and one 32-byte sector of each candidate's row. touch sums in the order
 // of a block reduction (per thread, then shuffles), so it agrees with a
 // plain sum to f32 rounding only.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "launch_common.cuh"
 
 namespace {
 
 constexpr int kFeat = 64;
 constexpr unsigned kFull = 0xffffffffu;
 
+// Fill the block's tile, n contiguous floats at ot, with v: 16-byte stores
+// over the aligned middle, and the at most three words before and after it
+// one by one (a tile starts off a 16-byte boundary when rows·P is not a
+// multiple of four). blockDim.x ≥ 3.
+__device__ __forceinline__ void fill_tile(float* __restrict__ ot, int n,
+                                          float v) {
+  const int to_aligned =
+      static_cast<int>((16 - reinterpret_cast<uintptr_t>(ot) % 16) % 16 / 4);
+  const int head = to_aligned < n ? to_aligned : n;
+  const int n4 = (n - head) / 4;
+  float4* o4 = reinterpret_cast<float4*>(ot + head);
+  const float4 v4 = make_float4(v, v, v, v);
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) o4[i] = v4;
+  const int tail = head + 4 * n4;
+  if (threadIdx.x < head) ot[threadIdx.x] = v;
+  if (threadIdx.x < n - tail) ot[tail + threadIdx.x] = v;
+}
+
 __global__ void nothing_kernel(float* __restrict__ out, int rows, int P) {
-  float* ot = out + static_cast<size_t>(blockIdx.x) * rows * P;
-  for (int k = 0; k < rows; ++k)
-    for (int p = threadIdx.x; p < P; p += blockDim.x)
-      ot[static_cast<size_t>(k) * P + p] = CUDART_INF_F;
+  fill_tile(out + static_cast<size_t>(blockIdx.x) * rows * P, rows * P,
+            CUDART_INF_F);
 }
 
 __global__ void touch_kernel(const float* __restrict__ packed,
@@ -52,11 +72,8 @@ __global__ void touch_kernel(const float* __restrict__ packed,
     s_sum = s;
   }
   __syncthreads();
-  const float s = s_sum;
-  float* ot = out + static_cast<size_t>(blockIdx.x) * rows * P;
-  for (int k = 0; k < rows; ++k)
-    for (int p = threadIdx.x; p < P; p += blockDim.x)
-      ot[static_cast<size_t>(k) * P + p] = s;
+  fill_tile(out + static_cast<size_t>(blockIdx.x) * rows * P, rows * P,
+            s_sum);
 }
 
 }  // namespace
@@ -69,7 +86,7 @@ extern "C" int rtgs_probe_floor(int variant, const float* packed,
                                 const int* cand, float* out, int T, int C,
                                 int P, int rows, int n_sentinel, int device,
                                 void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T < 1 || P < 1 || rows < 1 || C < 0 || variant < 0 || variant > 1)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -419,8 +419,8 @@ __global__ void __launch_bounds__(kThreads)
       if (lane < kK) dump_merge_state(xr, orow, lane, lt, ls);
     }
   } else if constexpr (V == kChunkbody) {
-    // The production chunk body 13 times: the float64 entry-depth sweep
-    // with register insertion (sweep_topk), then the K winners shaded in
+    // The production chunk body 13 times: the screened float64 entry-depth
+    // sweep with register insertion (sweep_topk), then the K winners shaded in
     // the log domain, qa = B²/4A − (c0+3) + log(op), and their colors.
     // packed, cand and pix are views of x that the wrapper lays out: row
     // r of packed is x[t, p, 0:64], chunk c of cand the 128 rows from
@@ -471,22 +471,21 @@ __global__ void __launch_bounds__(kThreads)
 template <int V>
 int launch_variant(int variant, const float* x, float* out, int T, int P,
                    int C, const float* packed, const int* cand,
-                   const float* pix, cudaStream_t s) {
+                   const float* pix, int device, cudaStream_t s) {
   if constexpr (V == kNumVariants) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if (variant != V)
       return launch_variant<V + 1>(variant, x, out, T, P, C, packed, cand,
-                                   pix, s);
+                                   pix, device, s);
     size_t shm = 0;
     if (V == kMinReduceSub) shm = sizeof(float) * C;
     if (V == kLoop13Anywhen || V == kLoop13Full) shm = sizeof(float) * 8 * C;
     if (V == kMerge16LoopSmem) shm = 2 * sizeof(float) * kK * kThreads;
     if (V == kChunkbody) shm = sizeof(SweepStage);
     if (shm > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          micro_kernel<V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(shm));
+      const cudaError_t err = dynamic_smem_opt_in<micro_kernel<V>>(
+          device, static_cast<int>(shm));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     micro_kernel<V><<<T, kThreads, shm, s>>>(x, out, P, C, packed, cand, pix);
@@ -505,9 +504,9 @@ extern "C" int rtgs_probe_micro(int variant, const float* x, float* out,
                                 int T, int P, int C, const float* packed,
                                 const int* cand, const float* pix, int device,
                                 void* stream) {
-  const cudaError_t err = cudaSetDevice(device);
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (T < 1 || P < 1 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
   return launch_variant<0>(variant, x, out, T, P, C, packed, cand, pix,
-                           static_cast<cudaStream_t>(stream));
+                           device, static_cast<cudaStream_t>(stream));
 }

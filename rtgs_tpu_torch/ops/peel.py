@@ -31,11 +31,12 @@ and ``csrc/peel_bwd.cu``: :func:`peel_fused_cuda`, :func:`peel_fused_bwd_cuda`;
 :func:`peel_fused_bwd_torch`, :func:`peel_topk_torch`,
 :func:`peel_topk_bwd_torch`). Both evaluate t1 with the same operations in
 the same order, and the kernels are built without FMA contraction, so on
-the card the two select the same winners bitwise. The keys kernel puts an
-f32 screen in front of the float64 chain (plain version:
+the card the two select the same winners bitwise. The three forward
+kernels put an f32 screen in front of the float64 chain (plain version:
 :func:`screen_margin`, :func:`screen_rejects`), which rejects only pairs
-whose float64 Δ is negative and so changes no bit. The backward kernels
-return the gradient of the (N+1, 64) table itself; their plain twins return
+whose float64 Δ is negative and so changes no bit. Every wrapper goes
+through one launch path (:mod:`rtgs_tpu_torch.ops._launch`). The backward
+kernels return the gradient of the (N+1, 64) table itself; their twins return
 per-slot rows (T, C, 64), which ``index_add_`` scatters into the table. The
 dispatchers (:func:`peel_keys`, :func:`peel_fused`, :func:`peel_topk`) pick
 by the tensors' device.
@@ -43,11 +44,12 @@ by the tensors' device.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 import torch.nn.functional as F
+
+from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
 
 F_DIM = 64
 G_DIM = 24
@@ -100,7 +102,7 @@ SCREEN_MAX = 2.0**120
 
 
 def screen_margin(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
-    """The keys kernel's screen margin (T, C) f32 of feature rows
+    """The sweeps' screen margin (T, C) f32 of feature rows
     (T, C, ≥10) f32 against the pixels (T, P, 24) f32 of their tile: a bound
     of the error of an f32 evaluation of Δ/4 = b² − A·c0 (b = d·Me, A =
     fd·m6), from the tile's largest |d_j| and |fd_j| and the row's |m_j|,
@@ -124,7 +126,7 @@ def screen_margin(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
 
 
 def screen_rejects(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
-    """Whether the keys kernel's screen rejects each (pixel, candidate)
+    """Whether the sweeps' screen rejects each (pixel, candidate)
     pair, (T, P, C) bool: the f32 Δ/4 lies below −:func:`screen_margin`. It
     is never true where :func:`entry_depth` finds a hit (the margin bounds
     the f32 error, fused or not), and a NaN on either side compares false.
@@ -165,41 +167,28 @@ def peel_keys_torch(packed: torch.Tensor, candidates: torch.Tensor,
             sid_k.transpose(1, 2).contiguous())
 
 
-def _require(cond: bool, msg: str, who: str = "peel_keys_cuda") -> None:
-    if not cond:
-        raise ValueError(f"{who}: {msg}")
-
-
 def _check_launch(who: str, specs, c: int, p: int, depth: int):
-    """Common input checks of the kernel wrappers. ``specs``: (name, tensor,
-    dtype, shape) of every input; all must be contiguous CUDA tensors on
-    the device of the first. Returns that device."""
-    dev = specs[0][1].device
-    _require(dev.type == "cuda", f"needs CUDA tensors, got {dev}", who)
-    for name, x, dtype, shape in specs:
-        _require(x.device == dev, f"{name} is on {x.device}, not {dev}", who)
-        _require(x.dtype == dtype, f"{name} is {x.dtype}, want {dtype}", who)
-        _require(tuple(x.shape) == tuple(shape),
-                 f"{name} has shape {tuple(x.shape)}, want {tuple(shape)}",
-                 who)
-        _require(x.is_contiguous(), f"{name} is not contiguous", who)
-    _require(c % CHUNK == 0, f"candidate width {c} is not a multiple of "
-             f"{CHUNK}", who)
-    _require(1 <= depth <= MAX_DEPTH, f"depth {depth} outside 1..{MAX_DEPTH}",
-             who)
-    _require(1 <= p <= 1024, f"{p} pixels per tile; one block holds ≤ 1024",
-             who)
+    """Common input checks of the kernel wrappers: ``specs`` as
+    :func:`~rtgs_tpu_torch.ops._launch.check_tensors` takes them, then the
+    candidate width, list capacity and tile size the kernels are built
+    for. Returns the tensors' device."""
+    dev = check_tensors(who, specs)
+    if c % CHUNK != 0:
+        raise ValueError(f"{who}: candidate width {c} is not a multiple of "
+                         f"{CHUNK}")
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"{who}: depth {depth} outside 1..{MAX_DEPTH}")
+    if not 1 <= p <= 1024:
+        raise ValueError(f"{who}: {p} pixels per tile; one block holds "
+                         "≤ 1024")
     return dev
 
 
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
-
-
-def _raise_on(err: int, lib, what: str) -> None:
-    if err:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.rtgs_cuda_error_string(err).decode()}")
+_KEYS = Launcher("rtgs_keys_sid", "keys")
+_FUSED_FWD = Launcher("rtgs_peel_fwd", "fused forward")
+_FUSED_BWD = Launcher("rtgs_peel_bwd", "fused backward")
+_TOPK_FWD = Launcher("rtgs_peel_topk_fwd", "top-K forward")
+_TOPK_BWD = Launcher("rtgs_peel_topk_bwd", "top-K backward")
 
 
 def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
@@ -238,22 +227,17 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         specs.append(("screen_counts", screen_counts, torch.int64, (2,)))
     dev = _check_launch("peel_keys_cuda", specs, c, p, depth)
 
-    t1 = torch.empty((t, depth, p), dtype=torch.float32, device=dev)
-    sid = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
+    # One allocation for both outputs (it saves the host one allocation a
+    # call): sid is the second half viewed as int32, so either output keeps
+    # both alive.
+    out = torch.empty((2, t, depth, p), dtype=torch.float32, device=dev)
+    t1, sid = out[0], out[1].view(torch.int32)
     if t == 0:
         return t1, sid
-    from rtgs_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    ptr = ctypes.c_void_p
-    err = lib.rtgs_keys_sid(
-        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
-        ptr(counts.data_ptr()), ptr(chunk_lb.data_ptr()),
-        ptr(pix.data_ptr()), ptr(t1.data_ptr()), ptr(sid.data_ptr()),
-        ptr(0 if screen_counts is None else screen_counts.data_ptr()),
-        t, c, p, depth, _device_index(dev),
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "keys")
+    _KEYS(dev, packed.data_ptr(), candidates.data_ptr(), counts.data_ptr(),
+          chunk_lb.data_ptr(), pix.data_ptr(), t1.data_ptr(), sid.data_ptr(),
+          None if screen_counts is None else screen_counts.data_ptr(),
+          t, c, p, depth)
     peel_keys_cuda.launches += 1
     return t1, sid
 
@@ -263,14 +247,17 @@ peel_keys_cuda.launches = 0
 
 def peel_keys(packed: torch.Tensor, candidates: torch.Tensor,
               pix: torch.Tensor, depth: int, impl: str = "auto",
-              chunk_lb: torch.Tensor | None = None):
+              chunk_lb: torch.Tensor | None = None,
+              counts: torch.Tensor | None = None):
     """Keys-only top-K dispatcher. Index selection has no gradient, so the
     inputs are detached.
 
     ``impl``: ``"auto"`` (the kernel for CUDA tensors, the twin for CPU
     tensors), ``"cuda"`` or ``"torch"``. ``chunk_lb`` enables the kernel's
-    exact early exit; the twin sorts everything and ignores it. Returns
-    (t1, sid), each (T, K, P)."""
+    exact early exit; the twin sorts everything and ignores it. ``counts``:
+    the binning's (T,) int32 valid-prefix lengths where the caller has them
+    (else a pass over ``candidates`` finds them). Returns (t1, sid), each
+    (T, K, P)."""
     packed, pix = packed.detach(), pix.detach()
     if impl not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown keys impl {impl!r}")
@@ -279,8 +266,10 @@ def peel_keys(packed: torch.Tensor, candidates: torch.Tensor,
     t, c = candidates.shape
     if chunk_lb is None:
         chunk_lb = torch.zeros((t, c // CHUNK + 1), device=packed.device)
-    return peel_keys_cuda(packed, candidates, _counts(candidates),
-                          chunk_lb.detach(), pix, depth)
+    if counts is None:
+        counts = _counts(candidates)
+    return peel_keys_cuda(packed, candidates, counts.contiguous(),
+                          chunk_lb.detach().contiguous(), pix, depth)
 
 
 # ---------------------------------------------------------------------------
@@ -466,7 +455,8 @@ def _slot_grads(candidates, pix, slots, a, b, rho, alpha,
 
 
 def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
-                    counts: torch.Tensor, pix: torch.Tensor, depth: int):
+                    counts: torch.Tensor, pix: torch.Tensor, depth: int,
+                    screen_counts: torch.Tensor | None = None):
     """Launch the Hopper fused forward kernel (``csrc/peel_fwd.cu``) on the
     current stream.
 
@@ -476,6 +466,8 @@ def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
       counts: (T,) int32 swept prefix length per tile (:func:`_counts`).
       pix: (T, P, 24) f32 pixel features, P ≤ 1024.
       depth: K, 1..``MAX_DEPTH``.
+      screen_counts: as :func:`peel_keys_cuda`'s (the counting
+        instantiation of the same sweep).
 
     Returns (radiance (T, 3, P) f32, transmittance (T, P) f32, slots
     (T, K, P) int32). Every input must be a contiguous CUDA tensor on one
@@ -484,26 +476,24 @@ def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     """
     t, c = candidates.shape
     p = pix.shape[1]
-    dev = _check_launch("peel_fused_cuda", (
+    specs = [
         ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
         ("candidates", candidates, torch.int32, (t, c)),
         ("counts", counts, torch.int32, (t,)),
-        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
+        ("pix", pix, torch.float32, (t, p, G_DIM))]
+    if screen_counts is not None:
+        specs.append(("screen_counts", screen_counts, torch.int64, (2,)))
+    dev = _check_launch("peel_fused_cuda", specs, c, p, depth)
     rad = torch.empty((t, 3, p), dtype=torch.float32, device=dev)
     trans = torch.empty((t, p), dtype=torch.float32, device=dev)
     slots = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
     if t == 0:
         return rad, trans, slots
-    from rtgs_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    ptr = ctypes.c_void_p
-    err = lib.rtgs_peel_fwd(
-        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
-        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(rad.data_ptr()),
-        ptr(trans.data_ptr()), ptr(slots.data_ptr()), t, c, p, depth,
-        _device_index(dev), ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "fused forward")
+    _FUSED_FWD(dev, packed.data_ptr(), candidates.data_ptr(),
+               counts.data_ptr(), pix.data_ptr(), rad.data_ptr(),
+               trans.data_ptr(), slots.data_ptr(),
+               None if screen_counts is None else screen_counts.data_ptr(),
+               t, c, p, depth)
     peel_fused_cuda.launches += 1
     return rad, trans, slots
 
@@ -539,17 +529,10 @@ def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     dpacked = torch.zeros_like(packed)
     if t == 0:
         return dpacked
-    from rtgs_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    ptr = ctypes.c_void_p
-    err = lib.rtgs_peel_bwd(
-        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
-        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
-        ptr(grad_rad.data_ptr()), ptr(grad_trans.data_ptr()),
-        ptr(dpacked.data_ptr()), t, c, p, depth, _device_index(dev),
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "fused backward")
+    _FUSED_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
+               counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
+               grad_rad.data_ptr(), grad_trans.data_ptr(),
+               dpacked.data_ptr(), t, c, p, depth)
     peel_fused_bwd_cuda.launches += 1
     return dpacked
 
@@ -700,16 +683,9 @@ def peel_topk_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     slots = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
     if t == 0:
         return layers, slots
-    from rtgs_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    ptr = ctypes.c_void_p
-    err = lib.rtgs_peel_topk_fwd(
-        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
-        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(layers.data_ptr()),
-        ptr(slots.data_ptr()), t, c, p, depth, _device_index(dev),
-        ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "top-K forward")
+    _TOPK_FWD(dev, packed.data_ptr(), candidates.data_ptr(),
+              counts.data_ptr(), pix.data_ptr(), layers.data_ptr(),
+              slots.data_ptr(), t, c, p, depth)
     peel_topk_cuda.launches += 1
     return layers, slots
 
@@ -741,16 +717,9 @@ def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     dpacked = torch.zeros_like(packed)
     if t == 0:
         return dpacked
-    from rtgs_tpu_torch.ops import _build
-
-    lib = _build.load_library()
-    ptr = ctypes.c_void_p
-    err = lib.rtgs_peel_topk_bwd(
-        ptr(packed.data_ptr()), ptr(candidates.data_ptr()),
-        ptr(counts.data_ptr()), ptr(pix.data_ptr()), ptr(slots.data_ptr()),
-        ptr(grad_layers.data_ptr()), ptr(dpacked.data_ptr()), t, c, p, depth,
-        _device_index(dev), ptr(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "top-K backward")
+    _TOPK_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
+              counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
+              grad_layers.data_ptr(), dpacked.data_ptr(), t, c, p, depth)
     peel_topk_bwd_cuda.launches += 1
     return dpacked
 

@@ -1,16 +1,15 @@
-"""What the probes share: the bench scene and its tile tables, the launch
-plumbing of the probe kernels, and the timer."""
+"""What the probes share: the bench scene and its tile tables, and the
+timers."""
 
 from __future__ import annotations
 
-import ctypes
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rtgs_tpu_torch.ops.peel import CHUNK, _device_index, _raise_on
+from rtgs_tpu_torch.ops.peel import CHUNK
 
 
 def device_of(name: str) -> torch.device:
@@ -33,6 +32,7 @@ def scene_tables(n: int, w: int, h: int, cand: int, glob: int,
     from rtgs_tpu_torch.camera import camera_from_fov
     from rtgs_tpu_torch.render.binning import tile_candidates
     from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             entry_lower_bound,
                                              pack_features,
                                              precompute_features)
     from rtgs_tpu_torch.scene import random_scene
@@ -44,13 +44,15 @@ def scene_tables(n: int, w: int, h: int, cand: int, glob: int,
         pos, rot, _, _ = orbit_camera_pose(
             0.4, 1.2, 5.0, np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
         cam = camera_from_fov(pos, rot, (w, h), 60.0, device=device)
-        binning = tile_candidates(g, cam, tile=(16, 16), max_candidates=cand,
-                                  max_global=glob, narrow=narrow, chunk=CHUNK)
+        packed = pack_features(precompute_features(g, cam))
+        binning = tile_candidates(
+            g, cam, tile=(16, 16), max_candidates=cand, max_global=glob,
+            narrow=narrow, chunk=CHUNK,
+            entry_lb=entry_lower_bound(g, cam, packed))
         cands = binning.candidates
         pad_c = (-cands.shape[1]) % CHUNK
         if pad_c:
             cands = F.pad(cands, (0, pad_c), value=-1)
-        packed = pack_features(precompute_features(g, cam))
         pix = _tile_pixel_features(cam, (16, 16))
     return (packed.contiguous(), cands.contiguous(),
             binning.chunk_lb.contiguous(), pix.contiguous(), binning)
@@ -105,42 +107,3 @@ def busy_ms(fn, iters: int, device: torch.device) -> float:
         ts.append(t0.elapsed_time(t1))
     ts.sort()
     return ts[len(ts) // 2]
-
-
-def check_cuda(who: str, specs) -> torch.device:
-    """``specs``: (name, tensor, dtype, shape or None); all contiguous CUDA
-    tensors on the first one's device. Raises ``ValueError`` otherwise."""
-    dev = specs[0][1].device
-    if dev.type != "cuda":
-        raise ValueError(f"{who}: needs CUDA tensors, got {dev}")
-    for name, x, dtype, shape in specs:
-        if x.device != dev:
-            raise ValueError(f"{who}: {name} is on {x.device}, not {dev}")
-        if x.dtype != dtype:
-            raise ValueError(f"{who}: {name} is {x.dtype}, want {dtype}")
-        if shape is not None and tuple(x.shape) != tuple(shape):
-            raise ValueError(f"{who}: {name} has shape {tuple(x.shape)}, "
-                             f"want {tuple(shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{who}: {name} is not contiguous")
-    return dev
-
-
-def library():
-    from rtgs_tpu_torch.ops import _build
-
-    return _build.load_library()
-
-
-def launch_args(dev: torch.device):
-    """(device index, stream pointer) for a kernel launch on ``dev``."""
-    return (_device_index(dev),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-
-
-def raise_on(err: int, what: str) -> None:
-    _raise_on(err, library(), what)
-
-
-def ptr(x: torch.Tensor | None):
-    return ctypes.c_void_p(0 if x is None else x.data_ptr())

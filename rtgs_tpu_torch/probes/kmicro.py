@@ -58,10 +58,10 @@ payload to 16:32, which is lanes 32:48 here).
 ``matvec_ones`` is a row sum on the TPU's matrix unit; here it is a warp
 reduction. ``roll_sub16`` (16 rotate-and-select steps along the pixel axis)
 is the cyclic running minimum over 17 rows. ``chunkbody`` runs the port's
-own sweep (``sweep_topk`` of ``peel_common.cuh``: float64 entry depth,
-register insertion) and shades the winners in the log domain, on feature
-rows, candidate lists and pixel features cut from the block as the TPU
-body cuts them; the three TPU chunk bodies differ in where the state lives
+own sweep (``sweep_topk`` of ``peel_common.cuh``: the f32 screen, the
+float64 entry depth of its survivors, register insertion) and shades the
+winners in the log domain, on feature rows, candidate lists and pixel
+features cut from the block as the TPU body cuts them; the three TPU chunk bodies differ in where the state lives
 and in a predicate that the TPU probe forces true.
 """
 
@@ -72,6 +72,7 @@ import math
 
 import torch
 
+from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
 from rtgs_tpu_torch.ops.peel import (CHUNK, F_DIM, G_DIM, _select,
                                      _shade_layers, _winner_rows)
 from rtgs_tpu_torch.probes import _common
@@ -297,18 +298,21 @@ def micro_torch(name: str, x: torch.Tensor) -> torch.Tensor:
     return _PLAIN[name](x)
 
 
+_MICRO = Launcher("rtgs_probe_micro", "kmicro")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
 def _launch(name: str, x: torch.Tensor, packed=None, cand=None, pix=None):
-    dev = _common.check_cuda(f"kmicro {name}",
-                             [("x", x, torch.float32, None)])
+    dev = check_tensors(f"kmicro {name}", (("x", x, torch.float32, None),))
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    idx, stream = _common.launch_args(dev)
     t, p, c = x.shape
-    err = _common.library().rtgs_probe_micro(
-        VARIANTS.index(name), _common.ptr(x), _common.ptr(out), t, p, c,
-        _common.ptr(packed), _common.ptr(cand), _common.ptr(pix), idx, stream)
-    _common.raise_on(err, f"kmicro {name}")
+    _MICRO(dev, VARIANTS.index(name), x.data_ptr(), out.data_ptr(), t, p, c,
+           _ptr(packed), _ptr(cand), _ptr(pix))
     micro_cuda.launches += 1
     return out
 
@@ -319,7 +323,7 @@ def chunkbody_cuda(x: torch.Tensor, packed, cand, pix) -> torch.Tensor:
     Raises on a wrong input or a failed launch; counted in
     ``micro_cuda.launches``."""
     _check_shape("chunkbody", x)
-    _common.check_cuda("kmicro chunkbody", [
+    check_tensors("kmicro chunkbody", [
         ("x", x, torch.float32, None),
         ("packed", packed, torch.float32,
          (x.shape[0] * x.shape[1] + 1, F_DIM)),
@@ -334,8 +338,7 @@ def micro_cuda(name: str, x: torch.Tensor) -> torch.Tensor:
     a failed launch; ``micro_cuda.launches`` counts the launches."""
     _check_shape(name, x)
     if name == "chunkbody":
-        _common.check_cuda("kmicro chunkbody",
-                           [("x", x, torch.float32, None)])
+        check_tensors("kmicro chunkbody", (("x", x, torch.float32, None),))
         return chunkbody_cuda(x, *chunkbody_inputs(x))
     return _launch(name, x)
 

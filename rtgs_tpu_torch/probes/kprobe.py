@@ -18,8 +18,9 @@ f32, lane 0 of the (t1, qa, r, g) state it would carry:
   intersect     — the minimum float64 entry depth over the swept
                   candidates; channels 1-3 keep the initial state
                   (−inf, 0, 0);
-  merge_t1      — the sweep with the top-K merge: the nearest t1 in all
-                  four channels (no hit: +inf, 0, 0, 0);
+  merge_t1      — the production sweep (f32 screen, float64 chain on its
+                  survivors, top-K merge): the nearest t1 in all four
+                  channels (no hit: +inf, 0, 0, 0);
   shade_nomerge — intersect plus the whole shading of every candidate;
   shade_qa      — intersect plus the log-domain response only;
   shade_dots    — intersect plus the three SH dot products only;
@@ -47,6 +48,7 @@ import math
 
 import torch
 
+from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
 from rtgs_tpu_torch.ops.peel import (CHUNK, F_DIM, G_DIM, _counts, _safe_ids,
                                      _select, _shade_layers, entry_depth,
                                      peel_fused_cuda, peel_fused_torch)
@@ -137,6 +139,9 @@ def prod_counts(name: str, candidates, counts):
     return torch.full((t,), c, dtype=torch.int32, device=candidates.device)
 
 
+_ABLATE = Launcher("rtgs_probe_ablate", "kprobe")
+
+
 def ablate_cuda(name: str, packed, candidates, counts, pix, depth: int,
                 qa_init: float = -math.inf, qa_miss: float = -math.inf):
     """Launch variant ``name`` on the current stream: ``probe_ablate.cu``
@@ -154,7 +159,7 @@ def ablate_cuda(name: str, packed, candidates, counts, pix, depth: int,
         return torch.cat([rad, trans[:, None]], dim=1)
     t, c = candidates.shape
     p = pix.shape[1]
-    dev = _common.check_cuda(f"kprobe {name}", [
+    dev = check_tensors(f"kprobe {name}", [
         ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
         ("candidates", candidates, torch.int32, (t, c)),
         ("counts", counts, torch.int32, (t,)),
@@ -165,13 +170,10 @@ def ablate_cuda(name: str, packed, candidates, counts, pix, depth: int,
     out = torch.empty((t, 4, p), dtype=torch.float32, device=dev)
     if t == 0:
         return out
-    idx, stream = _common.launch_args(dev)
-    err = _common.library().rtgs_probe_ablate(
-        KERNEL_VARIANTS.index(name), _common.ptr(packed),
-        _common.ptr(candidates), _common.ptr(counts), _common.ptr(pix),
-        _common.ptr(out), t, c, p, depth, packed.shape[0] - 1, qa_init,
-        qa_miss, idx, stream)
-    _common.raise_on(err, f"kprobe {name}")
+    _ABLATE(dev, KERNEL_VARIANTS.index(name), packed.data_ptr(),
+            candidates.data_ptr(), counts.data_ptr(), pix.data_ptr(),
+            out.data_ptr(), t, c, p, depth, packed.shape[0] - 1, qa_init,
+            qa_miss)
     ablate_cuda.launches += 1
     return out
 

@@ -8,9 +8,9 @@ Times, on the bench scene (see :func:`_common.scene_tables`):
 
 * the keys kernel (``peel_keys_cuda``) at 100k @ 640x384, budget 1536,
   narrow 3, with the early-exit bounds;
-* the fused forward (``peel_fused_cuda``), the fused backward
-  (``peel_fused_bwd_cuda``) and the top-K backward (``peel_topk_bwd_cuda``)
-  at the fit configuration, 100k @ 512x384, budget 1536; for each backward
+* the fused forward (``peel_fused_cuda``), the top-K forward
+  (``peel_topk_cuda``), the fused backward (``peel_fused_bwd_cuda``) and the
+  top-K backward (``peel_topk_bwd_cuda``) at the fit configuration, 100k @ 512x384, budget 1536; for each backward
   also the gradient of the (N+1, 64) table (where a wrapper returns
   per-slot rows (T, C, 64), the ``index_add_`` that scatters them is
   included: that is what a training step pays), and beside them the
@@ -140,6 +140,8 @@ def run(args, dev):
              lambda: torch.zeros_like(packed).index_add_(0, ids, dense))
         del dense
         line(f"peel_fwd {label}", lambda: peel.peel_fused_cuda(
+            packed, cand, counts, pix, DEPTH))
+        line(f"peel_topk_fwd {label}", lambda: peel.peel_topk_cuda(
             packed, cand, counts, pix, DEPTH))
         line(f"peel_bwd {label}", bwd)
         line(f"peel_bwd + table {label}",

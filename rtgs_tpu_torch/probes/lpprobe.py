@@ -18,6 +18,17 @@ per tile, the sum over the tile's candidate rows of feature lane 0 (a −1
 slot reads the sentinel row N). Each at T, T/4 and T/16 tiles, to separate
 the per-tile cost from the launch.
 
+(c) On the card, where a wrapper call's host time goes: the host clock
+around ``HOST_ROUNDS`` rounds of ``HOST_CALLS`` calls (the stream drained
+between rounds, the median round) of ``floor_cuda("nothing", ...)`` and of
+``peel_keys_cuda``, of each step of the launch path (``ops/_launch.py``:
+the checks, the outputs' allocation, the stream handle, the C call with its
+arguments ready), and beside them the same steps as the wrappers took them before the
+shared launch helper (messages formatted before they are needed, the
+library looked up through an import and a cache on every call, every
+argument boxed as a ``ctypes`` object, a ``Stream`` object built for its
+handle), and ``torch.full``'s host time as the yardstick.
+
 One line per measurement: label, milliseconds (CUDA events, median of
 ``--iters``), the minimum.
 """
@@ -25,10 +36,14 @@ One line per measurement: label, milliseconds (CUDA events, median of
 from __future__ import annotations
 
 import argparse
+import ctypes
 import math
+import statistics
+import time
 
 import torch
 
+from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
 from rtgs_tpu_torch.ops.peel import F_DIM, _counts, _safe_ids, peel_keys
 from rtgs_tpu_torch.probes import _common
 
@@ -47,6 +62,9 @@ def floor_torch(name: str, packed, candidates, p: int, depth: int):
     return s[:, None, None].expand(t, 2 * depth, p).contiguous()
 
 
+_FLOOR = Launcher("rtgs_probe_floor", "lpprobe floor")
+
+
 def floor_cuda(name: str, packed, candidates, p: int, depth: int):
     """Launch floor variant ``name`` of ``probe_floor.cu`` on the current
     stream. packed (N+1, 64) f32 and candidates (T, C) i32, contiguous CUDA
@@ -55,7 +73,7 @@ def floor_cuda(name: str, packed, candidates, p: int, depth: int):
     if name not in FLOOR_VARIANTS:
         raise ValueError(f"unknown floor variant {name!r}")
     t, c = candidates.shape
-    dev = _common.check_cuda(f"lpprobe {name}", [
+    dev = check_tensors(f"lpprobe {name}", [
         ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
         ("candidates", candidates, torch.int32, (t, c))])
     if p < 1 or depth < 1:
@@ -64,12 +82,9 @@ def floor_cuda(name: str, packed, candidates, p: int, depth: int):
     out = torch.empty((t, 2 * depth, p), dtype=torch.float32, device=dev)
     if t == 0:
         return out
-    idx, stream = _common.launch_args(dev)
-    err = _common.library().rtgs_probe_floor(
-        FLOOR_VARIANTS.index(name), _common.ptr(packed),
-        _common.ptr(candidates), _common.ptr(out), t, c, p, 2 * depth,
-        packed.shape[0] - 1, idx, stream)
-    _common.raise_on(err, f"lpprobe {name}")
+    _FLOOR(dev, FLOOR_VARIANTS.index(name), packed.data_ptr(),
+           candidates.data_ptr(), out.data_ptr(), t, c, p, 2 * depth,
+           packed.shape[0] - 1)
     floor_cuda.launches += 1
     return out
 
@@ -116,6 +131,132 @@ def forms_agree(outs: dict) -> dict:
             for tag in tags}
 
 
+HOST_ROUNDS, HOST_CALLS = 10, 100
+
+
+def host_us(fn, device) -> float:
+    """Host microseconds a call of ``fn()``: the host clock around
+    ``HOST_CALLS`` calls with no synchronisation inside, the stream drained
+    before and after each round; the median of ``HOST_ROUNDS`` rounds after
+    one warm-up call."""
+    fn()
+    per_call = []
+    for _ in range(HOST_ROUNDS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(HOST_CALLS):
+            fn()
+        per_call.append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+        torch.cuda.synchronize(device)
+    return statistics.median(per_call)
+
+
+def _eager_checks(who, specs):
+    """The wrappers' checks as they stood before ``check_tensors``: every
+    message formatted whether or not its condition fails."""
+    def require(cond, msg):
+        if not cond:
+            raise ValueError(f"{who}: {msg}")
+
+    dev = specs[0][1].device
+    require(dev.type == "cuda", f"needs CUDA tensors, got {dev}")
+    for name, x, dtype, shape in specs:
+        require(x.device == dev, f"{name} is on {x.device}, not {dev}")
+        require(x.dtype == dtype, f"{name} is {x.dtype}, want {dtype}")
+        require(tuple(x.shape) == tuple(shape),
+                f"{name} has shape {tuple(x.shape)}, want {tuple(shape)}")
+        require(x.is_contiguous(), f"{name} is not contiguous")
+    return dev
+
+
+def host_table(packed, cand, lb, pix, depth: int):
+    """Rows (label, host µs a call) of (c) in the module's docstring."""
+    from rtgs_tpu_torch.ops import _build, _launch, peel
+
+    dev = packed.device
+    t, c = cand.shape
+    p = pix.shape[1]
+    counts = _counts(cand)
+    idx = dev.index
+    lib = _build.load_library()
+    rows = []
+
+    def row(label, fn):
+        rows.append((label, host_us(fn, dev)))
+
+    def boxed_stream():
+        return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+    def lookup():
+        from rtgs_tpu_torch.ops import _build as again
+
+        return again.load_library()
+
+    # The floor kernel `nothing`.
+    f_specs = lambda: [  # noqa: E731
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", cand, torch.int32, (t, c))]
+    out = torch.empty((t, 2 * depth, p), dtype=torch.float32, device=dev)
+    f_args = (0, packed.data_ptr(), cand.data_ptr(), out.data_ptr(), t, c, p,
+              2 * depth, packed.shape[0] - 1)
+    vp = ctypes.c_void_p
+    row("nothing: the whole wrapper call",
+        lambda: floor_cuda("nothing", packed, cand, p, depth))
+    row("nothing: checks", lambda: check_tensors("lpprobe", f_specs()))
+    row("nothing: checks, messages formatted eagerly (before)",
+        lambda: _eager_checks("lpprobe", f_specs()))
+    row("nothing: output allocation (torch.empty)",
+        lambda: torch.empty((t, 2 * depth, p), dtype=torch.float32,
+                            device=dev))
+    row("stream handle as an int", lambda: _launch._raw_stream(idx))
+    row("stream handle through a Stream object, boxed (before)",
+        boxed_stream)
+    row("library through an import and a cached call (before)", lookup)
+    row("nothing: C call, plain ints",
+        lambda: _FLOOR.fn(*f_args, idx, _launch._raw_stream(idx)))
+    row("nothing: C call, arguments boxed one by one (before)",
+        lambda: lib.rtgs_probe_floor(
+            0, vp(packed.data_ptr()), vp(cand.data_ptr()),
+            vp(out.data_ptr()), t, c, p, 2 * depth, packed.shape[0] - 1, idx,
+            boxed_stream()))
+    shape = (t, 2 * depth, p)
+    row("torch.full of the same output",
+        lambda: torch.full(shape, math.inf, device=dev))
+
+    # The keys kernel.
+    k_specs = lambda: [  # noqa: E731
+        ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
+        ("candidates", cand, torch.int32, (t, c)),
+        ("counts", counts, torch.int32, (t,)),
+        ("chunk_lb", lb, torch.float32, (t, c // peel.CHUNK + 1)),
+        ("pix", pix, torch.float32, (t, p, peel.G_DIM))]
+    t1 = torch.empty((t, depth, p), dtype=torch.float32, device=dev)
+    sid = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
+    ptrs = (packed.data_ptr(), cand.data_ptr(), counts.data_ptr(),
+            lb.data_ptr(), pix.data_ptr(), t1.data_ptr(), sid.data_ptr())
+    row("keys: the whole wrapper call",
+        lambda: peel.peel_keys_cuda(packed, cand, counts, lb, pix, depth))
+    row("keys: checks",
+        lambda: peel._check_launch("keys", k_specs(), c, p, depth))
+    row("keys: checks, messages formatted eagerly (before)",
+        lambda: _eager_checks("keys", k_specs()))
+    row("keys: output allocation (one torch.empty, two views)",
+        lambda: torch.empty((2, t, depth, p), dtype=torch.float32,
+                            device=dev)[1].view(torch.int32))
+    row("keys: output allocation, 2 x torch.empty (before)",
+        lambda: (torch.empty((t, depth, p), dtype=torch.float32, device=dev),
+                 torch.empty((t, depth, p), dtype=torch.int32, device=dev)))
+    row("keys: C call, plain ints",
+        lambda: peel._KEYS.fn(*ptrs, None, t, c, p, depth, idx,
+                              _launch._raw_stream(idx)))
+    row("keys: C call, arguments boxed one by one (before)",
+        lambda: lib.rtgs_keys_sid(*(vp(x) for x in ptrs), vp(0), t, c, p,
+                                  depth, idx, boxed_stream()))
+    row("keys: _counts(candidates), which peel_keys adds without counts",
+        lambda: _counts(cand))
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("n", type=int, nargs="?", default=100_000)
@@ -158,6 +299,10 @@ def main(argv=None):
         for name in FLOOR_VARIANTS:
             line(f"floor {name} t={tsub}",
                  lambda: floor(name, packed, sub, p, args.depth))
+
+    if dev.type == "cuda":
+        for label, us in host_table(packed, cand, lb, pix, args.depth):
+            print(f"host {label:62s} {us:8.2f} us", flush=True)
 
 
 if __name__ == "__main__":

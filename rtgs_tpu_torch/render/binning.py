@@ -79,6 +79,7 @@ def tile_candidates(
     pad_px: float = 0.0,
     narrow: int | None = None,
     chunk: int | None = None,
+    entry_lb: torch.Tensor | None = None,
 ) -> TileBinning:
     """Build fixed-width per-tile candidate lists on the scene's device.
 
@@ -90,7 +91,12 @@ def tile_candidates(
     full ``max_tiles_local`` rectangle, and wide splats beyond the budget
     spill to the global list. ``chunk``: pad the candidate width to a
     multiple of it and return ``chunk_lb``. ``pad_px`` widens every
-    projected box (subpixel jitter).
+    projected box (subpixel jitter). ``entry_lb``: per splat (N,) f32, a
+    proven lower bound of the entry depths the feature table gives
+    (:func:`rtgs_tpu_torch.render.tiled.entry_lower_bound`); ``chunk_lb``
+    then takes the smaller of it and the sort key's depth, which bounds the
+    exact ellipsoid but not the table's rounding of it. The candidate order
+    does not depend on it.
     """
     w, h = camera.buf_size
     tw, th = tile
@@ -219,7 +225,8 @@ def tile_candidates(
     src = torch.where(j < n_glob, offs[num_tiles] + j,
                       offs[:num_tiles, None] + lj)
     src = torch.clamp(src, 0, key_s.shape[0] - 1).long()
-    candidates = torch.where(ok, val_s[src], -1)
+    cand_ids = val_s[src]
+    candidates = torch.where(ok, cand_ids, -1)
     local_overflow = torch.clamp(tcounts[:num_tiles] - max_candidates,
                                  min=0).sum()
     global_overflow = torch.clamp(tcounts[num_tiles] - max_global, min=0)
@@ -229,9 +236,12 @@ def tile_candidates(
     if chunk:
         nchunk = total_c // chunk
         if packed_key:
-            lb_slot = torch.where(
-                ok, (key_s[src] & 0xFFFF).float() * (dmax / 65535.0),
-                math.inf)
+            # Per splat the sort key's depth, dequantised (what the key's
+            # low 16 bits hold), then one gather through the slots' ids.
+            lb_splat = dq.float() * (dmax / 65535.0)
+            if entry_lb is not None:
+                lb_splat = torch.minimum(lb_splat, entry_lb)
+            lb_slot = torch.where(ok, lb_splat[cand_ids], math.inf)
             cmin = lb_slot.reshape(num_tiles, nchunk, chunk).amin(2)
             chunk_lb = torch.cummin(cmin.flip(1), dim=1).values.flip(1)
         else:

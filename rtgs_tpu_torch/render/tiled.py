@@ -37,6 +37,7 @@ local (x, y) raster order, images (W, H, 3) with a bottom-left origin.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -65,7 +66,14 @@ class TileFeatures:
 
 
 def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
-    m00, m01, m02, m11, m12, m22 = G.inv_covariance_packed6(g.quats,
+    """Fold the camera position into each Gaussian. Σ⁻¹ comes from the
+    direct form R·S⁻²·Rᵀ
+    (:func:`~rtgs_tpu_torch.gaussians.inv_covariance_direct6`),
+    not from the JAX package's adjugate of the assembled Σ: the two agree to
+    ~cond(Σ)·2⁻²⁴ on well-conditioned splats, and on needles and discs only
+    the direct form stays positive definite, which the binning's entry-depth
+    bound relies on (:func:`entry_lower_bound`)."""
+    m00, m01, m02, m11, m12, m22 = G.inv_covariance_direct6(g.quats,
                                                             g.scales)
     m6 = torch.stack([m00, m01, m02, m11, m12, m22], dim=-1)
     e = camera.position[None, :] - g.means
@@ -88,6 +96,101 @@ def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
         color=sentinel(g.colors, [0.0, 0.0, 0.0]),
         sh=sentinel(g.sh, torch.zeros((15, 3))),
     )
+
+
+def entry_lower_bound(g: G.Gaussians, camera: Camera,
+                      packed: torch.Tensor) -> torch.Tensor:
+    """Per splat, a proven lower bound (N,) f32 of every entry depth t1
+    that the float64 chain (:func:`~rtgs_tpu_torch.ops.peel.entry_depth`)
+    can give from the f32 table ``packed`` along any pixel's ray: what
+    ``tile_candidates(..., entry_lb=...)`` builds ``chunk_lb`` from.
+
+    The binning's own bound, depth − √3·s_max, holds for the exact
+    ellipsoid; the table is rounded to f32, and its c0 alone is off by up to
+    2⁻²⁴·|e|²/s_min², which moves the surface. Derivation, with M, v = Me
+    and c0 evaluated in float64 from the scene (exact to 2⁻⁵³) and δM, δv,
+    δc0 the table's differences from them, measured here, not estimated.
+    Along a ray x = e + t·d the chain solves Â t² + B̂ t + ĉ0 = 0 with the
+    table's coefficients, while xᵀMx − 3 = A t² + B t + c0. At its root t̂,
+    with E = |e| and t̂·|d| < E (otherwise t̂ ≥ E/|d| ≥ depth/|d| and there
+    is nothing to prove), the point x̂ = e + t̂·d has
+        |x̂ᵀMx̂ − 3| ≤ |Â − A|·t̂² + |B̂ − B|·t̂ + |ĉ0 − c0| + r ≤ η,
+        η = 3·(max|δM| + 2⁻²⁴·max|M|)·E² + 2·‖δv‖₂·E + |δc0| + r,
+    because Σ|fd_j| = (|d_x| + |d_y| + |d_z|)² ≤ 3|d|², the pixel table's
+    fd is d's products rounded once (the 2⁻²⁴·max|M| term), and the
+    float64 chain leaves a residual r ≤ 2⁻⁴⁵·(|ĉ0| + 3) at its root (Δ/4A
+    ≤ 3 and the cancelling terms are below |ĉ0| + 3). So x̂ lies on or
+    inside the ellipsoid scaled by √(1 + η/3), within √(3 + η)·s_max of the
+    mean, and its depth along the optical axis, which is t̂·(d·f) ≤ t̂·|d|, is
+    at least depth − √(3 + η)·s_max. Rotations enter through their
+    unnormalised quaternions as everywhere in the port: a splat's axes are
+    n = |q|² times its scales long, which multiplies the reach, and |d| ≤
+    n_cam·(1 + 2⁻²⁰). The result is rounded towards zero into f32 and
+    clamped at 0; a row that is not finite gets 0 (no bound)."""
+    f64 = torch.float64
+    with torch.no_grad():
+        quats, scales = g.quats.detach().to(f64), g.scales.detach().to(f64)
+        n = quats.shape[0]
+        # The rotated basis vectors q eₖ q* (columns, |q|² long) from the
+        # quaternions' products: one matrix product, not dozens of passes.
+        qq = (quats[:, :, None] * quats[:, None, :]).reshape(n, 16)
+        cols = (qq @ _quat_to_mat3(qq.device)).reshape(n, 3, 3)
+        norm2 = (quats * quats).sum(-1)                    # |q|²
+        a = cols / (scales * (norm2 * norm2)[:, None])[:, None, :]
+        m = (a[:, :, None, :] * a[:, None, :, :]).sum(-1)  # (N, 3, 3)
+        e = (camera.position.to(f64)[None, :] - g.means.detach().to(f64))
+        v = (m * e[:, None, :]).sum(-1)
+        c0 = (e * v).sum(-1) - G.BOUNDING_THRESHOLD
+        m6 = m.reshape(n, 9)[:, _SYM6]
+        tab = packed.detach()[:-1, :10].to(f64)
+        d_m = (tab[:, :6] - m6).abs().amax(-1)
+        d_v = torch.linalg.norm(tab[:, 6:9] - v, dim=-1)
+        d_c0 = (tab[:, 9] - c0).abs()
+        dist = torch.linalg.norm(e, dim=-1)
+        eta = 1.001 * (3.0 * (d_m + 2.0**-24 * m6.abs().amax(-1)) * dist**2
+                       + 2.0 * d_v * dist + d_c0
+                       + 2.0**-45 * (tab[:, 9].abs() + 3.0))
+        reach = (torch.sqrt(G.BOUNDING_THRESHOLD + eta) * scales.amax(-1)
+                 * norm2)
+        cam_q = camera.rotation.to(f64)
+        n_cam = (cam_q * cam_q).sum()
+        # The optical axis: the camera looks down its −z, the third column.
+        axis = -((cam_q[:, None] * cam_q[None, :]).reshape(1, 16)
+                 @ _quat_to_mat3(cam_q.device)).reshape(3, 3)[:, 2]
+        depth = -(e * axis).sum(-1) / n_cam
+        lb = ((depth - reach).clamp(min=0.0)
+              / (n_cam * (1.0 + 2.0**-20)) * (1.0 - 2.0**-20))
+        lb32 = torch.nan_to_num(lb, nan=0.0, posinf=0.0).float()
+        return torch.where(lb32.double() > lb,
+                           torch.nextafter(lb32, torch.zeros_like(lb32)),
+                           lb32)
+
+
+@functools.lru_cache(maxsize=None)
+def _quat_to_mat3(device: torch.device) -> torch.Tensor:
+    """(16, 9) float64 on ``device``: the row-major 3×3 matrix with columns
+    q eₖ q* as a linear map of the products q_a·q_b (a, b over x, y, z, w;
+    row 4a + b)."""
+    x, y, z, w = range(4)
+    terms = {   # entry → ((a, b), coefficient) ...
+        0: (((w, w), 1), ((x, x), 1), ((y, y), -1), ((z, z), -1)),
+        1: (((x, y), 2), ((w, z), -2)),
+        2: (((x, z), 2), ((w, y), 2)),
+        3: (((x, y), 2), ((w, z), 2)),
+        4: (((w, w), 1), ((x, x), -1), ((y, y), 1), ((z, z), -1)),
+        5: (((y, z), 2), ((w, x), -2)),
+        6: (((x, z), 2), ((w, y), -2)),
+        7: (((y, z), 2), ((w, x), 2)),
+        8: (((w, w), 1), ((x, x), -1), ((y, y), -1), ((z, z), 1)),
+    }
+    out = torch.zeros((16, 9), dtype=torch.float64)
+    for entry, parts in terms.items():
+        for (a, b), coeff in parts:
+            out[4 * a + b, entry] = coeff
+    return out.to(device)
+
+
+_SYM6 = [0, 1, 2, 4, 5, 8]   # the packed sym6 lanes of a row-major 3×3
 
 
 def direction_features(dirs: torch.Tensor):
@@ -309,20 +412,21 @@ def render_tiled_keys(
     w, h = camera.buf_size
     tw, th = tile
     ntx, nty = -(-w // tw), -(-h // th)
+    packed = pack_features(precompute_features(g, camera))
     with torch.no_grad():
         binning = tile_candidates(
             g, camera, tile=tile, max_candidates=max_candidates,
             max_global=max_global, max_tiles_local=max_tiles_local,
             pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow,
-            chunk=CHUNK)
+            chunk=CHUNK, entry_lb=entry_lower_bound(g, camera, packed))
     cand, lb = binning.candidates, binning.chunk_lb
-    packed = pack_features(precompute_features(g, camera))
     pix = _tile_pixel_features(camera, tile, pixel_offset)
 
-    def band(packed, cand_b, pix_b, lb_b):
+    def band(packed, cand_b, pix_b, lb_b, counts_b):
         with torch.no_grad():
             _t1, sid = peel_keys(packed, cand_b, pix_b, depth,
-                                 impl=keys_impl, chunk_lb=lb_b)
+                                 impl=keys_impl, chunk_lb=lb_b,
+                                 counts=counts_b)
         return composite_layers_kp(*shade_winners_kp(packed, sid, pix_b))
 
     t = cand.shape[0]
@@ -330,7 +434,8 @@ def render_tiled_keys(
     remat = nb < t and torch.is_grad_enabled() and packed.requires_grad
     rads = []
     for s in range(0, t, nb):
-        args = (packed, cand[s:s + nb], pix[s:s + nb], lb[s:s + nb])
+        args = (packed, cand[s:s + nb], pix[s:s + nb], lb[s:s + nb],
+                binning.counts[s:s + nb])
         if remat:
             rads.append(torch.utils.checkpoint.checkpoint(
                 band, *args, use_reentrant=False, preserve_rng_state=False))

@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
-from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts,
-                                     _scatter_slot_grads, peel_fused,
+from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, _safe_ids,
+                                     _scatter_slot_grads, entry_depth,
+                                     peel_fused,
                                      peel_fused_bwd_cuda,
                                      peel_fused_bwd_torch, peel_fused_cuda,
                                      peel_fused_torch)
@@ -31,6 +32,7 @@ from rtgs_tpu_torch.render.tiled import (_tile_pixel_features, pack_features,
                                          render_tiled_pallas)
 from rtgs_tpu_torch.scene import random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
+from _torch_frames import SWEEP_SHAPES, sweep_inputs
 
 FWD_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
@@ -90,6 +92,37 @@ def test_kernels_match_twins(cuda, depth):
     rad_2, tr_2, sl_2 = peel_fused_cuda(packed, cand, counts, pix, depth)
     assert torch.equal(rad_2, rad_k) and torch.equal(tr_2, tr_k)
     assert torch.equal(sl_2, sl_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16, 32, 64])
+@pytest.mark.parametrize("shape", sorted(SWEEP_SHAPES))
+def test_screened_sweep_winners_bitwise(cuda, shape, depth):
+    """Every list capacity the kernel is built for: the winners' slots are
+    bitwise the twin's, radiance and transmittance to FWD_ATOL; the
+    counting instantiation gives the same result, sweeps every (pixel, live
+    candidate) pair and rejects no more than the misses."""
+    packed, cand, pix = sweep_inputs(cuda, shape)
+    if shape == "ragged_tile":
+        assert pix.shape[1] % 32 != 0
+    counts = _counts(cand)
+    rad_k, tr_k, sl_k = peel_fused_cuda(packed, cand, counts, pix, depth)
+    rad_t, tr_t, sl_t = peel_fused_torch(packed, cand, pix, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(sl_k, sl_t) and (sl_k >= 0).any()
+    assert (rad_k - rad_t).abs().max() <= FWD_ATOL
+    assert (tr_k - tr_t).abs().max() <= FWD_ATOL
+    counters = torch.zeros(2, dtype=torch.int64, device=cuda)
+    rad_c, tr_c, sl_c = peel_fused_cuda(packed, cand, counts, pix, depth,
+                                        screen_counts=counters)
+    assert torch.equal(sl_c, sl_k) and torch.equal(rad_c, rad_k)
+    assert torch.equal(tr_c, tr_k)
+    pairs, rejected = (int(x) for x in counters)
+    assert pairs == int((cand >= 0).sum()) * pix.shape[1]
+    hits = int(torch.isfinite(entry_depth(
+        packed[:, :10][_safe_ids(packed, cand)], pix)
+        [(cand >= 0)[:, None, :].expand(-1, pix.shape[1], -1)]).sum())
+    assert 0 < rejected <= pairs - hits
 
 
 @pytest.mark.cuda

@@ -22,7 +22,8 @@ from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, _safe_ids,
                                      entry_depth, peel_keys, peel_keys_cuda,
                                      peel_keys_torch, screen_rejects)
 from rtgs_tpu_torch.render.binning import tile_candidates
-from rtgs_tpu_torch.render.tiled import (_tile_pixel_features, pack_features,
+from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                         entry_lower_bound, pack_features,
                                          precompute_features,
                                          render_tiled_keys)
 from rtgs_tpu_torch.scene import anisotropic_scene, random_scene
@@ -42,9 +43,10 @@ def _frame(device, n=3000, res=(64, 48)):
     pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, 2.0, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     cam = camera_from_fov(pos, rot, res, 60.0, device=device)
-    b = tile_candidates(g, cam, max_candidates=1024, max_global=64,
-                        chunk=CHUNK)
     packed = pack_features(precompute_features(g, cam))
+    b = tile_candidates(g, cam, max_candidates=1024, max_global=64,
+                        chunk=CHUNK,
+                        entry_lb=entry_lower_bound(g, cam, packed))
     return g, cam, b, packed, _tile_pixel_features(cam, (16, 16))
 
 
@@ -74,9 +76,10 @@ def _anisotropic_frame(device, gap, fov, n=20_000, res=(64, 48)):
                                        np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     cam = camera_from_fov(pos, rot, res, fov, device=device)
-    b = tile_candidates(g, cam, max_candidates=2048, max_global=512,
-                        chunk=CHUNK)
     packed = pack_features(precompute_features(g, cam))
+    b = tile_candidates(g, cam, max_candidates=2048, max_global=512,
+                        chunk=CHUNK,
+                        entry_lb=entry_lower_bound(g, cam, packed))
     return b, packed, _tile_pixel_features(cam, (16, 16))
 
 
@@ -84,12 +87,13 @@ def _anisotropic_frame(device, gap, fov, n=20_000, res=(64, 48)):
 @pytest.mark.parametrize("gap,fov", [(0.2, 60.0), (50.0, 2.0)])
 @pytest.mark.parametrize("depth", [8, 16])
 def test_kernel_matches_twin_on_anisotropic_splats(cuda, gap, fov, depth):
-    """The full sweep is bitwise the twin's. With chunk_lb it is so on every
-    tile whose bounds hold: the f32 feature table loses the definiteness of
-    such splats' Σ⁻¹, and t1 from such a row can lie in front of the
-    binning's geometric bound, which is then none."""
+    """The full sweep is bitwise the twin's, and so is the early exit, on
+    every tile: Σ⁻¹ in the direct form keeps every row of the f32 table
+    positive definite, and chunk_lb is built from a proven bound of the
+    table's entry depths (``entry_lower_bound``), checked here too."""
     b, packed, pix = _anisotropic_frame(cuda, gap, fov)
     cand, lb = b.candidates, b.chunk_lb
+    assert (packed[:-1, 0] > 0).all()
     counts = _counts(cand)
     t1_f, sid_f = peel_keys_cuda(packed, cand, counts, torch.zeros_like(lb),
                                  pix, depth)
@@ -103,9 +107,8 @@ def test_kernel_matches_twin_on_anisotropic_splats(cuda, gap, fov, depth):
     cmin = entry_depth(rows, pix).amin(1).reshape(t, c // CHUNK,
                                                   CHUNK).amin(2)
     suffix = torch.cummin(cmin.flip(1), dim=1).values.flip(1)
-    valid = (suffix >= lb[:, :-1]).all(dim=1)
-    same = ((sid_k == sid_t) & (t1_k == t1_t)).all(dim=2).all(dim=1)
-    assert same[valid].all()
+    assert (suffix >= lb[:, :-1]).all()
+    assert torch.equal(sid_k, sid_t) and torch.equal(t1_k, t1_t)
 
 
 @pytest.mark.cuda

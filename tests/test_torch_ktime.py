@@ -25,16 +25,16 @@ def test_edited_sources_apply_to_a_copy(tmp_path, build_paths):
     src, _ = build_paths
     before = {p.name: p.read_bytes() for p in src.glob("*.cu*")}
     ktime.edited_sources(
-        ["keys.cu::constexpr int kBatch::constexpr int kBatchEdited"],
+        ["peel_common.cuh::constexpr int kBatch::constexpr int kBatchEdited"],
         tmp_path)
     assert _build.SRC_DIR == tmp_path / "csrc"
     assert _build.BUILD_DIR == tmp_path / "build"
-    edited = (_build.SRC_DIR / "keys.cu").read_text()
+    edited = (_build.SRC_DIR / "peel_common.cuh").read_text()
     assert "kBatchEdited" in edited
     # Every source is there, the others unchanged, the repository's untouched.
     for name, data in before.items():
         assert (src / name).read_bytes() == data
-        if name != "keys.cu":
+        if name != "peel_common.cuh":
             assert (_build.SRC_DIR / name).read_bytes() == data
     # The library's name follows the edited sources.
     edited_lib = _build.library_path()

@@ -28,6 +28,8 @@ from rtgs_tpu.render.binning import tile_candidates
 from rtgs_tpu.render.tiled import (_tile_pixel_features, pack_features,
                                    precompute_features)
 from rtgs_tpu.viewer.orbit import orbit_camera_pose
+from rtgs_tpu_torch.ops import _build
+from rtgs_tpu_torch.ops import peel as T_PEEL
 from rtgs_tpu_torch.ops.peel import (CHUNK, F_DIM, peel_fused,
                                      peel_fused_bwd_torch, peel_fused_torch,
                                      select_slots)
@@ -223,3 +225,87 @@ def test_per_slot_gradients_and_dispatch(peel_inputs):
         peel_fused(packed, cand, pix, 8, impl="pallas")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         peel_fused(packed, cand, pix, 8, impl="cuda")
+
+
+def _c_signatures():
+    """name → parameter kinds of every ``extern "C" int`` function in
+    ``csrc/*.cu``, parsed from the sources."""
+    import re
+
+    found = {}
+    for src in sorted(_build.SRC_DIR.glob("*.cu")):
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', src.read_text()):
+            kinds = []
+            for param in params.split(","):
+                param = " ".join(param.split())
+                if "*" in param:
+                    kinds.append("ptr")
+                else:
+                    ctype = param.rsplit(" ", 1)[0]
+                    assert ctype in ("int", "float"), (name, param)
+                    kinds.append(ctype)
+            found[name] = tuple(kinds)
+    return found
+
+
+def test_signature_table_matches_the_sources():
+    """``_build.SIGNATURES`` (what ctypes converts each argument by) names
+    every launcher in the sources, with its parameters' kinds in order: a
+    pointer declared as an int would be cut to 32 bits."""
+    parsed = _c_signatures()
+    assert set(parsed) == set(_build.SIGNATURES)
+    for name, kinds in parsed.items():
+        assert _build.SIGNATURES[name] == kinds, name
+        # Every launcher ends with the device index and the stream.
+        assert kinds[-2:] == ("int", "ptr"), name
+
+
+def _wrapper_calls(packed, cand, pix):
+    """Every kernel wrapper of ops/peel.py on these inputs, by name."""
+    t, c = cand.shape
+    p = pix.shape[1]
+    counts = T_PEEL._counts(cand)
+    lb = torch.zeros((t, c // CHUNK + 1))
+    slots = torch.zeros((t, 8, p), dtype=torch.int32)
+    g_rad, g_tr = torch.zeros((t, 3, p)), torch.zeros((t, p))
+    g_lay = torch.zeros((t, 4, 8, p))
+    return {
+        "peel_keys_cuda": lambda **kw: T_PEEL.peel_keys_cuda(
+            kw.get("packed", packed), cand, counts, lb, kw.get("pix", pix),
+            8),
+        "peel_fused_cuda": lambda **kw: T_PEEL.peel_fused_cuda(
+            kw.get("packed", packed), cand, counts, kw.get("pix", pix), 8),
+        "peel_fused_bwd_cuda": lambda **kw: T_PEEL.peel_fused_bwd_cuda(
+            kw.get("packed", packed), cand, counts, kw.get("pix", pix),
+            slots, g_rad, g_tr, 8),
+        "peel_topk_cuda": lambda **kw: T_PEEL.peel_topk_cuda(
+            kw.get("packed", packed), cand, counts, kw.get("pix", pix), 8),
+        "peel_topk_bwd_cuda": lambda **kw: T_PEEL.peel_topk_bwd_cuda(
+            kw.get("packed", packed), cand, counts, kw.get("pix", pix),
+            slots, g_lay, 8),
+    }
+
+
+WRAPPERS = ("peel_keys_cuda", "peel_fused_cuda", "peel_fused_bwd_cuda",
+            "peel_topk_cuda", "peel_topk_bwd_cuda")
+
+
+@pytest.mark.parametrize("wrapper", WRAPPERS)
+def test_wrappers_refuse_wrong_inputs(peel_inputs, wrapper):
+    """Each wrapper raises ``ValueError`` before any launch (or build) on a
+    wrong dtype, a non-contiguous input, a wrong shape and a CPU tensor; its
+    launch count stays where it was."""
+    packed, cand, pix = map(_t, peel_inputs)
+    call = _wrapper_calls(packed, cand, pix)[wrapper]
+    fn = getattr(T_PEEL, wrapper)
+    before = fn.launches
+    with pytest.raises(ValueError, match="packed is torch.float64"):
+        call(packed=packed.double())
+    with pytest.raises(ValueError, match="pix is not contiguous"):
+        call(pix=pix.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="packed has shape"):
+        call(packed=packed[:, :32].contiguous())
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        call()
+    assert fn.launches == before

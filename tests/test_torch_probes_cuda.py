@@ -147,3 +147,31 @@ def test_lpprobe_forms_and_floors(cuda):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
     assert float(ref.abs().min()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,depth", [(256, 16), (100, 8), (37, 3), (5, 1),
+                                     (1, 1), (1023, 2)])
+def test_floor_kernels_fill_unaligned_tiles(cuda, p, depth):
+    """The floor kernels fill a tile with 16-byte stores: tiles whose
+    2·depth·P words are no multiple of four start off a 16-byte boundary
+    and end on one, and every word must still be written, none beyond."""
+    packed, cand, _, _, _ = _tables(cuda)
+    cand = cand[:7].contiguous()
+    for name in lpprobe.FLOOR_VARIANTS:
+        got = lpprobe.floor_cuda(name, packed, cand, p, depth)
+        ref = lpprobe.floor_torch(name, packed, cand, p, depth)
+        torch.cuda.synchronize()
+        assert got.shape == (7, 2 * depth, p)
+        if name == "nothing":
+            assert torch.equal(got, ref)
+        else:
+            torch.testing.assert_close(got, ref, rtol=1e-5, atol=0.0)
+    # A tile's neighbours are untouched: fill the last tile only.
+    guard = torch.full((3, 2 * depth, p), 7.0, device=cuda)
+    lpprobe._FLOOR(packed.device, 0, packed.data_ptr(), cand.data_ptr(),
+                   guard[1:].data_ptr(), 1, cand.shape[1], p, 2 * depth,
+                   packed.shape[0] - 1)
+    torch.cuda.synchronize()
+    assert (guard[0] == 7.0).all() and (guard[2] == 7.0).all()
+    assert torch.isinf(guard[1]).all()

@@ -23,9 +23,9 @@ from hypothesis import strategies as st
 
 from rtgs_tpu_torch.camera import camera_from_fov
 from rtgs_tpu_torch.ops import peel
-from rtgs_tpu_torch.ops.peel import (CHUNK, _safe_ids, entry_depth,
-                                     peel_keys_torch, screen_margin,
-                                     screen_rejects)
+from rtgs_tpu_torch.ops.peel import (CHUNK, _safe_ids, _select,
+                                     entry_depth, peel_keys_torch,
+                                     screen_margin, screen_rejects)
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
                                          direction_features, pack_features,
@@ -117,6 +117,56 @@ def test_screened_selection_equals_the_twin(scene):
     t1_s, sid_s = peel_keys_torch(packed, thinned, pix, 8)
     assert (sid_k >= 0).any()
     assert torch.equal(sid_s, sid_k) and torch.equal(t1_s, t1_k)
+
+
+def _fused_fixture(case):
+    """Candidate lists for the fused and top-K sweep (selection by slot):
+    a binned scene, with exact ties (every candidate listed twice, so two
+    slots share each t1), interior −1 gaps, one tile emptied, and needles."""
+    name = "needles_near" if case == "needles" else "frame"
+    _, pix, cand, packed = SCENES[name]()
+    cand = cand.clone()
+    if case == "ties":
+        half = cand.shape[1] // 2
+        cand[:, half:] = cand[:, :half]
+    elif case == "gaps":
+        cand[:, ::5] = -1
+    elif case == "empty_tile":
+        cand[int((cand >= 0).sum(1).argmax())] = -1
+    return packed, cand, pix
+
+
+@pytest.mark.parametrize("case", ["binned", "ties", "gaps", "empty_tile",
+                                  "needles"])
+@pytest.mark.parametrize("depth", [8, 16])
+def test_screened_sweep_selects_the_twins_slots(case, depth):
+    """The fused and top-K kernels' sweep (``sweep_topk``) drops the pairs
+    the screen rejects before the float64 chain and inserts the rest in
+    slot order. On the twin's (T, P, C) field: the screen rejects no pair
+    that ``_select`` keeps, and a stable sort of the survivors gives the
+    same slots and t1, the lower slot first among equal t1."""
+    packed, cand, pix = _fused_fixture(case)
+    rows = packed[:, :10][_safe_ids(packed, cand)]
+    rejected = screen_rejects(rows, pix)                   # (T, P, C)
+    t1_k, slots_k = _select(packed, cand, pix, depth)      # (T, K, P)
+    won = slots_k >= 0
+    assert won.any() or case == "empty_tile"
+    picked = rejected.transpose(1, 2).gather(
+        1, slots_k.clamp(min=0).long())                    # (T, K, P)
+    assert not (picked & won).any()
+    t1 = torch.where(rejected, math.inf, entry_depth(rows, pix))
+    t1_s, order = torch.sort(t1, dim=2, stable=True)
+    t1_s, order = t1_s[..., :depth], order[..., :depth]
+    slots_s = torch.where(torch.isfinite(t1_s), order, -1)
+    assert torch.equal(slots_s.transpose(1, 2).to(torch.int32), slots_k)
+    assert torch.equal(t1_s.transpose(1, 2), t1_k)
+    if case == "ties":
+        half = cand.shape[1] // 2
+        second = (slots_k[:, 1:] - slots_k[:, :-1] == half) & won[:, 1:]
+        assert second.any()
+        assert torch.equal(t1_k[:, 1:][second], t1_k[:, :-1][second])
+    if case == "empty_tile":
+        assert (slots_k[int((cand >= 0).sum(1).argmin())] < 0).all()
 
 
 def test_screen_rejects_most_misses_at_bench_scales():

@@ -31,6 +31,7 @@ from rtgs_tpu_torch.render.tiled import (_tile_pixel_features, pack_features,
                                          precompute_features)
 from rtgs_tpu_torch.scene import random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
+from _torch_frames import SWEEP_SHAPES, sweep_inputs
 
 LAYER_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
@@ -94,6 +95,22 @@ def test_kernels_match_twins(cuda, depth):
     # The forward is deterministic, bitwise.
     lay_2, sl_2 = peel_topk_cuda(packed, cand, counts, pix, depth)
     assert torch.equal(lay_2, lay_k) and torch.equal(sl_2, sl_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [8, 16, 32, 64])
+@pytest.mark.parametrize("shape", sorted(SWEEP_SHAPES))
+def test_screened_sweep_winners_bitwise(cuda, shape, depth):
+    """The top-K forward runs the fused forward's sweep: slots and t1
+    bitwise the twin's at every list capacity, with one candidate chunk,
+    with 29, and with tiles that are no multiple of a warp."""
+    packed, cand, pix = sweep_inputs(cuda, shape)
+    lay_k, sl_k = peel_topk_cuda(packed, cand, _counts(cand), pix, depth)
+    lay_t, sl_t = peel_topk_torch(packed, cand, pix, depth)
+    torch.cuda.synchronize()
+    assert torch.equal(sl_k, sl_t) and (sl_k >= 0).any()
+    assert torch.equal(lay_k[:, 0], lay_t[:, 0])
+    assert (lay_k[:, 1:] - lay_t[:, 1:]).abs().max() <= LAYER_ATOL
 
 
 @pytest.mark.cuda
