@@ -95,7 +95,29 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      minimum; then the three probes as programs (``python -m
      rtgs_tpu_torch.probes.<name>``'s main), launches counted; lpprobe ends
      with the host time of a wrapper call and of each step of the launch
-     path.
+     path;
+ 15. the browser viewer (``viewer.server``, what ``serve`` runs) on the 1M
+     scene at 1920x1088 in 8 tile bands, over HTTP on a free port: the page,
+     a PNG frame bitwise the in-process render of its pose, a repeated
+     frame that renders nothing, a new frame after each of a pan, a zoom
+     and a rotation, 8 keys launches a fresh frame, and each request's time
+     split into render, PNG encoding and transfer; then ``ProgressiveSampler``
+     (4 jittered samples equal to ``render_progressive`` of the same seed;
+     4 unjittered ones bitwise one render);
+ 16. the ring renderer (``parallel.render``) on a 1x1 mesh, one rank in an
+     NCCL group (one card cannot hold more: NCCL refuses two ranks on one
+     device): ``render_tiled_sharded`` of the 1M scene at 1920x1088 against
+     ``render_tiled_keys`` to 1e-5, its frame time and peak memory, one keys
+     launch a ring step; its scene gradients of Σ image² at the fit
+     configuration against the keys path's at the gates of the JAX
+     package's test; ``render_sharded`` of the 4096-splat scene at 128x96
+     against ``composite_rays`` to 1e-5;
+ 17. the LBVH of the 1M scene: build time (``utils.profiling.timed``), the
+     tree's structure, ``bvh_hit`` of 1,024 seeded rays at max_steps 4096
+     against a brute-force nearest hit (uncut rays: the same splat but for
+     ties within 1e-6, t1 to 1e-5; cut rays: never a nearer t1), how many
+     rays are cut; and ``utils.profiling.trace`` around a 100k keys render,
+     whose Chrome trace must name the keys kernel.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -188,6 +210,24 @@ SMALL_FIT = dict(res=(128, 96), views=4, steps=5, init_points=2048,
                  max_candidates=2048)
 # Image against image of another renderer (tests/_utils.assert_images_close).
 IMG_Q, IMG_QTOL, IMG_MAXTOL = 0.99, 5e-4, 0.12
+
+# The interactive viewer's configuration: phase 5's frame (1M @ 1920x1088,
+# K 16, budgets 3584 / 64 / narrow 4, 8 tile bands).
+SERVE_KW = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
+                bin_narrow=4)
+SERVE_EVENTS = ({"type": "pan", "dx": 0.05, "dy": 0.02},
+                {"type": "zoom", "delta": 1},
+                {"type": "rot", "rx": 0.3, "ry": 0.2, "rz": 0.0})
+PROGRESSIVE_SAMPLES = 4
+# The ring against the single-device keys path (tests/test_parallel.py:
+# 138): the same winners shaded in the same order, to FWD_ATOL; its scene
+# gradients of Σ image² at the gates of tests/test_parallel.py:178-184.
+RING_GRAD_Q99, RING_GRAD_MAX = 5e-3, 5e-2
+RING_ORACLE_RES = (128, 96)
+# LBVH queries: seeded origins on a sphere of radius 5 aimed at the origin.
+BVH_RAYS, BVH_RADIUS, BVH_MAX_STEPS = 1024, 5.0, 4096
+BVH_TIE_RTOL, BVH_T1_RTOL = 1e-6, 1e-5
+BVH_BRUTE_CHUNK = 32
 
 
 # The benchmark configurations of the repository (bench.py CONFIGS with its
@@ -2127,6 +2167,368 @@ def phase14_scene_probes(dev):
     return abl, abl_launches, flo, flo_launches
 
 
+def http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as r:
+        return r.read()
+
+
+def http_post(port, ev):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/event",
+                                 data=json.dumps(ev).encode(),
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status
+
+
+def phase15_serve(g, dev):
+    """The viewer over HTTP on the 1M scene at 1920x1088, then the
+    progressive sampler; returns the keys kernel's launches."""
+    import argparse
+    import threading
+
+    import torch
+
+    from rtgs_tpu_torch.camera import image_to_display
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.render.api import (ProgressiveSampler, render,
+                                           render_progressive)
+    from rtgs_tpu_torch.utils.image import decode_png, to_uint8
+    from rtgs_tpu_torch.viewer.server import make_server
+
+    w, h = FULL_RES
+    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEPTH,
+                              renderer="keys", radius=POSE["r"], port=0)
+    # What ``serve`` runs: make_server, then serve_forever (here in a
+    # daemon thread, shut down at the end).
+    server, session = make_server(g, args, render_kwargs=SERVE_KW)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    launches = 0
+    try:
+        page = http_get(port, "/")
+        check(b"rtgs-tpu viewer" in page, "serve: / lacks the page title")
+
+        def frame(label):
+            nonlocal launches
+            peel_keys_cuda.launches = 0
+            session.timings = {}
+            t0 = time.perf_counter()
+            png = http_get(port, "/frame")
+            total = (time.perf_counter() - t0) * 1e3
+            n = peel_keys_cuda.launches
+            launches += n
+            t = {k: v * 1e3 for k, v in session.timings.items()}
+            parts = (f"render {t['render']:.1f} + PNG {t['encode']:.1f} + "
+                     f"transfer and HTTP "
+                     f"{total - t['render'] - t['encode']:.1f} ms"
+                     if t else "no render (cached)")
+            say(15, f"GET /frame ({label}): {total:.1f} ms = {parts}; "
+                    f"{len(png)} bytes; keys launches {n}")
+            return png, n
+
+        png, n = frame("first pose")
+        check(n == BANDS, f"serve: a fresh frame launched the keys kernel "
+              f"{n} times, expected {BANDS}")
+        with torch.inference_mode():
+            ref = render(g, session.camera(), depth=DEPTH, renderer="keys",
+                         **SERVE_KW)
+            ref8 = to_uint8(image_to_display(ref).cpu().numpy())
+        got = decode_png(png)
+        check(got.shape == (h, w, 3) and bool((got == ref8).all()),
+              f"serve: the PNG frame (shape {got.shape}) is not bitwise "
+              f"the in-process render")
+        again, n = frame("same pose, cached")
+        check(n == 0 and again == png, f"serve: a repeated frame launched "
+              f"{n} keys kernels or changed")
+        seen = png
+        for ev in SERVE_EVENTS:
+            t0 = time.perf_counter()
+            status = http_post(port, ev)
+            post_ms = (time.perf_counter() - t0) * 1e3
+            check(status == 204, f"serve: /event {ev} answered {status}")
+            nxt, n = frame(f"after {ev['type']}, POST {post_ms:.1f} ms")
+            check(n == BANDS and nxt != seen,
+                  f"serve: {ev['type']} gave an unchanged frame or {n} keys "
+                  f"launches")
+            seen = nxt
+        say(15, f"serve on 1M@{w}x{h} ({BANDS} bands): / has the title, "
+                f"/frame bitwise the in-process render, a cached frame "
+                f"renders nothing, pan, zoom and rot each give a new frame")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve: the server thread did not stop")
+
+    cam = camera(FULL_RES, dev)
+    peel_keys_cuda.launches = 0
+    with torch.inference_mode():
+        s = ProgressiveSampler(g, cam, depth=DEPTH, jitter=True,
+                               generator=torch.Generator().manual_seed(3),
+                               **SERVE_KW)
+        for _ in range(PROGRESSIVE_SAMPLES):
+            s.sample()
+        launches += peel_keys_cuda.launches
+        ref = render_progressive(g, cam, depth=DEPTH,
+                                 samples=PROGRESSIVE_SAMPLES, jitter=True,
+                                 generator=torch.Generator().manual_seed(3),
+                                 **SERVE_KW)
+        jitter_equal = torch.equal(s.display(), ref)
+        peel_keys_cuda.launches = 0
+        s = ProgressiveSampler(g, cam, depth=DEPTH, **SERVE_KW)
+        for _ in range(PROGRESSIVE_SAMPLES):
+            s.sample()
+        launches += peel_keys_cuda.launches
+        one = render(g, cam, depth=DEPTH, **SERVE_KW)
+        plain_equal = torch.equal(s.display(), one)
+    check(jitter_equal, "ProgressiveSampler with jitter differs from "
+          "render_progressive with a generator of the same seed")
+    check(plain_equal, "ProgressiveSampler without jitter differs from one "
+          "render")
+    say(15, f"ProgressiveSampler, {PROGRESSIVE_SAMPLES} samples at 1M@"
+            f"{w}x{h}: jittered equal to render_progressive(jitter=True) of "
+            f"the same seed, unjittered bitwise one render")
+    return launches
+
+
+def phase16_ring(g1m, g100k, g4k, dev):
+    """The ring renderer on a 1x1 mesh: one rank, one NCCL group on the
+    card (NCCL refuses two ranks on one device, so one card holds no larger
+    mesh); returns the keys kernel's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from rtgs_tpu_torch.camera import generate_ray_grid
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.parallel.mesh import (initialize_distributed,
+                                              make_mesh)
+    from rtgs_tpu_torch.parallel.render import (render_sharded,
+                                                render_tiled_sharded,
+                                                shard_scene)
+    from rtgs_tpu_torch.render.oracle import composite_rays
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+
+    w, h = FULL_RES
+    kw = dict(max_candidates=3584, max_global=64, bin_narrow=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device="cuda")
+        try:
+            mesh = make_mesh(1, 1, device="cuda")
+            shard = shard_scene(g1m, mesh)
+            cam = camera(FULL_RES, dev)
+            with torch.inference_mode():
+                peel_keys_cuda.launches = 0
+                img = render_tiled_sharded(shard, cam, mesh, depth=DEPTH,
+                                           **kw)
+                torch.cuda.synchronize()
+                launches = peel_keys_cuda.launches
+                ref = render_tiled_keys(g1m, cam, depth=DEPTH,
+                                        tile_bands=BANDS, **kw)
+                err = float((img - ref).abs().max())
+                ring_ms, peak = frame_stats(lambda: render_tiled_sharded(
+                    shard, cam, mesh, depth=DEPTH, **kw))
+                keys_ms, keys_peak = frame_stats(lambda: render_tiled_keys(
+                    g1m, cam, depth=DEPTH, tile_bands=BANDS, **kw))
+            check(launches == mesh.n_prims, f"ring: {launches} keys "
+                  f"launches in a {mesh.n_prims}-step ring")
+            check(bool(torch.isfinite(img).all()) and err <= FWD_ATOL,
+                  f"ring 1M@{w}x{h}: max |ring − render_tiled_keys| {err} "
+                  f"(limit {FWD_ATOL:g})")
+            say(16, f"render_tiled_sharded on a 1x1 NCCL mesh (one card: "
+                    f"NCCL refuses two ranks on one device, so no larger "
+                    f"mesh and no multi-GPU number), 1M@{w}x{h}: max |diff| "
+                    f"against render_tiled_keys in {BANDS} bands {err:.1e} "
+                    f"(limit {FWD_ATOL:g}); frame {ring_ms:.2f} ms, peak "
+                    f"{peak:.2f} GiB unbanded (render_tiled_keys in {BANDS} "
+                    f"bands {keys_ms:.2f} ms, {keys_peak:.2f} GiB); keys "
+                    f"launches {launches} (one a ring step)")
+
+            wf, hf = CFG_FIT["res"]
+            cam = camera(CFG_FIT["res"], dev)
+            fkw = dict(max_candidates=CFG_FIT["max_candidates"],
+                       max_global=CFG_FIT["max_global"])
+            leaves = {f: getattr(g100k, f).detach().clone()
+                      .requires_grad_() for f in SCENE_FIELDS}
+            ref_leaves = {f: getattr(g100k, f).detach().clone()
+                          .requires_grad_() for f in SCENE_FIELDS}
+            # The shade backward's index_add_ sums in no fixed order on the
+            # card, which the chain to rotations and scales amplifies ~10⁴
+            # (fault F4): both backwards run with torch's deterministic
+            # algorithms, so what is compared is the ring's plumbing.
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                peel_keys_cuda.launches = 0
+                img = render_tiled_sharded(
+                    shard_scene(type(g100k)(mask=g100k.mask, **leaves),
+                                mesh), cam, mesh, depth=DEPTH, **fkw)
+                (img ** 2).sum().backward()
+                launches += peel_keys_cuda.launches
+                ref = render_tiled_keys(type(g100k)(mask=g100k.mask,
+                                                    **ref_leaves),
+                                        cam, depth=DEPTH, **fkw)
+                (ref ** 2).sum().backward()
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            parts = []
+            for f in SCENE_FIELDS:
+                got, want = leaves[f].grad, ref_leaves[f].grad
+                check(bool(torch.isfinite(got).all()),
+                      f"ring gradient of {f} has NaN or inf")
+                e = field_err(got, want)
+                check(e[1] < RING_GRAD_Q99 and e[2] < RING_GRAD_MAX,
+                      f"ring gradient of {f}: {e} (relative L2, q99, max; "
+                      f"limits {RING_GRAD_Q99:g}, {RING_GRAD_MAX:g})")
+                parts.append(f"{f} {e[0]:.1e}/{e[1]:.1e}/{e[2]:.1e}")
+            say(16, f"scene gradients of Σ image² through the ring at 100k@"
+                    f"{wf}x{hf} against render_tiled_keys (both with "
+                    f"deterministic algorithms), relative L2 / q99 "
+                    f"(limit {RING_GRAD_Q99:g}) / max (limit "
+                    f"{RING_GRAD_MAX:g}) of the field's largest: "
+                    + "; ".join(parts) + "; no NaN")
+
+            cam = camera(RING_ORACLE_RES, dev)
+            rays = generate_ray_grid(cam).reshape(-1)
+            with torch.inference_mode():
+                rad, trans = render_sharded(shard_scene(g4k, mesh), rays,
+                                            DEPTH, mesh)
+                ref_rad, ref_trans = composite_rays(g4k, rays, DEPTH)
+            err = max(float((rad - ref_rad).abs().max()),
+                      float((trans - ref_trans).abs().max()))
+            check(err <= FWD_ATOL, f"render_sharded: max |diff| {err} "
+                  f"against composite_rays (limit {FWD_ATOL:g})")
+            say(16, f"render_sharded (the oracle ring) on the {g4k.num}-"
+                    f"splat scene at {RING_ORACLE_RES[0]}x"
+                    f"{RING_ORACLE_RES[1]}: max |diff| {err:.1e} against "
+                    f"composite_rays (limit {FWD_ATOL:g})")
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def bvh_rays(dev):
+    """Seeded origins on a sphere of radius BVH_RADIUS, aimed at the
+    origin."""
+    import numpy as np
+
+    from rtgs_tpu_torch.rays import new_rays
+
+    rng = np.random.default_rng(17)
+    u = rng.standard_normal((BVH_RAYS, 3))
+    origins = BVH_RADIUS * u / np.linalg.norm(u, axis=-1, keepdims=True)
+    dirs = -origins / BVH_RADIUS
+    return new_rays(origins.astype(np.float32), dirs.astype(np.float32),
+                    device=dev)
+
+
+def bvh_brute(g, rays):
+    """Per ray the nearest accepted t1 over all splats, its index (-1 for
+    a miss) and the second-nearest t1 (ties), in chunks of rays."""
+    import torch
+
+    from rtgs_tpu_torch import gaussians as G
+
+    cov_inv = G.inv_covariance(g.quats, g.scales)[None]
+    means, live = g.means[None], g.mask[None] > 0
+    best, idx, second = [], [], []
+    for s in range(0, rays.origins.shape[0], BVH_BRUTE_CHUNK):
+        o = rays.origins[s:s + BVH_BRUTE_CHUNK, None]
+        d = rays.directions[s:s + BVH_BRUTE_CHUNK, None]
+        t1, _ = G.hit(cov_inv, means, o, d)
+        ok = ((t1 > rays.starts[s:s + BVH_BRUTE_CHUNK, None])
+              & (t1 < rays.ends[s:s + BVH_BRUTE_CHUNK, None]) & live)
+        t1 = torch.where(ok, t1, math.inf)
+        two = torch.topk(t1, 2, dim=1, largest=False)
+        best.append(two.values[:, 0])
+        second.append(two.values[:, 1])
+        idx.append(torch.where(torch.isfinite(two.values[:, 0]),
+                               two.indices[:, 0], -1))
+    return torch.cat(best), torch.cat(idx), torch.cat(second)
+
+
+def phase17_bvh_profiling(g1m, g100k, dev):
+    """The LBVH on the 1M scene (build and queries, against brute force),
+    and one torch.profiler trace of a keys render."""
+    import torch
+
+    from rtgs_tpu_torch.bvh import build_lbvh, bvh_hit
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+    from rtgs_tpu_torch.utils.profiling import timed, trace
+
+    n = g1m.num
+    build = timed(build_lbvh, g1m.means, g1m.quats, g1m.scales, g1m.mask,
+                  iters=3)
+    bvh = build_lbvh(g1m.means, g1m.quats, g1m.scales, g1m.mask)
+    leaves = torch.sort(bvh.prim[n - 1:]).values
+    parents = torch.bincount(torch.cat([bvh.left[:n - 1],
+                                        bvh.right[:n - 1]]),
+                             minlength=2 * n - 1)
+    check(torch.equal(leaves, torch.arange(n, device=dev))
+          and int(parents[0]) == 0 and bool((parents[1:] == 1).all()),
+          "LBVH: the leaves are not a permutation or a node has not one "
+          "parent")
+    rays = bvh_rays(dev)
+    query = timed(bvh_hit, bvh, g1m, rays, BVH_MAX_STEPS, iters=3)
+    hit = bvh_hit(bvh, g1m, rays, BVH_MAX_STEPS)
+    t1_b, idx_b, second = bvh_brute(g1m, rays)
+    cut = hit.steps >= BVH_MAX_STEPS
+    done = ~cut
+    tie = (second - t1_b) <= BVH_TIE_RTOL * t1_b.abs()
+    same = (hit.gaussian_idx == idx_b) | tie
+    hit_b = idx_b >= 0
+    rel = ((hit.t1 - t1_b).abs() / t1_b.abs())[done & hit_b]
+    check(bool(same[done].all()), f"LBVH: {int((~same & done).sum())} "
+          f"uncut rays name another splat than brute force (not a tie)")
+    check(bool((hit.gaussian_idx[done & ~hit_b] == -1).all()),
+          "LBVH: an uncut ray hits where brute force misses")
+    check(rel.numel() == 0 or float(rel.max()) <= BVH_T1_RTOL,
+          f"LBVH: t1 of uncut rays off by {float(rel.max())} relative "
+          f"(limit {BVH_T1_RTOL:g})")
+    nearer = (hit.t1 < t1_b * (1 - BVH_T1_RTOL)) & cut
+    check(not bool(nearer.any()), f"LBVH: {int(nearer.sum())} cut rays "
+          f"report a t1 nearer than the true nearest")
+    steps = hit.steps.float()
+    say(17, f"LBVH of the {n}-splat scene: build {build['median_s'] * 1e3:.1f}"
+            f" ms (utils.profiling.timed, median of 3; min "
+            f"{build['min_s'] * 1e3:.1f}); bvh_hit of {BVH_RAYS} rays from a "
+            f"sphere of radius {BVH_RADIUS:g} at max_steps {BVH_MAX_STEPS}: "
+            f"{query['median_s'] * 1e3:.1f} ms; {int(cut.sum())} rays reach "
+            f"max_steps; steps median {float(steps.median()):.0f}, max "
+            f"{int(steps.max())}; {int(done.sum())} uncut rays agree with "
+            f"brute force ({int((done & hit_b).sum())} hits, "
+            f"{int((done & tie & (hit.gaussian_idx != idx_b)).sum())} ties "
+            f"by another index, t1 max relative error "
+            f"{float(rel.max()) if rel.numel() else 0.0:.1e}); no cut ray "
+            f"reports a nearer t1")
+
+    cam = camera(CFG_100K["res"], dev)
+    kw = dict(depth=DEPTH, tile=TILE, max_candidates=CFG_100K["max_candidates"],
+              max_global=CFG_100K["max_global"],
+              bin_narrow=CFG_100K["bin_narrow"])
+    with torch.inference_mode():
+        render_tiled_keys(g100k, cam, **kw)     # warm-up outside the trace
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp):
+                render_tiled_keys(g100k, cam, **kw)
+            path = pathlib.Path(tmp) / "trace.json"
+            events = json.loads(path.read_text())["traceEvents"]
+            size = path.stat().st_size
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    keys = [e for e in kernels if "keys_sid_kernel" in e.get("name", "")]
+    check(keys, f"trace: no keys_sid_kernel among {len(kernels)} device "
+          f"kernels")
+    say(17, f"utils.profiling.trace around a 100k@{cam.buf_size[0]}x"
+            f"{cam.buf_size[1]} keys render: Chrome trace of {size} bytes, "
+            f"{len(kernels)} device kernels, keys_sid_kernel "
+            f"{sum(e.get('dur', 0) for e in keys):.1f} µs")
+
+
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
@@ -2190,15 +2592,19 @@ def run():
         if g is None:
             g = random_scene(cfg["n"], device=dev, **SCENE)
         launches += phase12_bench(cfg, g, dev)
-    del g, g1m, scenes
+    del g, scenes
     with tempfile.TemporaryDirectory() as tmp:
         launches += phase13_keys_cli(g100k, pathlib.Path(tmp))
     fit_keys = phase8_fitbench(g100k, dev, renderer="keys", phase=13)
     say(13, f"step time at 100k@{w}x{h} in this run: keys "
             f"{fit_keys['step_ms']:.2f} ms, pallas {fit['step_ms']:.2f} ms")
-    del g100k
     micro, micro_launches = phase14_kmicro(dev)
     ablate, ablate_launches, floor, floor_launches = phase14_scene_probes(dev)
+    launches += phase15_serve(g1m, dev)
+    g4k = random_scene(ORACLE_N, device=dev, **SCENE_4K)
+    launches += phase16_ring(g1m, g100k, g4k, dev)
+    phase17_bvh_profiling(g1m, g100k, dev)
+    del g1m, g100k, g4k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
 

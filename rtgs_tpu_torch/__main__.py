@@ -4,18 +4,28 @@
   * ``orbit``  — render a turntable sweep of N frames;
   * ``fit``    — optimize a scene against multiview targets (a
     ``transforms.json`` dataset, or orbit renders of the input scene);
-  * ``bench``  — measure rays/s of the chosen renderer on the device.
+  * ``bench``  — measure rays/s of the chosen renderer on the device;
+  * ``serve``  — the interactive browser viewer (orbit camera over HTTP).
 
 Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
-``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ...), plus
-``--device`` (default ``cuda``): with no CUDA device the command fails
-instead of running on the CPU; pass ``--device cpu`` for that. ``render``
-and ``orbit`` run under ``torch.inference_mode()``; ``fit`` trains through
-the fused-payload renderer (``--renderer keys|oracle|tiled`` through those).
-``LOG_LEVEL`` sets logging.
+``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ``--mesh``,
+...), plus ``--device`` (default ``cuda``): with no CUDA device the command
+fails instead of running on the CPU; pass ``--device cpu`` for that.
+``render`` and ``orbit`` run under ``torch.inference_mode()``; ``fit``
+trains through the fused-payload renderer (``--renderer keys|oracle|tiled``
+through those). With ``--mesh rays,prims`` other than ``1,1``, ``render``,
+``orbit`` and ``bench`` render through the ring
+(:func:`rtgs_tpu_torch.parallel.render.render_tiled_sharded`) in one
+process per cell, started by the port's launcher or with
+``--coordinator``/``--num-processes``/``--process-id``; rank 0 alone
+writes files and prints. ``LOG_LEVEL`` sets logging.
 
     python -m rtgs_tpu_torch render -o scene.ply -r 1920,1088 -d 16
     python -m rtgs_tpu_torch fit -o scene.ply -r 512,384 --steps 500
+    python -m rtgs_tpu_torch serve -o scene.ply --port 8000
+    python -m rtgs_tpu_torch.parallel.launcher --num-processes 2 -- \
+        python -m rtgs_tpu_torch render -o scene.ply --mesh 2,1 \
+        --num-processes 2 --device cpu
 """
 
 from __future__ import annotations
@@ -41,6 +51,14 @@ def _res(s: str):
     if len(parts) != 2:
         raise argparse.ArgumentTypeError(
             f"--res wants W,H (e.g. 960,540), got {s!r}")
+    return (int(parts[0]), int(parts[1]))
+
+
+def _mesh(s: str):
+    parts = s.split(",")
+    if len(parts) != 2:
+        raise argparse.ArgumentTypeError(
+            f"--mesh wants rays,prims (e.g. 4,2), got {s!r}")
     return (int(parts[0]), int(parts[1]))
 
 
@@ -87,7 +105,21 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--phi", type=float, default=None,
                    help="Orbit polar angle (default π/2).")
     p.add_argument("--device", type=str, default="cuda",
-                   help="Torch device to render on (default cuda).")
+                   help="Torch device to render on (default cuda; under "
+                        "--mesh each rank takes cuda:<local rank>).")
+    p.add_argument("--mesh", type=_mesh, default=(1, 1),
+                   help="Process mesh rays,prims (e.g. 2,2). Anything "
+                        "other than 1,1 renders render/orbit/bench through "
+                        "the ring over splat shards, one process a cell.")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="Multi-process: rank 0's host:port, or an init "
+                        "URL (tcp://..., file://...); default "
+                        "MASTER_ADDR/MASTER_PORT.")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="Multi-process: world size (default WORLD_SIZE).")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="Multi-process: this process's rank (default "
+                        "RANK).")
 
 
 def _device(args) -> torch.device:
@@ -96,7 +128,29 @@ def _device(args) -> torch.device:
         raise RuntimeError(
             f"--device {args.device}: CUDA is not available; pass "
             "--device cpu to render on the CPU")
+    if args.mesh != (1, 1):
+        from rtgs_tpu_torch.parallel.mesh import rank_device
+
+        return rank_device(dev)
     return dev
+
+
+def _maybe_init_distributed(args) -> bool:
+    """Join the process world when the flags ask for one; returns whether
+    this call joined it."""
+    if args.coordinator or args.num_processes is not None:
+        from rtgs_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
+        return True
+    return False
+
+
+def _is_rank0() -> bool:
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _load(args, device):
@@ -127,16 +181,44 @@ def _render_kwargs(args) -> dict:
     return kw
 
 
-def _render(g, cam, args) -> torch.Tensor:
+def _renderer(g, args):
+    """The function camera → (W, H, 3) image that ``render``, ``orbit`` and
+    ``bench`` call per frame, under ``torch.inference_mode()``. With
+    ``--mesh`` other than 1,1 it renders this rank's shard of ``g`` through
+    the ring (built once here), as the JAX CLI does."""
     from rtgs_tpu_torch.render.api import render, render_progressive
 
     kw = _render_kwargs(args)
-    with torch.inference_mode():
-        if args.sample > 1:
-            return render_progressive(
-                g, cam, depth=args.depth, samples=args.sample,
-                renderer=args.renderer, jitter=args.jitter, **kw)
-        return render(g, cam, depth=args.depth, renderer=args.renderer, **kw)
+    if args.mesh != (1, 1):
+        from rtgs_tpu_torch.parallel.mesh import make_mesh
+        from rtgs_tpu_torch.parallel.render import (render_tiled_sharded,
+                                                    shard_scene)
+
+        log = logging.getLogger(__name__)
+        if kw.pop("tile_bands", None):
+            log.warning("--tile-bands is not supported on the --mesh path; "
+                        "ignored")
+        if args.sample > 1 or args.jitter:
+            log.warning("-s/--sample > 1 and --jitter are not supported on "
+                        "the --mesh path; rendering 1 centered sample")
+        mesh = make_mesh(*args.mesh, device=g.device)
+        shard = shard_scene(g, mesh)
+
+        def frame(cam):
+            with torch.inference_mode():
+                return render_tiled_sharded(shard, cam, mesh,
+                                            depth=args.depth, **kw)
+        return frame
+
+    def frame(cam):
+        with torch.inference_mode():
+            if args.sample > 1:
+                return render_progressive(
+                    g, cam, depth=args.depth, samples=args.sample,
+                    renderer=args.renderer, jitter=args.jitter, **kw)
+            return render(g, cam, depth=args.depth, renderer=args.renderer,
+                          **kw)
+    return frame
 
 
 def _save(path, img: torch.Tensor) -> None:
@@ -149,10 +231,13 @@ def _save(path, img: torch.Tensor) -> None:
 def cmd_render(args):
     device = _device(args)
     g = _load(args, device)
+    frame = _renderer(g, args)
     cam = _camera(args, args.theta, device)
     t0 = time.time()
-    img = _render(g, cam, args).cpu()
+    img = frame(cam).cpu()
     dt = time.time() - t0
+    if not _is_rank0():
+        return
     out = args.output or (args.open.stem + ".png")
     _save(out, img)
     w, h = args.res
@@ -163,13 +248,19 @@ def cmd_render(args):
 def cmd_orbit(args):
     device = _device(args)
     g = _load(args, device)
+    frame = _renderer(g, args)
+    rank0 = _is_rank0()
     outdir = pathlib.Path(args.output or "orbit_frames")
-    outdir.mkdir(parents=True, exist_ok=True)
+    if rank0:
+        outdir.mkdir(parents=True, exist_ok=True)
     for i in range(args.frames):
         cam = _camera(args, args.theta + 2 * math.pi * i / args.frames,
                       device)
-        _save(outdir / f"frame_{i:04d}.png", _render(g, cam, args))
-    print(f"Rendered {args.frames} orbit frames -> {outdir}/")
+        img = frame(cam)
+        if rank0:
+            _save(outdir / f"frame_{i:04d}.png", img)
+    if rank0:
+        print(f"Rendered {args.frames} orbit frames -> {outdir}/")
 
 
 def cmd_fit(args):
@@ -250,16 +341,28 @@ def cmd_bench(args):
     pays per displayed frame; median of max(iters/2, 3))."""
     device = _device(args)
     g = _load(args, device)
+    frame = _renderer(g, args)
     cam = _camera(args, args.theta, device)
-    _render(g, cam, args).cpu()  # warm-up: builds the kernels at first use
-    dt = _median_seconds(lambda: _render(g, cam, args), device, args.iters)
-    d2 = _median_seconds(lambda: _render(g, cam, args).cpu(), device,
+    frame(cam).cpu()  # warm-up: builds the kernels at first use
+    dt = _median_seconds(lambda: frame(cam), device, args.iters)
+    d2 = _median_seconds(lambda: frame(cam).cpu(), device,
                          max(args.iters // 2, 3))
+    if not _is_rank0():
+        return
     rays = args.res[0] * args.res[1]
     print(f"{rays / dt / 1e6:.2f}M rays/s ({dt * 1e3:.1f} ms/frame compute, "
           f"{1.0 / dt:.1f} FPS; {d2 * 1e3:.1f} ms/frame with full image "
           f"readback, {1.0 / d2:.1f} FPS; {g.num} splats, depth "
           f"{args.depth})")
+
+
+def cmd_serve(args):
+    """Serve the browser viewer on ``--port`` until interrupted. The
+    tile-path knobs reach the renderer (the JAX ``serve`` drops them)."""
+    from rtgs_tpu_torch.viewer.server import serve
+
+    device = _device(args)
+    serve(_load(args, device), args, _render_kwargs(args))
 
 
 def main(argv=None):
@@ -305,8 +408,20 @@ def main(argv=None):
     p_bench.add_argument("--iters", type=int, default=10)
     p_bench.set_defaults(func=cmd_bench)
 
+    p_serve = sub.add_parser("serve", help="Interactive browser viewer.")
+    _add_common_flags(p_serve)
+    p_serve.add_argument("--port", type=int, default=8000)
+    p_serve.set_defaults(func=cmd_serve)
+
     args = parser.parse_args(argv)
-    return args.func(args)
+    joined = _maybe_init_distributed(args)
+    try:
+        return args.func(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,50 @@
-"""Training configuration (port of :class:`rtgs_tpu.config.TrainConfig`,
-with the same fields and defaults: the 3DGS paper's standard recipe)."""
+"""Configuration dataclasses (port of :mod:`rtgs_tpu.config`, with the same
+fields and defaults): rendering, scene loading, the (rays, prims) mesh and
+training (the 3DGS paper's standard recipe). The JAX package's
+``KernelConfig`` holds the TPU kernels' A/B options and has no counterpart
+here."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass
+class RenderConfig:
+    """Rendering parameters (the CLI's ``-r``, ``-f``, ``-s``, ``-d``,
+    ``--renderer``, ``--max-candidates``, ``--bin-narrow``)."""
+
+    res: Tuple[int, int] = (960, 540)  # (W, H)
+    fov: float = 90.0                  # vertical FOV, degrees
+    sample: int = 1                    # samples (identical without jitter)
+    depth: int = 16                    # composited layers per ray
+    renderer: str = "auto"
+    tile: Tuple[int, int] = (16, 16)   # pixel tile (W, H) of the tile paths
+    max_candidates: int = 512          # per-tile candidate list width
+    # Narrow-class fan-out width in tiles of the binning (None → 4).
+    bin_narrow: Optional[int] = None
+
+
+@dataclasses.dataclass
+class SceneConfig:
+    """Scene loading. ``bvh_nodes`` is the CLI's ``-v`` (flag parity): the
+    LBVH (:mod:`rtgs_tpu_torch.bvh`) has single-splat leaves, and nothing
+    on the render path traverses it."""
+
+    path: Optional[str] = None
+    scale: float = 1.0
+    sh_layout: str = "inria"
+    bvh_nodes: int = 1024
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Process mesh: the rays axis (tiles data-parallel) × the prims axis
+    (splats sharded, ring pass); :mod:`rtgs_tpu_torch.parallel.mesh`."""
+
+    rays: int = 1
+    prims: int = 1
 
 
 @dataclasses.dataclass
@@ -33,3 +74,11 @@ class TrainConfig:
     # Checkpointing.
     checkpoint_every: int = 1000
     checkpoint_dir: str = "checkpoints"
+
+
+@dataclasses.dataclass
+class Config:
+    render: RenderConfig = dataclasses.field(default_factory=RenderConfig)
+    scene: SceneConfig = dataclasses.field(default_factory=SceneConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

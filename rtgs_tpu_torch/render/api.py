@@ -71,10 +71,59 @@ def render_progressive(g: G.Gaussians, camera: Camera, depth: int = 16,
         generator = torch.Generator().manual_seed(0)
     accum = None
     for s in range(samples):
-        off = None if s == 0 else tuple(
-            (torch.rand(2, generator=generator, dtype=torch.float64)
-             - 0.5).tolist())
+        off = None if s == 0 else _jitter(generator)
         img = render(g, camera, depth=depth, renderer=renderer,
                      pixel_offset=off, **kwargs)
         accum = img if accum is None else accum + img
     return accum / samples
+
+
+def _jitter(generator: torch.Generator):
+    """One uniform subpixel offset (ox, oy) in [−0.5, 0.5)²."""
+    return tuple((torch.rand(2, generator=generator, dtype=torch.float64)
+                  - 0.5).tolist())
+
+
+class ProgressiveSampler:
+    """Stateful sample accumulator (port of
+    :class:`rtgs_tpu.render.api.ProgressiveSampler`): ``sample()`` adds one
+    full render to the buffer, ``clear()`` resets it (on camera motion),
+    ``display()`` divides by the sample count.
+
+    One sample composites all ``depth`` layers at once, so the reference's
+    fractional display denominator (partial peel passes) collapses to the
+    whole sample count, as in the JAX package. With ``jitter``, samples
+    after the first take an offset drawn from ``generator`` (a CPU
+    ``torch.Generator``; seed 0 when omitted) in the order
+    :func:`render_progressive` draws them, so N samples display what
+    ``render_progressive(samples=N, jitter=True)`` returns with a generator
+    of the same seed. ``clear()`` does not rewind the generator."""
+
+    def __init__(self, g: G.Gaussians, camera: Camera, depth: int = 16,
+                 renderer: str = "auto", jitter: bool = False,
+                 generator: torch.Generator | None = None, **kwargs):
+        self._g, self._camera = g, camera
+        self._depth, self._renderer = depth, renderer
+        self._jitter, self._kwargs = jitter, kwargs
+        self._generator = (generator if generator is not None
+                           else torch.Generator().manual_seed(0))
+        self.clear()
+
+    def clear(self):
+        self._buf = None
+        self.num_samples = 0
+
+    def sample(self):
+        off = (None if self.num_samples == 0 or not self._jitter
+               else _jitter(self._generator))
+        img = render(self._g, self._camera, depth=self._depth,
+                     renderer=self._renderer, pixel_offset=off,
+                     **self._kwargs)
+        self._buf = img if self._buf is None else self._buf + img
+        self.num_samples += 1
+        return self
+
+    def display(self) -> torch.Tensor:
+        if self._buf is None:
+            raise RuntimeError("no samples accumulated; call sample() first")
+        return self._buf / self.num_samples

@@ -50,12 +50,14 @@ def _safe_midpoint_alpha(gathered_cov_inv, gathered_means, gathered_opac,
     return torch.where(ok, gathered_opac * rho, 0.0)
 
 
-def topk_hits(g: G.Gaussians, rays: Rays, k: int):
+def topk_hits(g: G.Gaussians, rays: Rays, k: int, with_index: bool = False):
     """The K nearest accepted hits of each ray of a flat bundle (P,),
-    ascending by entry depth t1.
+    ascending by entry depth t1 (ties: the lower splat index first).
 
     Returns ``(t1 (P, K), alpha (P, K), rgb (P, K, 3))``; misses are padded
-    with ``t1 = inf``, ``alpha = 0``, ``rgb = 0``."""
+    with ``t1 = inf``, ``alpha = 0``, ``rgb = 0``. ``with_index``: return
+    ``(t1, index, alpha, rgb)``, with the hits' splat indices (P, K) int64
+    (−1 for a miss), which the ring's merge breaks ties by."""
     cov_inv = G.inv_covariance(g.quats, g.scales)          # (N, 3, 3)
     t1, t2 = G.hit(cov_inv, g.means, rays.origins[..., None, :],
                    rays.directions[..., None, :])          # (P, N)
@@ -78,11 +80,15 @@ def topk_hits(g: G.Gaussians, rays: Rays, k: int):
     rgb = g.colors[idx] + G.eval_sh(g.sh[idx], dirs[..., None, :])
     rgb = torch.where(valid_k[..., None], rgb, 0.0)
 
+    idx = torch.where(valid_k, idx, -1)
     if kk < k:  # scene smaller than K: pad the lists
         pad = k - kk
         t1_k = F.pad(t1_k, (0, pad), value=math.inf)
+        idx = F.pad(idx, (0, pad), value=-1)
         alpha = F.pad(alpha, (0, pad))
         rgb = F.pad(rgb, (0, 0, 0, pad))
+    if with_index:
+        return t1_k, idx, alpha, rgb
     return t1_k, alpha, rgb
 
 

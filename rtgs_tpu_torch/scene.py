@@ -132,6 +132,31 @@ def save_scene(path, g: G.Gaussians, scale: float = 1.0,
     write_ply(path, cols)
 
 
+def pad_scene(g: G.Gaussians, multiple: int) -> G.Gaussians:
+    """Pad N up to a multiple of ``multiple`` (for sharding) with dead
+    Gaussians: ``mask = 0``, unit scale, quaternion w = 1, zero opacity,
+    everything else 0. Every hit test and the binning skip them."""
+    n = g.num
+    pad = -(-n // multiple) * multiple - n
+    if pad == 0:
+        return g
+
+    def pad_arr(x, fill=0.0):
+        return torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+    quats = pad_arr(g.quats)
+    quats[n:, 3] = 1.0   # in place on the fresh tensor
+    return G.Gaussians(
+        means=pad_arr(g.means),
+        quats=quats,
+        scales=pad_arr(g.scales, fill=1.0),
+        colors=pad_arr(g.colors),
+        opacities=pad_arr(g.opacities),
+        sh=pad_arr(g.sh),
+        mask=pad_arr(g.mask),
+    )
+
+
 def random_scene_arrays(n: int, extent: float = 1.0,
                         scale_range=(0.02, 0.1),
                         seed: int = 0) -> Dict[str, np.ndarray]:

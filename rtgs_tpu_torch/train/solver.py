@@ -412,10 +412,14 @@ class Solver:
         self._grad_count = np.zeros(cap, np.int32)
 
     def train(self, num_steps: Optional[int] = None, log_every: int = 50):
-        """Run the loop; returns the last step's metrics."""
+        """Run the loop; returns the last step's metrics. Each step touches
+        the fail-fast launcher's heartbeat file (a no-op without one)."""
+        from rtgs_tpu_torch.parallel.launcher import touch_heartbeat
+
         num_steps = num_steps or self.cfg.iterations
         for _ in range(num_steps):
             metrics = self.train_step()
+            touch_heartbeat()
             if self.step % log_every == 0:
                 logger.info(
                     "step %d: loss=%.5f psnr=%.2f live=%d",

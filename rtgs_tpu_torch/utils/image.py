@@ -3,6 +3,7 @@
 
 from __future__ import annotations
 
+import io
 import pathlib
 
 import numpy as np
@@ -55,3 +56,31 @@ def load_image(path) -> np.ndarray:
     if arr.ndim == 2:
         arr = np.stack([arr] * 3, axis=-1)
     return arr[..., :3].astype(np.float32)
+
+
+def encode_png(arr: np.ndarray) -> bytes:
+    """An (H, W, 3) uint8 image as PNG bytes, through PIL or, failing that,
+    imageio (one of them must be installed)."""
+    buf = io.BytesIO()
+    try:
+        from PIL import Image
+
+        Image.fromarray(arr).save(buf, format="PNG")
+    except ImportError:
+        import imageio.v3 as iio
+
+        iio.imwrite(buf, arr, extension=".png")
+    return buf.getvalue()
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes as an (H, W, 3) uint8 image, through PIL or imageio."""
+    try:
+        from PIL import Image
+
+        return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    except ImportError:
+        import imageio.v3 as iio
+
+        return np.asarray(iio.imread(io.BytesIO(data),
+                                     extension=".png"))[..., :3]

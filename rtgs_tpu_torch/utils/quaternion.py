@@ -26,6 +26,12 @@ def conj(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([-q[..., :3], q[..., 3:4]], dim=-1)
 
 
+def inv(q: torch.Tensor) -> torch.Tensor:
+    """``conj(q) / |q|``: the reference divides by ``|q|``, not ``|q|²``,
+    so this is the inverse of unit quaternions only (kept for parity)."""
+    return conj(q) / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
 def normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
@@ -36,6 +42,15 @@ def from_axis_angle(v: torch.Tensor) -> torch.Tensor:
     safe = torch.where(theta > 0, theta, torch.ones_like(theta))
     axis = torch.where(theta > 0, v / safe * torch.sin(theta / 2), v)
     return torch.cat([axis, torch.cos(theta / 2)], dim=-1)
+
+
+def as_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion → axis-angle vector (zero for the identity)."""
+    theta = torch.arccos(torch.clamp(q[..., 3:4], -1.0, 1.0)) * 2
+    xyz = q[..., :3]
+    norm = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    safe = torch.where(norm > 0, norm, torch.ones_like(norm))
+    return torch.where(norm > 0, xyz / safe * theta, torch.zeros_like(xyz))
 
 
 def rot_vec3(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -51,6 +66,14 @@ def as_rotation_mat3(q: torch.Tensor) -> torch.Tensor:
     shape = q.shape[:-1] + (3,)
     return torch.stack([rot_vec3(q, eye[i].expand(shape)) for i in range(3)],
                        dim=-1)
+
+
+def as_rotation_mat4(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion → (..., 4, 4) homogeneous rotation matrix."""
+    m4 = torch.zeros(q.shape[:-1] + (4, 4), dtype=q.dtype, device=q.device)
+    m4[..., :3, :3] = as_rotation_mat3(q)
+    m4[..., 3, 3] = 1.0
+    return m4
 
 
 def from_rotation_matrix(m) -> torch.Tensor:
