@@ -7,7 +7,11 @@ Needs one CUDA card and nvcc; imports nothing of JAX. Phases, one line
 each (any failure exits non-zero, and nothing falls back to the CPU):
 
   1. device and toolchain: card name and power limit, torch, CUDA, nvcc;
-  2. build the CUDA kernels from the sources in this checkout;
+     and one stamp line: nvcc's release, the GPU driver version,
+     ``torch.__version__``, ``torch.version.cuda`` and whether triton
+     imports;
+  2. build the CUDA kernels (nine sources) from the sources in this
+     checkout;
   3. the keys kernel against its plain torch twin at the main path's
      shapes — 100k splats at 640x384 and 1M splats at 256x192 — bitwise,
      with and without the early-exit bounds, timed with CUDA events (and
@@ -30,17 +34,20 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
   6. the fused-peel kernels (forward and backward) against their plain
      torch twins at the fit configuration (100k splats at 512x384, K 16,
      1536 candidates) and at 1M splats at 256x192: winners' slots bitwise,
-     radiance and transmittance to an absolute tolerance, the backward's
-     (N+1, 64) table gradient against index_add_ of the twin's per-slot
-     gradients, per lane relative to the lane's largest entry, its sentinel
-     row exactly 0; times with CUDA events (both kernels' also with the
-     stream kept busy), the share of pairs the forward sweep's f32 screen
-     rejects; the winners' α against float64 from the same f32 inputs;
+     radiance and transmittance to an absolute tolerance; the backward
+     kernel's pair rows against the twin's per-slot rows, and the (N+1, 64)
+     table gradient (pair rows summed by segment_rows.cu) against index_add_
+     of the twin's per-slot gradients, per lane relative to the lane's
+     largest entry, its sentinel row exactly 0, and a second launch bitwise
+     the first; times with CUDA events (both kernels' also with the
+     stream kept busy; the backward also without its segment sum), the
+     share of pairs the forward sweep's f32 screen rejects; the winners' α
+     against float64 from the same f32 inputs;
   7. the training path through the CLI: ``fit --renderer pallas`` from
      scratch on the 100k scene at 512x384, depth 16, 12 views, 20 steps, 2
      tile bands, a checkpoint every 10 steps; the forward kernel must have
      launched once per band for every target render and every step, the
-     backward kernel once per band for every step;
+     backward kernel and segment_rows.cu once per band for every step;
   8. the fitbench protocol in process: the 100k ground truth perturbed
      (means σ 0.01, log-scales 0.3, color logits 0.5; numpy seed 7), 50
      ``Solver`` steps with one density-control pass and one opacity reset;
@@ -49,8 +56,8 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
   9. the K-list path (the top-K peel, uncomposited) at the fit
      configuration and at 1M splats at 256x192: both top-K kernels against
      their plain twins (slots and t1 bitwise, α and rgb to an absolute
-     tolerance, the (N+1, 64) table gradient per lane as in phase 6); the
-     winners and their
+     tolerance, the (N+1, 64) table gradient per lane as in phase 6, a
+     second launch bitwise the first); the winners and their
      α equal to the fused forward kernel's; the NaN/inf share of each
      output (t1 is +inf exactly on vacant layers); then the main path, a
      scene gradient of Σ w·radiance + Σ transmittance through
@@ -58,8 +65,8 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      ``peel_fused``: images to 1e-5, the packed table's gradient per lane
      to 1e-4 of the lane's largest entry, each scene field's gradient to
      1e-2 of the field's largest entry at the 0.99 quantile (5e-2 for
-     rotations and scales; its maximum and relative L2 norm printed, and
-     beside them the fused path against a second run of itself); times
+     rotations and scales; its maximum and relative L2 norm printed), and
+     the fused path's scene gradient bitwise a second run of itself; times
      with CUDA events, the forward's also with the stream kept busy;
  10. the oracle through the CLI: ``render --renderer oracle`` of a
      4096-splat scene at 640x384 against the keys render of the same scene
@@ -72,10 +79,11 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      at 128x96;
  12. the keys path's backward at the fit configuration: the hand-written
      backward of ``shade_winners_kp`` against torch autograd of its plain
-     forward (per lane, relative to the lane's largest entry); scene
-     gradients of Σ image through ``render_tiled_keys`` against
-     ``render_tiled_pallas`` (phase 9's limits), banded against unbanded,
-     no NaN; then the benchmark protocol of the repository (forward with
+     forward (per lane, relative to the lane's largest entry), bitwise a
+     second run of itself; scene gradients of Σ image through
+     ``render_tiled_keys`` against ``render_tiled_pallas`` (phase 9's
+     limits), banded against unbanded, a second run bitwise the first, no
+     NaN; then the benchmark protocol of the repository (forward with
      the binning counters, and the gradient of Σ image) at its three
      configurations, 100k at 640x384, 250k at 1280x720 and 1M at 1920x1088
      in 8 bands, with zero dropped candidates, peak memory, the device's
@@ -109,15 +117,27 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      device): ``render_tiled_sharded`` of the 1M scene at 1920x1088 against
      ``render_tiled_keys`` to 1e-5, its frame time and peak memory, one keys
      launch a ring step; its scene gradients of Σ image² at the fit
-     configuration against the keys path's at the gates of the JAX
-     package's test; ``render_sharded`` of the 4096-splat scene at 128x96
-     against ``composite_rays`` to 1e-5;
+     configuration, with torch's deterministic mode off, bitwise a second
+     run of themselves and against the keys path's at the gates of the
+     JAX package's test; ``render_sharded`` of the 4096-splat scene at
+     128x96 against ``composite_rays`` to 1e-5;
  17. the LBVH of the 1M scene: build time (``utils.profiling.timed``), the
      tree's structure, ``bvh_hit`` of 1,024 seeded rays at max_steps 4096
      against a brute-force nearest hit (uncut rays: the same splat but for
      ties within 1e-6, t1 to 1e-5; cut rays: never a nearer t1), how many
      rays are cut; and ``utils.profiling.trace`` around a 100k keys render,
-     whose Chrome trace must name the keys kernel.
+     whose Chrome trace must name the keys kernel;
+ 18. determinism, with torch's deterministic mode off (asserted):
+     segment_rows.cu against its CPU twin on the card's inputs (the fused
+     backward's pair rows and the keys path's winner ids at 100k@512x384
+     and 1M@256x192), bitwise, with its time beside index_add_'s; the
+     fused, top-K and keys backwards at those two configurations, each
+     twice, bitwise; the keys path's forward+backward at 1M@1920x1088 in 8
+     bands twice, bitwise; 20 training steps (a density-control pass at
+     step 10) through ``pallas`` and through ``keys`` twice from the same
+     state, every parameter and every step's loss and PSNR bitwise; the
+     ``oracle`` and ``tiled`` gradients twice, printed as bitwise or not
+     (plain torch autograd). Any other mismatch fails the run.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -175,26 +195,26 @@ FIT_STEPS = 50
 # Tiles per call of a plain twin (bounds its (T, P, C) float64 fields).
 PLAIN_BAND = 96
 # Kernel vs twin: same f32 shading in the same order, so radiance and
-# transmittance agree to 1e-5; the backward sums a slot's row in the order
-# of an integer-atomic fill and adds rows into the table with device-memory
-# atomics, in no fixed order, so each lane of the (N+1, 64) table agrees to
-# 1e-4 of the lane's largest entry.
+# transmittance agree to 1e-5; the backward sums each slot's row and each
+# splat's rows in fixed orders (bitwise repeatable), but the twin's
+# products run in torch's elementwise kernels and its table is an
+# index_add_ on the card (no fixed order), so each lane of the (N+1, 64)
+# table agrees to 1e-4 of the lane's largest entry.
 FWD_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
 MIN_PSNR_RISE = 0.5
 # The K-list path against the fused path: the same winners, composited in
 # another summation order (images to FWD_ATOL); the gradient of the packed
 # table through both, per lane, to SCENE_GRAD_RTOL of the lane's largest
-# entry (float atomics sum in no fixed order); that is the kernels' check.
+# entry (another order of f32 operations); that is the kernels' check.
 # The scene gradients, per field, to SCENE_Q99 of the field's largest entry
 # at the 0.99 quantile. The chain from the table to rotations and scales
 # cancels (A, Me and c0 all carry Σ⁻¹, and e = origin − μ is ~500 splat
 # scales long at the bench scene), so the table's f32 rounding grows there
 # by ~10⁴ (on an H100: scales 9.3e-3 and rotations 2.2e-3 at the 0.99
 # quantile at 100k @ 512x384; a few splats dominate even the L2 norm);
-# those two fields are held to ROT_SCALE_Q99. The same statistics of the
-# fused path against a second run of itself (its atomics sum in another
-# order) are printed as the floor, with the maximum and relative L2 norm.
+# those two fields are held to ROT_SCALE_Q99. A second run of the fused
+# path must give its gradient bitwise (no atomics on either stage).
 SCENE_GRAD_RTOL = 1e-4
 SCENE_Q99 = 1e-2
 ROT_SCALE_Q99 = 5e-2
@@ -287,6 +307,27 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def toolchain_stamp(nvcc_version: str) -> str:
+    """nvcc's release, the GPU driver version, torch and its CUDA, and whether
+    triton imports (no kernel of the port is Triton yet; a later one may)."""
+    import torch
+
+    release = re.search(r"release ([^,\s]+)", nvcc_version)
+    gpu_driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+    try:
+        import triton
+
+        tri = f"triton {triton.__version__} imports"
+    except Exception as e:  # noqa: BLE001 - any failure is the answer
+        tri = f"triton does not import ({type(e).__name__})"
+    return (f"nvcc release {release.group(1) if release else '?'}, GPU "
+            f"driver {gpu_driver}, torch {torch.__version__}, "
+            f"torch.version.cuda {torch.version.cuda}, {tri}")
 
 
 def ptxas_summary(log: str) -> str:
@@ -891,6 +932,7 @@ def phase6_case(label, g, cfg, dev):
 
     _, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
     t = cand.shape[0]
+    swept = torch.arange(cand.shape[1], device=dev) < counts[:, None]
 
     def kernel():
         return peel_fused_cuda(packed, cand, counts, pix, DEPTH)
@@ -924,11 +966,31 @@ def phase6_case(label, g, cfg, dev):
                 packed, c, q, sl, gr, gt),
             t, cand, pix, sl_k, g_rad, g_tr)
 
+    def kernel_pairs():
+        return peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k, g_rad,
+                                   g_tr, DEPTH, table=False)
+
+    def plain_pairs():
+        return plain_in_bands(
+            lambda c, q, sl, gr, gt: peel_fused_bwd_torch(packed, c, q, sl,
+                                                          gr, gt),
+            t, cand, pix, sl_k, g_rad, g_tr)
+
     d_k, d_p = kernel_bwd(), plain_bwd()
     torch.cuda.synchronize()
     bwd_abs, bwd_lane = table_errors(f"{label}: backward", d_k, d_p)
+    check(torch.equal(kernel_bwd(), d_k), f"{label}: a second launch of the "
+          f"backward gives another table gradient")
+    del d_p
+    rows_k, ids_k = kernel_pairs()
+    check(torch.equal(ids_k, cand[swept]), f"{label}: the backward kernel's "
+          f"pair ids are not the swept candidates")
+    pair_lane, pair_same = pair_rows_against_twin(label, rows_k,
+                                                  plain_pairs(), swept)
+    del rows_k, ids_k
     ms, ms_plain = time_ms(kernel), time_ms(plain)
     ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
+    ms_pairs, ms_pairs_plain = time_ms(kernel_pairs), time_ms(plain_pairs)
     alpha = alpha_precision(packed, cand, pix, sl_k)
     t, c = cand.shape
     say(6, f"fused {label}: T={t} C={c} P={pix.shape[1]} K={DEPTH}: winners "
@@ -936,8 +998,12 @@ def phase6_case(label, g, cfg, dev):
            f"(limit {FWD_ATOL:g}); backward max |diff| {bwd_abs:.3e}, per "
            f"lane {bwd_lane:.3e} of the lane's largest (limit "
            f"{BWD_LANE_RTOL:g}); forward kernel {ms:.3f} ms, twin "
-           f"{ms_plain:.3f} ms; backward kernel {ms_bwd:.3f} ms, twin "
-           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5)")
+           f"{ms_plain:.3f} ms; backward kernel {ms_bwd:.3f} ms with its "
+           f"segment sum ({ms_pairs:.3f} ms without), twin "
+           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5); a second "
+           f"backward bitwise the first; its {int(swept.sum())} pair rows "
+           f"against the twin's per-slot rows: per lane {pair_lane:.3e} of "
+           f"the lane's largest, {pair_same}")
     say(6, f"alpha {label}: {alpha['n']} winners vs float64 from the same "
            f"f32 inputs: median rel err {alpha['median']:.3e}, p99.9 "
            f"{alpha['p999']:.3e}, max {alpha['max']:.3e}; {alpha['zeroed']} "
@@ -947,14 +1013,37 @@ def phase6_case(label, g, cfg, dev):
     ms_busy = busy_ms(kernel)
     say(6, f"fused {label} with the stream kept busy (device time without "
            f"the wrapper's host time): forward kernel {ms_busy:.3f} ms "
-           f"({ms:.3f} around the wrapper); backward kernel "
-           f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
-           f"gradient, sentinel row exactly 0; the forward sweep's f32 "
+           f"({ms:.3f} around the wrapper); backward kernel with its segment "
+           f"sum {busy_ms(kernel_bwd):.3f} ms, without "
+           f"{busy_ms(kernel_pairs):.3f} ms; its result is the (N+1, 64) "
+           f"table gradient, sentinel row exactly 0; the forward sweep's f32 "
            f"screen rejects {rejected} of {pairs} (pixel, live candidate) "
            f"pairs = {rejected / pairs:.2%} before the float64 chain")
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
                 ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, ms_busy=ms_busy,
+                ms_pairs=ms_pairs, ms_pairs_plain=ms_pairs_plain,
                 shape=launch_shape(packed, cand, pix, sl_k))
+
+
+def pair_rows_against_twin(label, rows, per_slot, swept):
+    """A backward kernel's pair rows (M, 64) against the twin's per-slot
+    rows (T, C, 64) of the swept slots: within ``BWD_LANE_RTOL`` of each
+    lane's largest entry, lanes 59:64 exactly 0. Returns the worst lane's
+    share and whether the two are bitwise equal (the same products summed
+    in the same order; torch's elementwise kernels may round a product
+    otherwise)."""
+    ref = per_slot[swept]
+    check(rows.shape == ref.shape, f"{label}: {tuple(rows.shape)} pair rows "
+          f"for {tuple(ref.shape)} swept slots")
+    check(bool((rows[:, 59:] == 0).all()), f"{label}: pair rows have "
+          f"padding lanes")
+    lane = float(((rows - ref).abs().amax(0)
+                  / (ref.abs().amax(0) + 1e-30)).max())
+    check(lane <= BWD_LANE_RTOL, f"{label}: pair rows per-lane error {lane}")
+    n_diff = int((rows != ref).any(1).sum())
+    same = ("bitwise equal" if n_diff == 0 else
+            f"{n_diff} of {rows.shape[0]} rows differ in some bit")
+    return lane, same
 
 
 FIT_LINE = re.compile(r"fit (\d+) steps: loss=(\S+) psnr=(\S+) live=(\d+) "
@@ -967,7 +1056,8 @@ def phase7_fit_cli(g, tmp):
 
     from rtgs_tpu_torch.__main__ import main as cli
     from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
-                                         peel_fused_cuda, peel_keys_cuda)
+                                         peel_fused_cuda, peel_keys_cuda,
+                                         segment_rows_cuda)
     from rtgs_tpu_torch.scene import save_scene
 
     ply, out, ckpt = tmp / "scene_100k.ply", tmp / "fit.ply", tmp / "ckpt"
@@ -981,7 +1071,7 @@ def phase7_fit_cli(g, tmp):
             "--tile-bands", str(FIT_CLI_BANDS), "--checkpoint-every", "10",
             "--output", str(out), "--checkpoint-dir", str(ckpt)]
     peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
-    peel_keys_cuda.launches = 0
+    peel_keys_cuda.launches = segment_rows_cuda.launches = 0
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
@@ -989,17 +1079,21 @@ def phase7_fit_cli(g, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = peel_fused_cuda.launches, peel_fused_bwd_cuda.launches
+    seg = segment_rows_cuda.launches
     line = printed.getvalue().strip()
     say(7, f"CLI {' '.join(argv[:1] + argv[3:])}: {wall:.2f} s wall (scene "
            f"load, {FIT_VIEWS} target renders and {FIT_CLI_STEPS} steps); "
            f"printed '{line}'; fused forward launches {fwd} (expected "
            f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + {FIT_CLI_STEPS})), backward "
-           f"{bwd} (expected {FIT_CLI_BANDS} x {FIT_CLI_STEPS}); keys "
-           f"kernel {peel_keys_cuda.launches}")
+           f"{bwd} (expected {FIT_CLI_BANDS} x {FIT_CLI_STEPS}), its "
+           f"segment sum {seg} (as many); keys kernel "
+           f"{peel_keys_cuda.launches}")
     check(fwd == FIT_CLI_BANDS * (FIT_VIEWS + FIT_CLI_STEPS),
           f"fused forward launched {fwd} times")
     check(bwd == FIT_CLI_BANDS * FIT_CLI_STEPS,
           f"fused backward launched {bwd} times")
+    check(seg == bwd, f"segment_rows launched {seg} times for {bwd} fused "
+          f"backwards")
     m = FIT_LINE.search(line)
     check(m is not None, f"fit printed no result line: {line!r}")
     loss, psnr = float(m.group(2)), float(m.group(3))
@@ -1009,7 +1103,7 @@ def phase7_fit_cli(g, tmp):
     for step in (10, 20):
         check((ckpt / f"step_{step}.pt").is_file(),
               f"no checkpoint for step {step}")
-    return fwd, bwd
+    return fwd, bwd, seg
 
 
 def step_stages(solver, kw):
@@ -1064,31 +1158,18 @@ def step_stages(solver, kw):
     return out
 
 
-def phase8_fitbench(g, dev, renderer="pallas", phase=8):
-    """Re-fit the perturbed 100k scene in process through ``renderer``;
-    returns the numbers. The per-stage and per-kernel times of a step are
-    the fused path's and are taken only for ``pallas``."""
+def refit_solver(g, ds, renderer, steps):
+    """The fitbench protocol's solver on the views ``ds``: the ground truth
+    ``g`` perturbed (means σ 0.01, log-scales 0.3, color logits 0.5; numpy
+    seed 7), one density-control pass half way through ``steps`` and one
+    opacity reset after the last step (a reset inside them would leave no
+    steps to recover)."""
     import numpy as np
     import torch
 
     from rtgs_tpu_torch.config import TrainConfig
-    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, peel_fused_bwd_cuda,
-                                         peel_fused_cuda)
-    from rtgs_tpu_torch.render.binning import tile_candidates
-    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
-                                             pack_features,
-                                             precompute_features,
-                                             render_tiled_pallas)
-    from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
     from rtgs_tpu_torch.train.solver import Solver, init_params
 
-    kw = dict(max_candidates=CFG_FIT["max_candidates"],
-              max_global=CFG_FIT["max_global"])
-    t0 = time.perf_counter()
-    ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
-                                 fov=POSE["fov"], radius=POSE["r"],
-                                 depth=DEPTH, renderer=renderer, **kw)
-    t_data = time.perf_counter() - t0
     params = init_params(g)
     rng = np.random.default_rng(7)
 
@@ -1099,15 +1180,41 @@ def phase8_fitbench(g, dev, renderer="pallas", phase=8):
     params = params._replace(means=noisy(params.means, 0.01),
                              log_scales=noisy(params.log_scales, 0.3),
                              color_logits=noisy(params.color_logits, 0.5))
-    # One density-control pass half way, one opacity reset after the last
-    # step (a reset inside 50 steps would leave no steps to recover).
+    mid = steps // 2
+    cfg = TrainConfig(iterations=steps, densify_from=mid, densify_until=mid,
+                      densify_every=mid, opacity_reset_every=steps,
+                      checkpoint_every=0)
+    return Solver(params=params, mask=g.mask, cfg=cfg,
+                  cameras=list(ds.cameras), targets=list(ds.images),
+                  depth=DEPTH, renderer=renderer,
+                  render_kwargs=dict(max_candidates=CFG_FIT["max_candidates"],
+                                     max_global=CFG_FIT["max_global"]))
+
+
+def phase8_fitbench(g, dev, renderer="pallas", phase=8):
+    """Re-fit the perturbed 100k scene in process through ``renderer``;
+    returns the numbers. The per-stage and per-kernel times of a step are
+    the fused path's and are taken only for ``pallas``."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, peel_fused_bwd_cuda,
+                                         peel_fused_cuda)
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             pack_features,
+                                             precompute_features,
+                                             render_tiled_pallas)
+    from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
+
+    kw = dict(max_candidates=CFG_FIT["max_candidates"],
+              max_global=CFG_FIT["max_global"])
+    t0 = time.perf_counter()
+    ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
+                                 fov=POSE["fov"], radius=POSE["r"],
+                                 depth=DEPTH, renderer=renderer, **kw)
+    t_data = time.perf_counter() - t0
+    solver = refit_solver(g, ds, renderer, FIT_STEPS)
     mid = FIT_STEPS // 2
-    cfg = TrainConfig(iterations=FIT_STEPS, densify_from=mid,
-                      densify_until=mid, densify_every=mid,
-                      opacity_reset_every=FIT_STEPS, checkpoint_every=0)
-    solver = Solver(params=params, mask=g.mask, cfg=cfg,
-                    cameras=list(ds.cameras), targets=list(ds.images),
-                    depth=DEPTH, renderer=renderer, render_kwargs=kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live0 = solver.num_live
@@ -1265,6 +1372,8 @@ def phase9_case(label, g, cfg, dev):
     d_k, d_p = kernel_bwd(), plain_bwd()
     torch.cuda.synchronize()
     bwd_abs, bwd_lane = table_errors(f"{label}: top-K backward", d_k, d_p)
+    check(torch.equal(kernel_bwd(), d_k), f"{label}: a second launch of the "
+          f"top-K backward gives another table gradient")
     del lay_p, sl_p, d_p, alpha_f
 
     # The main path: a scene gradient through the K-list, composited
@@ -1305,32 +1414,53 @@ def phase9_case(label, g, cfg, dev):
     check(pk_err <= SCENE_GRAD_RTOL, f"{label}: K-list gradient of the "
           f"packed table differs from the fused path's by {pk_err} per lane")
     grads_f2 = scene_grad(False)[2]
+    grads_k2 = scene_grad(True)[2]
 
-    grad_errs, floor_errs = {}, {}
+    grad_errs = {}
+    for f in (*SCENE_FIELDS, "packed"):
+        check(torch.equal(grads_f2[f], grads_f[f]), f"{label}: a second "
+              f"run of peel_fused gives another gradient of {f}")
+        check(torch.equal(grads_k2[f], grads_k[f]), f"{label}: a second "
+              f"run of the K-list path gives another gradient of {f}")
     for f in SCENE_FIELDS:
         check(bool(torch.isfinite(grads_k[f]).all()),
               f"{label}: non-finite scene gradient of {f}")
         grad_errs[f] = field_err(grads_k[f], grads_f[f])
-        floor_errs[f] = field_err(grads_f2[f], grads_f[f])
         limit = ROT_SCALE_Q99 if f in ("quats", "scales") else SCENE_Q99
         check(grad_errs[f][1] <= limit, f"{label}: K-list scene gradient "
               f"of {f} differs from the fused path's by {grad_errs[f]} "
               f"(relative L2, q99 and max of the field's largest; q99 "
               f"limit {limit:g})")
-    del grads_f2
+    del grads_f2, grads_k2
 
+    def kernel_pairs():
+        return peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay,
+                                  DEPTH, table=False)
+
+    def plain_pairs():
+        return plain_in_bands(
+            lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl, gl),
+            t, cand, pix, sl_k, g_lay)
+
+    swept = torch.arange(cand.shape[1], device=dev) < counts[:, None]
+    pair_lane, pair_same = pair_rows_against_twin(
+        f"{label}: top-K", kernel_pairs()[0], plain_pairs(), swept)
     ms, ms_plain = time_ms(kernel), time_ms(plain)
     ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
+    ms_pairs, ms_pairs_plain = time_ms(kernel_pairs), time_ms(plain_pairs)
     c = cand.shape[1]
     say(9, f"top-K {label}: T={t} C={c} P={p} K={DEPTH}: slots and t1 "
            f"bitwise equal to the twin's, α/rgb max |diff| {fwd_err:.3e} "
            f"(limit {FWD_ATOL:g}); winners bitwise the fused kernel's, α "
            f"max |diff| {alpha_err:.3e} from the fused winners' α; backward "
            f"max |diff| {bwd_abs:.3e}, per lane {bwd_lane:.3e} of the "
-           f"lane's largest (limit {BWD_LANE_RTOL:g}); forward kernel "
-           f"{ms:.3f} ms, twin {ms_plain:.3f} ms; backward kernel "
-           f"{ms_bwd:.3f} ms, twin {ms_bwd_plain:.3f} ms (CUDA events, "
-           f"median of 5)")
+           f"lane's largest (limit {BWD_LANE_RTOL:g}), a second launch "
+           f"bitwise the first; forward kernel {ms:.3f} ms, twin "
+           f"{ms_plain:.3f} ms; backward kernel with its segment sum "
+           f"{ms_bwd:.3f} ms ({ms_pairs:.3f} without), twin "
+           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5); its pair rows "
+           f"against the twin's per-slot rows: per lane {pair_lane:.3e} of "
+           f"the lane's largest, {pair_same}")
     pairs, rejected = sweep_screen_share(packed, cand, counts, pix, sl_k)
     say(9, f"top-K {label} with the stream kept busy (device time without "
            f"the wrapper's host time): forward kernel {busy_ms(kernel):.3f} "
@@ -1347,16 +1477,15 @@ def phase9_case(label, g, cfg, dev):
            f"times; image vs peel_fused max |diff| {comp_err:.3e} (limit "
            f"{FWD_ATOL:g}); packed-table gradient vs peel_fused per lane "
            f"{pk_err:.2e} of the lane's largest (limit "
-           f"{SCENE_GRAD_RTOL:g}); scene gradient vs peel_fused [and "
-           f"peel_fused vs a second run of itself], relative L2 / q99 "
-           f"(limit {SCENE_Q99:g}, quats and scales {ROT_SCALE_Q99:g}) / "
-           f"max of the field's largest: "
-           + ", ".join(f"{k} {l2:.1e}/{q:.1e}/{m:.1e} "
-                       f"[{fl[0]:.1e}/{fl[1]:.1e}/{fl[2]:.1e}]"
-                       for (k, (l2, q, m)), fl in zip(grad_errs.items(),
-                                                      floor_errs.values())))
+           f"{SCENE_GRAD_RTOL:g}); scene gradient vs peel_fused, relative "
+           f"L2 / q99 (limit {SCENE_Q99:g}, quats and scales "
+           f"{ROT_SCALE_Q99:g}) / max of the field's largest: "
+           + ", ".join(f"{k} {l2:.1e}/{q:.1e}/{m:.1e}"
+                       for k, (l2, q, m) in grad_errs.items())
+           + "; a second run of each path gives every gradient bitwise")
     return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
                 ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, launches=launches,
+                ms_pairs=ms_pairs, ms_pairs_plain=ms_pairs_plain,
                 shape=launch_shape(packed, cand, pix, sl_k))
 
 
@@ -1615,6 +1744,8 @@ def phase12_gradients(g, dev):
 
     d_hand, d_auto = table_grad(shade_winners_kp), table_grad(_shade_forward)
     torch.cuda.synchronize()
+    check(torch.equal(table_grad(shade_winners_kp), d_hand), "shade "
+          "backward: a second run gives another table gradient")
     n = packed.shape[0] - 1
     check(bool(torch.isfinite(d_hand).all()), "shade backward: non-finite")
     check(bool((d_hand[n] == 0).all()), "shade backward: the sentinel row "
@@ -1631,8 +1762,9 @@ def phase12_gradients(g, dev):
             f"P={pix.shape[1]}, vacant {vacant:.2%}): backward vs torch "
             f"autograd of the plain forward, per lane {lane:.3e} of the "
             f"lane's largest (limit {BWD_LANE_RTOL:g}), sentinel row exactly "
-            f"0; forward+backward {ms_hand:.2f} ms, through autograd "
-            f"{ms_auto:.2f} ms (CUDA events, median of 3)")
+            f"0, a second run bitwise the first; forward+backward "
+            f"{ms_hand:.2f} ms, through autograd {ms_auto:.2f} ms (CUDA "
+            f"events, median of 3)")
     del d_hand, d_auto, cots
 
     kw = dict(max_candidates=CFG_FIT["max_candidates"],
@@ -1649,19 +1781,20 @@ def phase12_gradients(g, dev):
         check(bool(torch.isfinite(gk[f]).all())
               and bool(torch.isfinite(gb[f]).all()),
               f"non-finite keys-path gradient of {f}")
+        check(torch.equal(gk2[f], gk[f]), f"keys scene gradient of {f}: a "
+              f"second run gives another gradient")
         limit = ROT_SCALE_Q99 if f in ("quats", "scales") else SCENE_Q99
-        errs = [field_err(gk[f], gp[f]), field_err(gb[f], gk[f]),
-                field_err(gk2[f], gk[f])]
+        errs = [field_err(gk[f], gp[f]), field_err(gb[f], gk[f])]
         for label, e in zip(("vs pallas", "banded vs unbanded"), errs):
             check(e[1] <= limit, f"keys scene gradient of {f} {label}: "
                   f"{e} (relative L2, q99, max; q99 limit {limit:g})")
         parts.append(f"{f} " + " ".join(
             f"{e[0]:.1e}/{e[1]:.1e}/{e[2]:.1e}" for e in errs))
     say(12, f"scene gradients of Σ image at 100k@{w}x{h}, keys vs pallas | "
-            f"keys in 2 bands vs unbanded | keys vs a second run of itself, "
-            f"each relative L2 / q99 (limit {SCENE_Q99:g}, quats and scales "
-            f"{ROT_SCALE_Q99:g}) / max of the field's largest: "
-            + "; ".join(parts) + f"; image keys vs pallas max |diff| "
+            f"keys in 2 bands vs unbanded, each relative L2 / q99 (limit "
+            f"{SCENE_Q99:g}, quats and scales {ROT_SCALE_Q99:g}) / max of "
+            f"the field's largest: " + "; ".join(parts) + f"; keys vs a "
+            f"second run of itself bitwise; image keys vs pallas max |diff| "
             f"{img_err:.2e}, banded image bitwise the unbanded one; no NaN")
 
 
@@ -1777,12 +1910,13 @@ BENCH_LINE = re.compile(r"([\d.]+)M rays/s \(([\d.]+) ms/frame compute")
 
 def phase13_keys_cli(g, tmp):
     """``fit --renderer keys`` and ``bench`` through the CLI; returns the
-    keys kernel's launches."""
+    keys kernel's launches and segment_rows.cu's (one a band backward)."""
     import torch
 
     from rtgs_tpu_torch.__main__ import main as cli
     from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
-                                         peel_fused_cuda, peel_keys_cuda)
+                                         peel_fused_cuda, peel_keys_cuda,
+                                         segment_rows_cuda)
     from rtgs_tpu_torch.scene import save_scene
 
     ply, out = tmp / "scene_100k.ply", tmp / "fit_keys.ply"
@@ -1796,7 +1930,7 @@ def phase13_keys_cli(g, tmp):
             str(FIT_CLI_STEPS), "--from-scratch", "--tile-bands",
             str(FIT_CLI_BANDS), "--output", str(out)]
     peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
-    peel_keys_cuda.launches = 0
+    peel_keys_cuda.launches = segment_rows_cuda.launches = 0
     printed = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
@@ -1804,16 +1938,21 @@ def phase13_keys_cli(g, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fit_launches = peel_keys_cuda.launches
+    seg = segment_rows_cuda.launches
     want = FIT_CLI_BANDS * (FIT_VIEWS + 2 * FIT_CLI_STEPS)
     line = printed.getvalue().strip()
     say(13, f"CLI fit --renderer keys ({FIT_VIEWS} views, {FIT_CLI_STEPS} "
             f"steps, {FIT_CLI_BANDS} bands): {wall:.2f} s wall; printed "
             f"'{line}'; keys kernel launches {fit_launches} (expected "
             f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + 2 x {FIT_CLI_STEPS}): every "
-            f"step runs each band twice); fused kernels "
+            f"step runs each band twice); segment_rows {seg} (expected "
+            f"{FIT_CLI_BANDS} x {FIT_CLI_STEPS}: a band backward each); "
+            f"fused kernels "
             f"{peel_fused_cuda.launches}/{peel_fused_bwd_cuda.launches}")
     check(fit_launches == want, f"keys kernel launched {fit_launches} times "
           f"in fit --renderer keys, expected {want}")
+    check(seg == FIT_CLI_BANDS * FIT_CLI_STEPS, f"segment_rows launched "
+          f"{seg} times in fit --renderer keys")
     check(peel_fused_cuda.launches == 0 and peel_fused_bwd_cuda.launches == 0,
           "fit --renderer keys launched the fused kernels")
     m = FIT_LINE.search(line)
@@ -1839,7 +1978,7 @@ def phase13_keys_cli(g, tmp):
           f"bench printed {line!r}")
     check(bench_launches == frames, f"keys kernel launched {bench_launches} "
           f"times in bench, expected {frames}")
-    return fit_launches + bench_launches
+    return fit_launches + bench_launches, seg
 
 
 def same_bits(got, ref):
@@ -2353,45 +2492,52 @@ def phase16_ring(g1m, g100k, g4k, dev):
             cam = camera(CFG_FIT["res"], dev)
             fkw = dict(max_candidates=CFG_FIT["max_candidates"],
                        max_global=CFG_FIT["max_global"])
-            leaves = {f: getattr(g100k, f).detach().clone()
-                      .requires_grad_() for f in SCENE_FIELDS}
-            ref_leaves = {f: getattr(g100k, f).detach().clone()
+
+            def ring_grads():
+                leaves = {f: getattr(g100k, f).detach().clone()
                           .requires_grad_() for f in SCENE_FIELDS}
-            # The shade backward's index_add_ sums in no fixed order on the
-            # card, which the chain to rotations and scales amplifies ~10⁴
-            # (fault F4): both backwards run with torch's deterministic
-            # algorithms, so what is compared is the ring's plumbing.
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                peel_keys_cuda.launches = 0
                 img = render_tiled_sharded(
                     shard_scene(type(g100k)(mask=g100k.mask, **leaves),
                                 mesh), cam, mesh, depth=DEPTH, **fkw)
                 (img ** 2).sum().backward()
-                launches += peel_keys_cuda.launches
-                ref = render_tiled_keys(type(g100k)(mask=g100k.mask,
-                                                    **ref_leaves),
-                                        cam, depth=DEPTH, **fkw)
-                (ref ** 2).sum().backward()
-                torch.cuda.synchronize()
-            finally:
-                torch.use_deterministic_algorithms(False)
-            parts = []
+                return {f: x.grad for f, x in leaves.items()}
+
+            # The shade backward sums by splat in a fixed order
+            # (segment_rows.cu), so no deterministic mode is asked for.
+            check(not torch.are_deterministic_algorithms_enabled(),
+                  "torch's deterministic mode is on")
+            peel_keys_cuda.launches = 0
+            ring = ring_grads()
+            launches += peel_keys_cuda.launches
+            ring2 = ring_grads()
+            ref_leaves = {f: getattr(g100k, f).detach().clone()
+                          .requires_grad_() for f in SCENE_FIELDS}
+            ref = render_tiled_keys(type(g100k)(mask=g100k.mask,
+                                                **ref_leaves),
+                                    cam, depth=DEPTH, **fkw)
+            (ref ** 2).sum().backward()
+            torch.cuda.synchronize()
+            parts, same = [], []
             for f in SCENE_FIELDS:
-                got, want = leaves[f].grad, ref_leaves[f].grad
+                got, want = ring[f], ref_leaves[f].grad
                 check(bool(torch.isfinite(got).all()),
                       f"ring gradient of {f} has NaN or inf")
+                check(torch.equal(ring2[f], got), f"ring gradient of {f}: "
+                      f"a second run gives another gradient")
                 e = field_err(got, want)
                 check(e[1] < RING_GRAD_Q99 and e[2] < RING_GRAD_MAX,
                       f"ring gradient of {f}: {e} (relative L2, q99, max; "
                       f"limits {RING_GRAD_Q99:g}, {RING_GRAD_MAX:g})")
                 parts.append(f"{f} {e[0]:.1e}/{e[1]:.1e}/{e[2]:.1e}")
+                if torch.equal(got, want):
+                    same.append(f)
             say(16, f"scene gradients of Σ image² through the ring at 100k@"
-                    f"{wf}x{hf} against render_tiled_keys (both with "
-                    f"deterministic algorithms), relative L2 / q99 "
-                    f"(limit {RING_GRAD_Q99:g}) / max (limit "
-                    f"{RING_GRAD_MAX:g}) of the field's largest: "
-                    + "; ".join(parts) + "; no NaN")
+                    f"{wf}x{hf} (torch's deterministic mode off), a second "
+                    f"run bitwise the first; against render_tiled_keys, "
+                    f"relative L2 / q99 (limit {RING_GRAD_Q99:g}) / max "
+                    f"(limit {RING_GRAD_MAX:g}) of the field's largest: "
+                    + "; ".join(parts) + f"; bitwise equal for "
+                    f"{', '.join(same) or 'no field'}; no NaN")
 
             cam = camera(RING_ORACLE_RES, dev)
             rays = generate_ray_grid(cam).reshape(-1)
@@ -2529,6 +2675,249 @@ def phase17_bvh_profiling(g1m, g100k, dev):
             f"{sum(e.get('dur', 0) for e in keys):.1f} µs")
 
 
+def segment_bound(m, n):
+    """segment_rows.cu's bound: M rows of 64 f32 and their ids read once,
+    n rows written once, against one f32 add a lane and input row."""
+    return bound((m + n) * 64 * 4 + 4 * m, f32_ops=64 * m)
+
+
+def phase18_segment_case(label, g, cfg, dev):
+    """segment_rows.cu on the card's inputs at one configuration: the fused
+    backward's pair rows (its stage 1) and the keys path's winners (their
+    ids, as the shade backward lists them, with random rows), against
+    segment_rows_torch on the CPU and against a second launch; then the
+    fused, top-K and keys backwards, each twice, bitwise. Returns the
+    segment sum's numbers at both inputs."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
+                                         peel_fused_cuda, peel_keys_cuda,
+                                         peel_topk_bwd_cuda,
+                                         segment_rows_cuda,
+                                         segment_rows_torch)
+    from rtgs_tpu_torch.render.tiled import shade_winners_kp
+
+    _, packed, cand, counts, lb, pix = keys_inputs(g, cfg, dev)
+    n = packed.shape[0]
+    t, p = cand.shape[0], pix.shape[1]
+    _, _, sl = peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+    _, sid = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    g_rad = torch.randn((t, 3, p), generator=gen, device=dev)
+    g_tr = torch.randn((t, p), generator=gen, device=dev)
+    g_lay = torch.randn((t, 4, DEPTH, p), generator=gen, device=dev)
+    cots = [torch.randn(sid.shape, generator=gen, device=dev)
+            for _ in range(4)]
+    ids_w = sid[sid >= 0].contiguous()
+    inputs = {
+        "pair rows": peel_fused_bwd_cuda(packed, cand, counts, pix, sl, g_rad,
+                                         g_tr, DEPTH, table=False),
+        "winner rows": (torch.randn((ids_w.shape[0], 64), generator=gen,
+                                    device=dev), ids_w)}
+    out, parts = {}, []
+    for what, (rows, ids) in inputs.items():
+        got = segment_rows_cuda(rows, ids, n)
+        check(torch.equal(segment_rows_cuda(rows, ids, n), got),
+              f"{label} {what}: a second segment_rows launch differs")
+        rows_c, ids_c = rows.cpu(), ids.cpu()
+        want = segment_rows_torch(rows_c, ids_c, n)
+        mag = segment_rows_torch(rows_c.abs(), ids_c, n)
+        diff = (got.cpu() - want).abs()
+        n_diff = int((diff > 0).any(1).sum())
+        check(bool((diff <= 1e-6 * mag).all()), f"{label} {what}: "
+              f"segment_rows.cu against its CPU twin: {n_diff} rows differ, "
+              f"max |diff| {float(diff.max())}")
+        ids_l, acc = ids.long(), torch.zeros((n, 64), device=dev)
+        m = rows.shape[0]
+        b_ms, b_by = segment_bound(m, n)
+        out[what] = dict(
+            m=m, n=n, err=float(diff.max()), bitwise=n_diff == 0,
+            ms=time_ms(lambda: segment_rows_cuda(rows, ids, n)),
+            busy=busy_ms(lambda: segment_rows_cuda(rows, ids, n)),
+            plain_ms=time_ms(lambda: segment_rows_torch(rows, ids, n)),
+            library_ms=time_ms(lambda: acc.index_add_(0, ids_l, rows)),
+            bound_ms=b_ms, bound_by=b_by)
+        o = out[what]
+        parts.append(
+            f"{what} M={m} into N+1={n}: "
+            + ("bitwise the CPU twin" if o["bitwise"] else
+               f"{n_diff} rows off the CPU twin, max |diff| {o['err']:.1e} "
+               f"(within 1e-6 of Σ|rows|)")
+            + f", {o['ms']:.4f} ms ({o['busy']:.4f} busy) against the plain "
+            f"version's {o['plain_ms']:.4f} and index_add_ alone "
+            f"{o['library_ms']:.4f}; bound {b_ms:.4f} ms ({b_by})")
+    del inputs, rows, ids, acc
+
+    def keys_bwd():
+        leaf = packed.detach().clone().requires_grad_()
+        torch.autograd.backward(shade_winners_kp(leaf, sid, pix), cots)
+        return leaf.grad
+
+    runs = {
+        "fused": lambda: peel_fused_bwd_cuda(packed, cand, counts, pix, sl,
+                                             g_rad, g_tr, DEPTH),
+        "top-K": lambda: peel_topk_bwd_cuda(packed, cand, counts, pix, sl,
+                                            g_lay, DEPTH),
+        "keys": keys_bwd}
+    for name, fn in runs.items():
+        first = fn()
+        check(torch.equal(fn(), first), f"{label}: the {name} backward "
+              f"gives another table gradient on a second run")
+        check(bool((first[-1] == 0).all()), f"{label}: the {name} "
+              f"backward's sentinel row is not 0")
+    say(18, f"{label}: segment_rows.cu, " + "; ".join(parts)
+            + f"; the fused, top-K and keys backwards ({t} tiles, K "
+            f"{DEPTH}) each twice: bitwise equal (CUDA events, median of 5)")
+    return out
+
+
+def train_twice(g, renderer):
+    """Phase 8's re-fit cut to FIT_CLI_STEPS steps (a density-control pass
+    half way), twice from the same state through ``renderer``; every
+    parameter, the mask and every step's loss and PSNR must be bitwise
+    equal. Returns the first and the last step's PSNR and the live splats.
+    """
+    import torch
+
+    from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
+
+    ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
+                                 fov=POSE["fov"], radius=POSE["r"],
+                                 depth=DEPTH, renderer=renderer,
+                                 max_candidates=CFG_FIT["max_candidates"],
+                                 max_global=CFG_FIT["max_global"])
+    runs = []
+    for _ in range(2):
+        solver = refit_solver(g, ds, renderer, FIT_CLI_STEPS)
+        log = [solver.train_step() for _ in range(FIT_CLI_STEPS)]
+        torch.cuda.synchronize()
+        runs.append((solver.params, solver.mask, log))
+    (pa, ma, la), (pb, mb, lb) = runs
+    check(la == lb, f"{renderer}: the two fits logged other losses or PSNR")
+    check(torch.equal(ma, mb), f"{renderer}: the two fits keep other splats")
+    for name, a, b in zip(pa._fields, pa, pb):
+        check(torch.equal(a, b), f"{renderer}: the two fits end with another "
+              f"{name}")
+    return la[0]["psnr"], lb[-1]["psnr"], int(mb.sum())
+
+
+def grads_twice(render, g, cam, **kw):
+    """The scene gradient of Σ image through ``render``, twice; the fields
+    whose two gradients are not bitwise equal."""
+    import torch
+
+    def once():
+        leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+                  for f in SCENE_FIELDS}
+        render(type(g)(mask=g.mask, **leaves), cam, depth=DEPTH,
+               **kw).sum().backward()
+        return {f: x.grad for f, x in leaves.items()}
+
+    a, b = once(), once()
+    torch.cuda.synchronize()
+    return [f for f in SCENE_FIELDS if not torch.equal(a[f], b[f])]
+
+
+def torch_scatter_repeats(dev):
+    """Whether the two scatters torch autograd runs in the secondary
+    renderers' backwards repeat bitwise on the card: the backward of an
+    advanced index with repeated ids (index_put_ with accumulation; the
+    splats' features gathered per tile in ``intersect_candidates``) and of
+    ``gather`` (scatter_add_; the picks of ``peel_block`` and the oracle's
+    top-K)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    src = torch.randn((4096, 64), generator=gen, device=dev)
+    idx = torch.randint(0, 4096, (1 << 20,), generator=gen, device=dev)
+    cot = torch.randn((1 << 20, 64), generator=gen, device=dev)
+    gidx = torch.randint(0, 64, (1 << 14, 64), generator=gen, device=dev)
+    gcot = torch.randn((1 << 14, 64), generator=gen, device=dev)
+
+    def index_bwd():
+        x = src.clone().requires_grad_()
+        (x[idx] * cot).sum().backward()
+        return x.grad
+
+    def gather_bwd():
+        x = torch.randn((1 << 14, 64), device=dev).requires_grad_()
+        (x.gather(1, gidx) * gcot).sum().backward()
+        return x.grad
+
+    return {name: torch.equal(fn(), fn()) for name, fn in (
+        ("index backward (index_put_ accumulate)", index_bwd),
+        ("gather backward (scatter_add_)", gather_bwd))}
+
+
+def phase18_determinism(g100k, g1m, g4k, dev):
+    """Every backward of the port twice, bitwise, with torch's deterministic
+    mode off; returns segment_rows.cu's numbers at the fit configuration
+    and its launches in the 1M forward+backward."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import segment_rows_cuda
+    from rtgs_tpu_torch.render.oracle import render_oracle
+    from rtgs_tpu_torch.render.tiled import render_tiled, render_tiled_keys
+
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "torch's deterministic mode is on")
+    w, h = CFG_FIT["res"]
+    seg = phase18_segment_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    seg_1m = phase18_segment_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+
+    wf, hf = FULL_RES
+    kw = dict(max_candidates=3584, max_global=BENCH_MAX_GLOBAL, bin_narrow=4,
+              tile_bands=BANDS)
+    cam = camera(FULL_RES, dev)
+    segment_rows_cuda.launches = 0
+    img_a, ga = scene_grads(g1m, cam, render_tiled_keys, **kw)
+    torch.cuda.synchronize()
+    launches = segment_rows_cuda.launches
+    img_b, gb = scene_grads(g1m, cam, render_tiled_keys, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(img_a, img_b), "keys 1M image differs between runs")
+    for f in SCENE_FIELDS:
+        check(torch.equal(ga[f], gb[f]), f"keys 1M@{wf}x{hf}: a second "
+              f"forward+backward gives another gradient of {f}")
+    check(launches == BANDS, f"segment_rows launched {launches} times in a "
+          f"{BANDS}-band backward")
+    del ga, gb, img_a, img_b
+    say(18, f"keys path forward+backward of Σ image at 1M@{wf}x{hf} in "
+            f"{BANDS} bands, twice: image and every scene gradient bitwise "
+            f"equal; segment_rows launched {launches} times a backward (one "
+            f"a band)")
+
+    fits = {r: train_twice(g100k, r) for r in ("pallas", "keys")}
+    say(18, f"{FIT_CLI_STEPS} training steps at 100k@{w}x{h} ({FIT_VIEWS} "
+            f"views, a density-control pass at step {FIT_CLI_STEPS // 2}), "
+            f"twice from the same state: "
+            + "; ".join(f"{r}: every parameter, the mask and every step's "
+                        f"loss and PSNR bitwise equal (PSNR {first:.4f} -> "
+                        f"{last:.4f} dB, {live} live)"
+                        for r, (first, last, live) in fits.items()))
+
+    cam_o = camera(SMALL_FIT["res"], dev)
+    cam_t = camera(CFG_FIT["res"], dev)
+    secondary = {
+        f"oracle ({g4k.num} splats at {SMALL_FIT['res'][0]}x"
+        f"{SMALL_FIT['res'][1]})": grads_twice(
+            lambda s, c, depth: render_oracle(s, c, depth=depth), g4k,
+            cam_o),
+        f"tiled (100k@{w}x{h})": grads_twice(
+            render_tiled, g100k, cam_t, tile=TILE,
+            max_candidates=CFG_FIT["max_candidates"],
+            max_global=CFG_FIT["max_global"])}
+    scatters = torch_scatter_repeats(dev)
+    say(18, "plain torch autograd renderers, scene gradient twice: "
+            + "; ".join(f"{k}: " + ("bitwise equal" if not v else
+                                    f"{', '.join(v)} differ")
+                        for k, v in secondary.items())
+            + "; torch's own scatters on the card, twice: "
+            + "; ".join(f"{k} {'bitwise' if v else 'NOT bitwise'}"
+                        for k, v in scatters.items()))
+    return seg, seg_1m, launches
+
+
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
@@ -2546,6 +2935,7 @@ def run():
            f"{torch.cuda.device_count()} | torch {torch.__version__} CUDA "
            f"{torch.version.cuda} | python {sys.version.split()[0]} | "
            f"{nvcc.strip().splitlines()[-1]}")
+    say(1, f"toolchain: {toolchain_stamp(nvcc)}")
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2575,8 +2965,8 @@ def run():
     fused_fit = phase6_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
     fused_1m = phase6_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        fwd_launches, bwd_launches = phase7_fit_cli(g100k,
-                                                    pathlib.Path(tmp))
+        fwd_launches, bwd_launches, seg_launches = phase7_fit_cli(
+            g100k, pathlib.Path(tmp))
     fit = phase8_fitbench(g100k, dev)
 
     topk_fit = phase9_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
@@ -2594,7 +2984,9 @@ def run():
         launches += phase12_bench(cfg, g, dev)
     del g, scenes
     with tempfile.TemporaryDirectory() as tmp:
-        launches += phase13_keys_cli(g100k, pathlib.Path(tmp))
+        keys_cli, seg_keys = phase13_keys_cli(g100k, pathlib.Path(tmp))
+    launches += keys_cli
+    seg_launches += seg_keys
     fit_keys = phase8_fitbench(g100k, dev, renderer="keys", phase=13)
     say(13, f"step time at 100k@{w}x{h} in this run: keys "
             f"{fit_keys['step_ms']:.2f} ms, pallas {fit['step_ms']:.2f} ms")
@@ -2604,6 +2996,8 @@ def run():
     g4k = random_scene(ORACLE_N, device=dev, **SCENE_4K)
     launches += phase16_ring(g1m, g100k, g4k, dev)
     phase17_bvh_profiling(g1m, g100k, dev)
+    seg_fit, seg_1m, seg_bench = phase18_determinism(g100k, g1m, g4k, dev)
+    seg = seg_fit["pair rows"]
     del g1m, g100k, g4k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
@@ -2648,7 +3042,7 @@ def run():
              fused_fit["ms"], fused_fit["ms_plain"], fused_fit["shape"]),
         peel("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
              max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
-             fused_fit["ms_bwd"], fused_fit["ms_bwd_plain"],
+             fused_fit["ms_pairs"], fused_fit["ms_pairs_plain"],
              fused_fit["shape"]),
         peel("peel_topk_fwd", "peel_topk_fwd.cu", 892,
              topk_fit["launches"][0] + topk_1m["launches"][0],
@@ -2657,7 +3051,8 @@ def run():
         peel("peel_topk_bwd", "peel_topk_bwd.cu", 913,
              topk_fit["launches"][1] + topk_1m["launches"][1],
              max(topk_fit["bwd_err"], topk_1m["bwd_err"]),
-             topk_fit["ms_bwd"], topk_fit["ms_bwd_plain"], topk_fit["shape"]),
+             topk_fit["ms_pairs"], topk_fit["ms_pairs_plain"],
+             topk_fit["shape"]),
         # The probe families: times, bounds and plain times summed over the
         # family's variants (one launch of each), the largest error.
         family("probe_micro", "probe_micro.cu", "scripts/kmicro.py:34",
@@ -2666,15 +3061,26 @@ def run():
                ablate_launches, ablate),
         family("probe_floor", "probe_floor.cu", "scripts/lpprobe.py:162",
                floor_launches, floor),
+        # Stage 2 of peel_bwd's and peel_topk_bwd's gradient and of the
+        # keys path's: the scatter-add by splat that follows _bwd_kernel's
+        # launch (:1322) in the JAX function. library_ms: index_add_, one
+        # PyTorch call of the same sum (in no fixed order on the card).
+        entry("segment_rows", "segment_rows.cu", "rtgs_tpu/ops/peel.py:1381",
+              seg_launches, max(c["err"] for case in (seg_fit, seg_1m)
+                                for c in case.values()),
+              seg["ms"], seg["plain_ms"], seg["bound_ms"], seg["bound_by"],
+              seg["library_ms"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
               f"main path")
         lib = ""
-        if k["library_ms"] is not None:
+        if k.get("library_variants"):
             lib = (f"; {', '.join(k['library_variants'])} as single PyTorch "
                    f"calls {k['library_ms']:.4f} ms against the kernels' "
                    f"{k['library_kernel_ms']:.4f} ms")
+        elif k["library_ms"] is not None:
+            lib = f"; one PyTorch call {k['library_ms']:.4f} ms"
         say(14, f"{k['name']}: {k['ms']:.4f} ms against a bound of "
                 f"{k['bound_ms']:.4f} ms ({k['bound_by']}): "
                 f"{k['bound_ms'] / k['ms']:.1%} of the card's peak; "
@@ -2682,8 +3088,11 @@ def run():
     say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
            f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd and "
            f"peel_topk_fwd/peel_topk_bwd ms, plain_ms and bound_ms below "
-           f"are 100k@{w}x{h}, keys_sid's 100k@640x384; the probe families' "
-           f"are sums over their variants")
+           f"are 100k@{w}x{h} (the backwards' their stage 1 alone), "
+           f"segment_rows' the fused backward's pair rows there (launches: "
+           f"the fused fit's and the keys fit's; {seg_bench} more in phase "
+           f"18's 1M forward+backward), keys_sid's 100k@640x384; the probe "
+           f"families' are sums over their variants")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

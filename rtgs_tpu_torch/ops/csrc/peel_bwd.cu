@@ -18,19 +18,20 @@
 // two quotients of the quadratic), runs the prefix and suffix recurrences
 // in registers and puts each winning layer's seven gradient scalars into
 // shared memory. contract_slot_grads() then sums them per slot over the
-// tile's pixels and adds one row a (tile, winning slot) into the table:
-// no float atomic in shared memory, no dense block.
+// tile's pixels and stores one row a (tile, slot) pair into the compacted
+// buffer dslot (stage 1); segment_rows.cu adds the pairs' rows into the
+// (N+1, 64) table, each splat's in pair order (stage 2). No float atomic,
+// no dense block.
 //
 // Bound. Bytes: the winners' rows read once (59 lanes, shared by a tile's
-// pixels through L1), the slots and cotangents, and one 236-byte row added
-// a live pair. Per (pixel, layer) ~150 f32 flops. The kernel's time is the
-// scattered row reads of the shading and the device-memory adds of the
-// rows (one a (tile, winning slot) and lane), not arithmetic.
+// pixels through L1), the slots and cotangents, and one 256-byte pair row
+// written a live pair. Per (pixel, layer) ~150 f32 flops. The kernel's time
+// is the scattered row reads of the shading, not arithmetic.
 //
 // Numerics. f32 throughout, the scalars in the order of
-// rtgs_tpu_torch.ops.peel.peel_fused_bwd_torch; a slot's sum runs in the
-// order its entries were filled and rows of different tiles meet in
-// device-memory atomics, so the result varies run to run in its low bits.
+// rtgs_tpu_torch.ops.peel.peel_fused_bwd_torch and each slot's sum in the
+// order of its _slot_grads (pixel group, layer, pixel): the result depends
+// on the inputs alone, bitwise, run after run.
 
 #include "peel_common.cuh"
 
@@ -45,13 +46,17 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ slots,
                     const float* __restrict__ grad_rad,
                     const float* __restrict__ grad_trans,
-                    float* __restrict__ dpacked, int C, int P, int depth) {
+                    const int* __restrict__ pair_base,
+                    float* __restrict__ dslot,
+                    int* __restrict__ pair_ids, int C, int P, int depth) {
   extern __shared__ __align__(16) unsigned char smem[];
   GradStage& stage = *reinterpret_cast<GradStage*>(smem);
 
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
   const int n_slots = counts[t];
+  float* dslot_t = dslot + static_cast<size_t>(pair_base[t]) * kFeat;
+  init_pair_rows(dslot_t, pair_ids + pair_base[t], cand_t, n_slots);
 
   for (int p0 = 0; p0 < P; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
@@ -123,7 +128,8 @@ __global__ void __launch_bounds__(kThreads)
         stage.put(k - k0, ga_alpha * qa[k], 2.f * (ga_alpha * qb[k]),
                   -ga_alpha, gk[k] * rho[k], cr[k], cg[k], cb[k]);
       }
-      contract_slot_grads<K>(stage, sl, k0, cand_t, n_slots, pix_g, dpacked);
+      contract_slot_grads<K>(stage, sl, k0, n_slots, pix_g, dslot_t,
+                             p0 == 0 && k0 == 0);
     }
   }
 }
@@ -133,20 +139,22 @@ __global__ void __launch_bounds__(kThreads)
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
 // f32, slots (T, depth, P) i32 (the forward's, −1 vacant), grad_rad
-// (T, 3, P) f32, grad_trans (T, P) f32; dpacked (N+1, 64) f32, which the
-// kernel adds into (the caller zero-fills it).
+// (T, 3, P) f32, grad_trans (T, P) f32, pair_base (T,) i32 (the exclusive
+// prefix sum of counts); dslot (M, 64) f32 and pair_ids (M,) i32, M =
+// Σ counts, which the kernel fills: row pair_base[t] + s is slot s of tile
+// t's gradient row (zero where the slot never won) and its id cand[t, s].
 extern "C" int rtgs_peel_bwd(const float* packed, const int* cand,
                              const int* counts, const float* pix,
                              const int* slots, const float* grad_rad,
-                             const float* grad_trans, float* dpacked, int T,
-                             int C, int P, int depth, int device,
-                             void* stream) {
+                             const float* grad_trans, const int* pair_base,
+                             float* dslot, int* pair_ids, int T, int C, int P,
+                             int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
     constexpr int K = decltype(cap)::value;
     if (!grad_stage_opt_in<peel_bwd_kernel<K>>(device)) return;
     peel_bwd_kernel<K><<<T, warp_threads_for(P), sizeof(GradStage),
                          static_cast<cudaStream_t>(stream)>>>(
-        packed, cand, counts, pix, slots, grad_rad, grad_trans, dpacked, C, P,
-        depth);
+        packed, cand, counts, pix, slots, grad_rad, grad_trans, pair_base,
+        dslot, pair_ids, C, P, depth);
   });
 }

@@ -4,8 +4,10 @@
 // float64 entry depth, the staging of a candidate chunk and its sweep into
 // a pixel's top-K list (by splat id for the keys kernel, by candidate slot
 // for the peels: sweep_topk), the f32 shading of one winner, the contraction of the winners'
-// per-layer gradient scalars over a tile's pixels into the (N+1, 64)
-// feature table, and the launch dispatch over the list capacity K.
+// per-layer gradient scalars over a tile's pixels into one row a (tile,
+// slot) pair (stage 1 of the backward; segment_rows.cu adds the pairs' rows
+// into the (N+1, 64) feature table), and the launch dispatch over the list
+// capacity K.
 //
 // Replaces the shared bodies of rtgs_tpu/ops/peel.py: _intersect_t1 and
 // _merge_topk (the sweep) and _sweep2_feature_grads (the contraction).
@@ -28,8 +30,10 @@
 // (T, C, 64) block. Per slot the gradient row is a sum over pixels of seven
 // scalars times per-pixel vectors, a reduction: contract_slot_grads()
 // groups a tile's winners by slot with an integer counting sort in shared
-// memory, sums each slot's row in registers (a warp a slot), and adds one
-// row a (tile, winning slot) straight into the table.
+// memory, sums each slot's row in registers (a warp a slot, its entries in
+// ascending order), and stores one row a (tile, slot) pair into a
+// compacted buffer; segment_rows.cu then sums each splat's pairs in pair
+// order. No float atomic anywhere: the gradient is bitwise repeatable.
 //
 // Numerics. The entry depth runs in float64 from the f32 tables and is
 // rounded to f32 once (B² and 4A·c0 cancel in Δ), with the operations and
@@ -450,21 +454,32 @@ __device__ __forceinline__ const float* winner_row(
 //   11:14 g_rgb     14:59 g_rgb·y per channel; 59:64 stay 0:
 // seven scalars (dA, 2dB, −ga·α, ga·ρ, gr, gg, gb) times lanes of the
 // pixel's own row (fd, d, 1, y). A slot's row is the sum of that over the
-// pixels it won: a reduction. The kernels put the seven scalars of every
-// winning layer into shared memory (GradStage::put), kPassLayers layers a
-// pass, and contract_slot_grads() then
-//   B. groups the entries by slot with a counting sort: an integer
-//      histogram over the tile's slots (kRange slots a round), a block
-//      prefix sum that also compacts the winning slots, and a fill, all
-//      with integer atomics;
+// pixels it won: a reduction, in two deterministic stages, as the JAX
+// backward's per-(tile, candidate) block and its segment_sum. The kernels
+// put the seven scalars of every winning layer into shared memory
+// (GradStage::put), kPassLayers layers a pass, and contract_slot_grads()
+// then
+//   B. groups the entries by slot with a stable counting sort: an integer
+//      histogram over the tile's slots (kRange slots a round, integer
+//      atomics: the counts are exact), a block prefix sum that also
+//      compacts the winning slots, and a fill that leaves each slot's
+//      entries in ascending entry index, layer-major within the pass, then
+//      pixel (layer by layer and warp by warp between barriers, the lanes
+//      of a warp ranked by __match_any_sync: an atomic fill would leave
+//      them in the order the threads happened to run);
 //   C. gives every winning slot to a warp, whose 32 lanes own row lanes ℓ
-//      and ℓ + 32, walk the slot's entries and sum scalar(ℓ)·pixel(ℓ) in
-//      registers; and adds the finished row into the table row
-//      dpacked[cand[t, slot]] with red.global.add.f32.
-// No float atomic in shared memory, no (T, C, 64) block, no zero-fill by
-// the kernel; a vacant layer writes nothing, so the sentinel row stays 0.
-// The sums run in the fill's order and rows of different tiles meet in
-// device-memory atomics: results agree run to run to f32 rounding only.
+//      and ℓ + 32, sum scalar(ℓ)·pixel(ℓ) in registers over the slot's
+//      entries in that order and store the finished row into the pair's
+//      row of the compacted buffer dslot_t[slot] (the tile's rows start at
+//      pair_base[t] = Σ counts of the tiles before it). A later pass, or
+//      pixel group, reads the row back and goes on adding: the block owns
+//      it, so that is a plain read-add-store, and the row is the sum over
+//      (pixel group, layer, pixel) in that order, the order of
+//      rtgs_tpu_torch.ops.peel._slot_grads.
+// The block zero-fills its rows first (init_pair_rows, which also writes
+// each row's splat id for stage 2), so a slot that never wins, a −1 gap
+// and lanes 59:64 hold exact zeros. No float atomic, no (T, C, 64) block:
+// Σ counts rows of 64 lanes.
 constexpr int kPassLayers = 8;   // layers a contraction pass
 constexpr int kRange = 2048;     // slots a histogram round
 constexpr int kEntries = kPassLayers * kThreads;
@@ -509,15 +524,33 @@ __device__ __forceinline__ void row_lane_factors(int l, int& si, int& fi) {
   else { si = 6; fi = l - 35; }
 }
 
+// Before a tile's first pass: zero its n_slots pair rows (16-byte stores)
+// and write each row's splat id (cand_t[slot], −1 for a gap) into
+// pair_ids_t. Every thread of the block calls this; the barrier each pass
+// starts with orders these stores before the contraction's.
+__device__ __forceinline__ void init_pair_rows(
+    float* __restrict__ dslot_t, int* __restrict__ pair_ids_t,
+    const int* __restrict__ cand_t, int n_slots) {
+  float4* rows = reinterpret_cast<float4*>(dslot_t);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = threadIdx.x; i < n_slots * (kFeat / 4); i += blockDim.x)
+    rows[i] = zero;
+  for (int i = threadIdx.x; i < n_slots; i += blockDim.x)
+    pair_ids_t[i] = cand_t[i];
+}
+
 // Phases B and C for one pass: sl[k] (k in [k0, k0 + kPassLayers)) are the
 // slots of this thread's layers whose scalars st holds (−1: none), n_slots
-// the tile's swept slots, pix_g the pix row of the group's first pixel.
-// Every thread of the block must call this; blockDim.x is a multiple of 32
-// and at most kThreads.
+// the tile's swept slots, pix_g the pix row of the group's first pixel,
+// dslot_t the tile's pair rows; fresh: no earlier pass has written them
+// (they still hold the zero fill, so they need not be read). Every thread
+// of the block must call this; blockDim.x is a multiple of 32 and at most
+// kThreads.
 template <int K>
 __device__ __forceinline__ void contract_slot_grads(
-    GradStage& st, const int (&sl)[K], int k0, const int* __restrict__ cand_t,
-    int n_slots, const float* __restrict__ pix_g, float* __restrict__ dpacked) {
+    GradStage& st, const int (&sl)[K], int k0, int n_slots,
+    const float* __restrict__ pix_g, float* __restrict__ dslot_t,
+    bool fresh) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = nt >> 5;
   int si0, fi0, si1, fi1;
@@ -568,20 +601,43 @@ __device__ __forceinline__ void contract_slot_grads(
     const int n_won = st.total & 0xffffu;
     if (n_won == 0) continue;
 
+    // The fill, stable: a slot's entries in ascending index, that is layer
+    // by layer, and within a layer warp by warp (a barrier after each), a
+    // lane placed after the same-slot lanes below it in its warp. The
+    // integer order is all that the barriers buy: the counts were exact.
+    const unsigned below = (1u << lane) - 1;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      const int s = sl[k] - r0;
-      if (k >= k0 && k < k0 + kPassLayers && s >= 0 && s < n)
-        st.order[atomicAdd(&st.offs[s], 1)] =
-            static_cast<unsigned short>(GradStage::entry(k - k0));
+      if (k < k0 || k >= k0 + kPassLayers) continue;  // the same in all
+      const int s0 = sl[k] - r0;
+      const int s = s0 >= 0 && s0 < n ? s0 : -1;
+      const unsigned peers = __match_any_sync(0xffffffffu, s);
+      for (int w = 0; w < n_warps; ++w) {
+        if (warp == w) {
+          const int at = s >= 0 ? st.offs[s] : 0;
+          __syncwarp();
+          if (s >= 0) {
+            st.order[at + __popc(peers & below)] =
+                static_cast<unsigned short>(GradStage::entry(k - k0));
+            if ((peers & below) == 0) st.offs[s] = at + __popc(peers);
+          }
+        }
+        __syncthreads();
+      }
     }
-    __syncthreads();  // offs[s] is now the end of slot s's entries
+    // offs[s] is now the end of slot s's entries.
 
+    const bool upper = lane + 32 < kLanes;  // row lane ℓ + 32 exists
     for (int j = warp; j < n_won; j += n_warps) {
       const int s = st.wslot[j];
       const int begin = j > 0 ? st.offs[st.wslot[j - 1]] : 0;
       const int end = st.offs[s];
-      float acc0 = 0.f, acc1 = 0.f;
+      float* row = dslot_t + static_cast<size_t>(r0 + s) * kFeat;
+      float acc0 = 0.f, acc1 = 0.f;  // the zero fill, unread in the first
+      if (!fresh) {                  // pass; after it, the row so far
+        acc0 = row[lane];
+        if (upper) acc1 = row[lane + 32];
+      }
       for (int i = begin; i < end; ++i) {
         const int e = st.order[i];
         const float* q = pix_g + (e & (kThreads - 1)) * kPixFeat;
@@ -590,9 +646,8 @@ __device__ __forceinline__ void contract_slot_grads(
         acc0 = acc0 + st.sc[si0 * kLaneStride + e] * f0;
         acc1 = acc1 + st.sc[si1 * kLaneStride + e] * f1;
       }
-      float* row = dpacked + static_cast<size_t>(cand_t[r0 + s]) * kFeat;
-      atomicAdd(row + lane, acc0);
-      if (lane + 32 < kLanes) atomicAdd(row + lane + 32, acc1);
+      row[lane] = acc0;
+      if (upper) row[lane + 32] = acc1;
     }
   }
 }

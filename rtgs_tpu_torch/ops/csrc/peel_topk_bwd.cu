@@ -13,16 +13,17 @@
 // cotangents, shades each winner's quadratic once in f32, and the rest is
 // peel_bwd.cu without its suffix recurrences: the seven gradient scalars of
 // every winning layer go into shared memory, and contract_slot_grads()
-// (peel_common.cuh) sums them per slot over the tile's pixels and adds one
-// row a (tile, winning slot) into the table.
+// (peel_common.cuh) sums them per slot over the tile's pixels into one row
+// a (tile, slot) pair of the compacted buffer dslot (stage 1);
+// segment_rows.cu adds those into the table (stage 2).
 //
 // Bound. As peel_bwd.cu: bytes (the winners' rows' first 11 lanes, 16 bytes
-// of cotangents a (pixel, layer) read coalesced, one 236-byte row added a
-// live pair); ~100 f32 flops a (pixel, layer).
+// of cotangents a (pixel, layer) read coalesced, one 256-byte pair row
+// written a live pair); ~100 f32 flops a (pixel, layer).
 //
 // Numerics. f32, the scalars in the order of
-// rtgs_tpu_torch.ops.peel.peel_topk_bwd_torch; sums as peel_bwd.cu, so the
-// result varies run to run in its low bits.
+// rtgs_tpu_torch.ops.peel.peel_topk_bwd_torch; sums as peel_bwd.cu, in an
+// order fixed by the inputs: bitwise repeatable.
 
 #include "peel_common.cuh"
 
@@ -38,7 +39,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                          const float* __restrict__ pix,
                          const int* __restrict__ slots,
                          const float* __restrict__ grad_layers,
-                         float* __restrict__ dpacked, int C, int P,
+                         const int* __restrict__ pair_base,
+                         float* __restrict__ dslot,
+                         int* __restrict__ pair_ids, int C, int P,
                          int depth) {
   extern __shared__ __align__(16) unsigned char smem[];
   GradStage& stage = *reinterpret_cast<GradStage*>(smem);
@@ -46,6 +49,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t = blockIdx.x;
   const int* cand_t = cand + static_cast<size_t>(t) * C;
   const int n_slots = counts[t];
+  float* dslot_t = dslot + static_cast<size_t>(pair_base[t]) * kFeat;
+  init_pair_rows(dslot_t, pair_ids + pair_base[t], cand_t, n_slots);
   // Lane l of layer k of pixel p: grad_layers[((t·4 + l)·depth + k)·P + p].
   const float* grad_t =
       grad_layers + static_cast<size_t>(t) * kCotangents * depth * P;
@@ -84,7 +89,8 @@ __global__ void __launch_bounds__(kThreads, 2)
         stage.put(k - k0, d_a, 2.f * d_b, -ga_alpha, g_a * qd.rho,
                   g[lane_stride], g[2 * lane_stride], g[3 * lane_stride]);
       }
-      contract_slot_grads<K>(stage, sl, k0, cand_t, n_slots, pix_g, dpacked);
+      contract_slot_grads<K>(stage, sl, k0, n_slots, pix_g, dslot_t,
+                             p0 == 0 && k0 == 0);
     }
   }
 }
@@ -94,18 +100,21 @@ __global__ void __launch_bounds__(kThreads, 2)
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
 // f32, slots (T, depth, P) i32 (the forward's, −1 vacant), grad_layers
-// (T, 4, depth, P) f32 (lanes ∂α, ∂r, ∂g, ∂b); dpacked (N+1, 64) f32,
-// which the kernel adds into (the caller zero-fills it).
+// (T, 4, depth, P) f32 (lanes ∂α, ∂r, ∂g, ∂b), pair_base (T,) i32; dslot
+// (M, 64) f32 and pair_ids (M,) i32, which the kernel fills as peel_bwd.cu
+// does.
 extern "C" int rtgs_peel_topk_bwd(const float* packed, const int* cand,
                                   const int* counts, const float* pix,
                                   const int* slots, const float* grad_layers,
-                                  float* dpacked, int T, int C, int P,
+                                  const int* pair_base, float* dslot,
+                                  int* pair_ids, int T, int C, int P,
                                   int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
     constexpr int K = decltype(cap)::value;
     if (!grad_stage_opt_in<peel_topk_bwd_kernel<K>>(device)) return;
     peel_topk_bwd_kernel<K><<<T, warp_threads_for(P), sizeof(GradStage),
                               static_cast<cudaStream_t>(stream)>>>(
-        packed, cand, counts, pix, slots, grad_layers, dpacked, C, P, depth);
+        packed, cand, counts, pix, slots, grad_layers, pair_base, dslot,
+        pair_ids, C, P, depth);
   });
 }

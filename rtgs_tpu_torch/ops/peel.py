@@ -35,11 +35,18 @@ the card the two select the same winners bitwise. The three forward
 kernels put an f32 screen in front of the float64 chain (plain version:
 :func:`screen_margin`, :func:`screen_rejects`), which rejects only pairs
 whose float64 Δ is negative and so changes no bit. Every wrapper goes
-through one launch path (:mod:`rtgs_tpu_torch.ops._launch`). The backward
-kernels return the gradient of the (N+1, 64) table itself; their twins return
-per-slot rows (T, C, 64), which ``index_add_`` scatters into the table. The
-dispatchers (:func:`peel_keys`, :func:`peel_fused`, :func:`peel_topk`) pick
-by the tensors' device.
+through one launch path (:mod:`rtgs_tpu_torch.ops._launch`).
+
+Every backward is two deterministic stages, as the JAX package's: stage 1
+sums each (tile, candidate slot) pair's gradient row over the tile's pixels
+(the backward kernels write one row a swept slot into a compacted buffer,
+:func:`pair_layout`; their twins return per-slot rows (T, C, 64)); stage 2
+sums each splat's rows into the (N+1, 64) table in row order
+(``csrc/segment_rows.cu``: :func:`segment_rows_cuda`; plain version
+:func:`segment_rows_torch`). No float atomic and no ``index_add_`` on the
+card: gradients are bitwise repeatable. The dispatchers (:func:`peel_keys`,
+:func:`peel_fused`, :func:`peel_topk`, :func:`segment_rows`) pick by the
+tensors' device.
 """
 
 from __future__ import annotations
@@ -59,6 +66,9 @@ CHUNK = 128
 # The kernel keeps each pixel's list in registers, instantiated for these
 # capacities (csrc/keys.cu).
 MAX_DEPTH = 64
+# Pixels a backward block takes at once (csrc/peel_common.cuh, kThreads):
+# a tile of more pixels is contracted group after group.
+PIXEL_GROUP = 256
 _INT32_MAX = 2**31 - 1
 
 
@@ -189,6 +199,7 @@ _FUSED_FWD = Launcher("rtgs_peel_fwd", "fused forward")
 _FUSED_BWD = Launcher("rtgs_peel_bwd", "fused backward")
 _TOPK_FWD = Launcher("rtgs_peel_topk_fwd", "top-K forward")
 _TOPK_BWD = Launcher("rtgs_peel_topk_bwd", "top-K backward")
+_SEGMENT = Launcher("rtgs_segment_rows", "segment rows")
 
 
 def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
@@ -270,6 +281,90 @@ def peel_keys(packed: torch.Tensor, candidates: torch.Tensor,
         counts = _counts(candidates)
     return peel_keys_cuda(packed, candidates, counts.contiguous(),
                           chunk_lb.detach().contiguous(), pix, depth)
+
+
+# ---------------------------------------------------------------------------
+# Stage 2 of every backward: the ordered, atomic-free sum of gradient rows
+# by splat (the counterpart of the JAX backwards' jax.ops.segment_sum).
+# ---------------------------------------------------------------------------
+
+def segment_rows_torch(rows: torch.Tensor, ids: torch.Tensor,
+                       n_out: int) -> torch.Tensor:
+    """Plain version of ``csrc/segment_rows.cu``: ``out[ids[i]] += rows[i]``
+    into ``n_out`` zero rows, with ``index_add_``; ids outside [0,
+    ``n_out``) are skipped, as the kernel skips them. On the CPU
+    ``index_add_`` adds row by row in ascending i, the kernel's order, so
+    the two agree bitwise; on the card it adds in no fixed order, and
+    nothing of the port calls this there (:func:`segment_rows` launches the
+    kernel)."""
+    keep = (ids >= 0) & (ids < n_out)
+    if not bool(keep.all()):
+        rows, ids = rows[keep], ids[keep]
+    return torch.zeros((n_out,) + tuple(rows.shape[1:]), dtype=rows.dtype,
+                       device=rows.device).index_add_(0, ids.long(), rows)
+
+
+def segment_rows_cuda(rows: torch.Tensor, ids: torch.Tensor,
+                      n_out: int) -> torch.Tensor:
+    """Launch the Hopper segment sum (``csrc/segment_rows.cu``) on the
+    current stream: ``out[r] = Σ rows[i]`` over the i with ``ids[i] = r``,
+    in ascending i, f32 adds from 0, every row of ``out`` written once (zero
+    where no id names it); ids outside [0, ``n_out``) are skipped.
+
+    Args:
+      rows: (M, 64) f32.
+      ids: (M,) int32.
+      n_out: rows of the result, at least 1.
+
+    The grouping by id is ``torch.sort(ids, stable=True)`` (the kernel walks
+    each id's run in the order the stable sort keeps); no atomic of any
+    kind, so the result is bitwise repeatable and bitwise
+    :func:`segment_rows_torch` on the CPU. Every input must be a contiguous
+    CUDA tensor on one device; a failed build or launch raises.
+    ``segment_rows_cuda.launches`` counts the launches."""
+    m = rows.shape[0]
+    dev = check_tensors("segment_rows_cuda", (
+        ("rows", rows, torch.float32, (m, F_DIM)),
+        ("ids", ids, torch.int32, (m,))))
+    if n_out < 1:
+        raise ValueError(f"segment_rows_cuda: n_out {n_out} < 1")
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    starts = torch.empty(n_out + 1, dtype=torch.int32, device=dev)
+    out = torch.empty((n_out, F_DIM), dtype=torch.float32, device=dev)
+    _SEGMENT(dev, rows.data_ptr(), sorted_ids.data_ptr(), perm.data_ptr(),
+             starts.data_ptr(), out.data_ptr(), m, n_out)
+    segment_rows_cuda.launches += 1
+    return out
+
+
+segment_rows_cuda.launches = 0
+
+
+def segment_rows(rows: torch.Tensor, ids: torch.Tensor,
+                 n_out: int) -> torch.Tensor:
+    """``out[ids[i]] += rows[i]`` into ``n_out`` zero rows (64 lanes), each
+    row of ``out`` summed in ascending i: :func:`segment_rows_torch` for CPU
+    tensors, the kernel (:func:`segment_rows_cuda`) for CUDA tensors, which
+    launches or raises. The same inputs give the same bits on either, run
+    after run."""
+    if rows.device.type == "cpu":
+        return segment_rows_torch(rows, ids, n_out)
+    return segment_rows_cuda(rows.contiguous(),
+                             ids.to(torch.int32).contiguous(), n_out)
+
+
+def pair_layout(counts: torch.Tensor):
+    """Layout of the backward kernels' compacted per-pair buffer: one row a
+    swept (tile, slot) pair, tile by tile, slots ascending (the first
+    ``counts[t]`` slots of tile t; the rest of C is padding, which never
+    wins); the kernels write each row's splat id, ``candidates[t, slot]``
+    (−1 for an interior gap, whose row is zero and which
+    :func:`segment_rows` skips). Returns (pair_base (T,) int32, each tile's
+    first row: the exclusive prefix sum of ``counts``; M = Σ counts, read
+    to the host to size the buffer)."""
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    m = int(ends[-1]) if ends.numel() else 0
+    return (ends - counts).contiguous(), m
 
 
 # ---------------------------------------------------------------------------
@@ -428,7 +523,12 @@ def _slot_grads(candidates, pix, slots, a, b, rho, alpha,
     the JAX backward kernels (``rtgs_tpu/ops/peel.py:786-867``); dOp is
     masked by acceptance (a winner), not by α > 0, so a transparent splat
     can still revive. ``a``, ``b``, ``rho``, ``alpha``: the winners'
-    shading (:func:`_shade_layers`)."""
+    shading (:func:`_shade_layers`).
+
+    A slot's row is summed in the backward kernels' order: pixel group of
+    ``PIXEL_GROUP`` (the only one at P ≤ 256), then layer, then pixel, each
+    sum a :func:`segment_rows` (row by row on the CPU, the kernel on the
+    card)."""
     won = slots >= 0
     ga_alpha = ga * alpha
     d_a = ga_alpha * (-(b * b) / ((4.0 * a) * a))
@@ -447,11 +547,18 @@ def _slot_grads(candidates, pix, slots, a, b, rho, alpha,
         torch.zeros_like(pix_l[..., :5]).expand(*ga.shape, 5),
     ], dim=-1)                                          # (T, K, P, 64)
     t, c = candidates.shape
+    k, p = slots.shape[1:]
     flat = (torch.arange(t, device=slots.device)[:, None, None] * c
             + slots.long())
-    out = torch.zeros((t * c, F_DIM), dtype=alpha.dtype, device=alpha.device)
-    out.index_add_(0, flat[won], lanes[won])
-    return out.reshape(t, c, F_DIM)
+    if p > PIXEL_GROUP:
+        px = torch.arange(p, device=slots.device)
+        key = (((px // PIXEL_GROUP) * k
+                + torch.arange(k, device=slots.device)[:, None]) * p + px)
+        order = torch.argsort(key.reshape(-1))
+        flat = flat.reshape(t, k * p)[:, order]
+        won = won.reshape(t, k * p)[:, order]
+        lanes = lanes.reshape(t, k * p, F_DIM)[:, order]
+    return segment_rows(lanes[won], flat[won], t * c).reshape(t, c, F_DIM)
 
 
 def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
@@ -504,18 +611,24 @@ peel_fused_cuda.launches = 0
 def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
                         counts: torch.Tensor, pix: torch.Tensor,
                         slots: torch.Tensor, grad_rad: torch.Tensor,
-                        grad_trans: torch.Tensor, depth: int) -> torch.Tensor:
+                        grad_trans: torch.Tensor, depth: int,
+                        table: bool = True):
     """Launch the Hopper fused backward kernel (``csrc/peel_bwd.cu``) on
     the current stream. Inputs as :func:`peel_fused_cuda`, plus the
     forward's ``slots`` (T, K, P) int32 and the cotangents ``grad_rad``
-    (T, 3, P) and ``grad_trans`` (T, P), f32. Returns the gradient of the
-    feature table, (N+1, 64) f32: the kernel sums each winning slot's row
-    over its tile's pixels and adds it into row ``candidates[t, slot]`` of a
-    zero-filled table (what ``index_add_`` of
-    :func:`peel_fused_bwd_torch`'s per-slot rows gives); the sentinel row N
-    stays exactly 0. The sums meet in device-memory atomics, so the low
-    bits vary from run to run. ``peel_fused_bwd_cuda.launches`` counts the
-    launches."""
+    (T, 3, P) and ``grad_trans`` (T, P), f32.
+
+    Stage 1, the kernel: each swept slot's gradient row summed over its
+    tile's pixels (:func:`peel_fused_bwd_torch`'s per-slot rows, in its
+    order), one row a pair of :func:`pair_layout`'s buffer. With
+    ``table=False`` that is the result: (pair rows (M, 64) f32, their ids
+    (M,) int32, −1 for a gap). Otherwise stage 2,
+    :func:`segment_rows_cuda`, sums them into the gradient of the feature
+    table, (N+1, 64) f32, whose sentinel row N is exactly 0. Both stages
+    are free of atomics: bitwise the same result for the same inputs.
+    ``peel_fused_bwd_cuda.launches`` counts the kernel's launches
+    (``segment_rows_cuda.launches`` the second stage's).
+    """
     t, c = candidates.shape
     p = pix.shape[1]
     dev = _check_launch("peel_fused_bwd_cuda", (
@@ -526,15 +639,19 @@ def peel_fused_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("slots", slots, torch.int32, (t, depth, p)),
         ("grad_rad", grad_rad, torch.float32, (t, 3, p)),
         ("grad_trans", grad_trans, torch.float32, (t, p))), c, p, depth)
-    dpacked = torch.zeros_like(packed)
-    if t == 0:
-        return dpacked
-    _FUSED_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
-               counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
-               grad_rad.data_ptr(), grad_trans.data_ptr(),
-               dpacked.data_ptr(), t, c, p, depth)
-    peel_fused_bwd_cuda.launches += 1
-    return dpacked
+    pair_base, m = pair_layout(counts)
+    dslot = torch.empty((m, F_DIM), dtype=torch.float32, device=dev)
+    ids = torch.empty(m, dtype=torch.int32, device=dev)
+    if t > 0:
+        _FUSED_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
+                   counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
+                   grad_rad.data_ptr(), grad_trans.data_ptr(),
+                   pair_base.data_ptr(), dslot.data_ptr(), ids.data_ptr(),
+                   t, c, p, depth)
+        peel_fused_bwd_cuda.launches += 1
+    if not table:
+        return dslot, ids
+    return segment_rows_cuda(dslot, ids, packed.shape[0])
 
 
 peel_fused_bwd_cuda.launches = 0
@@ -543,11 +660,12 @@ peel_fused_bwd_cuda.launches = 0
 def _scatter_slot_grads(packed: torch.Tensor, candidates: torch.Tensor,
                         dfeats: torch.Tensor) -> torch.Tensor:
     """The (N+1, 64) table gradient from a plain twin's per-slot gradients
-    (T, C, 64): ``index_add_`` over the candidates' ids, the padding's zeros
-    into the sentinel row."""
-    return torch.zeros_like(packed).index_add_(
-        0, _safe_ids(packed, candidates).reshape(-1),
-        dfeats.reshape(-1, F_DIM))
+    (T, C, 64): stage 2, :func:`segment_rows` over the candidates' ids in
+    (tile, slot) order, the order of the kernels' pair rows; the padding's
+    zeros go into the sentinel row."""
+    return segment_rows(dfeats.reshape(-1, F_DIM),
+                        _safe_ids(packed, candidates).reshape(-1),
+                        packed.shape[0])
 
 
 def _use_kernel(impl: str, packed: torch.Tensor) -> bool:
@@ -560,9 +678,10 @@ class PeelFused(torch.autograd.Function):
     """The fused peel with its hand-written backward: the counterpart of
     the JAX ``peel_pallas`` custom VJP. The forward saves its inputs and
     the winners' slots; the backward returns a gradient for ``packed``
-    only: the kernel's (N+1, 64) table on CUDA tensors, and for the plain
-    twin its per-slot gradients scatter-added into (N+1, 64) with
-    ``index_add_`` (the sentinel row takes the padding's zeros)."""
+    only, in two stages (per-slot rows, then :func:`segment_rows` by
+    splat): through the kernels on CUDA tensors, through the plain twin and
+    :func:`segment_rows_torch` on CPU tensors (the sentinel row takes the
+    padding's zeros)."""
 
     @staticmethod
     def forward(ctx, packed, candidates, pix, depth, impl):
@@ -612,13 +731,15 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
     Returns (radiance (T, 3, P), transmittance (T, P)). The backward gives
     ``packed`` a gradient and ``candidates``/``pix`` none, as the JAX rule.
 
-    Determinism: the forward is bitwise deterministic on the card (no
-    atomics; winners in float64, bitwise those of the twin). The gradient
-    is not: the backward kernel sums a slot's row over its tile's pixels in
-    the order an integer-atomic fill left them, and the rows of different
-    tiles meet in device-memory float atomics, both in no fixed order, so
-    gradients agree run to run only to f32 rounding (held on the card to
-    1e-4 of each lane's largest entry against the plain twin).
+    Determinism: forward and gradient are bitwise repeatable on the card,
+    as the JAX package's are, with torch's deterministic mode off. The
+    forward has no atomics (winners in float64, bitwise those of the twin);
+    the backward is two stages without float atomics: the kernel sums each
+    (tile, slot) row over its tile's pixels in a fixed order (pixel group,
+    layer, pixel) into a compacted per-pair buffer, and ``segment_rows.cu``
+    sums each splat's pair rows in pair order. The plain twin sums in the
+    same orders (on the card's tensors it is held to 1e-4 of each lane's
+    largest entry; its products come from torch's elementwise kernels).
     """
     return PeelFused.apply(packed, candidates, pix, depth, impl)
 
@@ -696,14 +817,15 @@ peel_topk_cuda.launches = 0
 def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
                        counts: torch.Tensor, pix: torch.Tensor,
                        slots: torch.Tensor, grad_layers: torch.Tensor,
-                       depth: int) -> torch.Tensor:
+                       depth: int, table: bool = True):
     """Launch the Hopper top-K backward kernel (``csrc/peel_topk_bwd.cu``)
     on the current stream. Inputs as :func:`peel_fused_cuda`, plus the
     forward's ``slots`` (T, K, P) int32 and the per-layer cotangents
-    ``grad_layers`` (T, 4, K, P) f32 of (α, r, g, b). Returns the gradient
-    of the feature table, (N+1, 64) f32, as :func:`peel_fused_bwd_cuda`
-    does (row N exactly 0; low bits vary from run to run).
-    ``peel_topk_bwd_cuda.launches`` counts the launches."""
+    ``grad_layers`` (T, 4, K, P) f32 of (α, r, g, b). Returns, as
+    :func:`peel_fused_bwd_cuda` does, the gradient of the feature table
+    (N+1, 64) f32 (row N exactly 0; bitwise repeatable), or with
+    ``table=False`` the kernel's pair rows and their ids.
+    ``peel_topk_bwd_cuda.launches`` counts the kernel's launches."""
     t, c = candidates.shape
     p = pix.shape[1]
     dev = _check_launch("peel_topk_bwd_cuda", (
@@ -714,14 +836,18 @@ def peel_topk_bwd_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("slots", slots, torch.int32, (t, depth, p)),
         ("grad_layers", grad_layers, torch.float32, (t, 4, depth, p))),
         c, p, depth)
-    dpacked = torch.zeros_like(packed)
-    if t == 0:
-        return dpacked
-    _TOPK_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
-              counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
-              grad_layers.data_ptr(), dpacked.data_ptr(), t, c, p, depth)
-    peel_topk_bwd_cuda.launches += 1
-    return dpacked
+    pair_base, m = pair_layout(counts)
+    dslot = torch.empty((m, F_DIM), dtype=torch.float32, device=dev)
+    ids = torch.empty(m, dtype=torch.int32, device=dev)
+    if t > 0:
+        _TOPK_BWD(dev, packed.data_ptr(), candidates.data_ptr(),
+                  counts.data_ptr(), pix.data_ptr(), slots.data_ptr(),
+                  grad_layers.data_ptr(), pair_base.data_ptr(),
+                  dslot.data_ptr(), ids.data_ptr(), t, c, p, depth)
+        peel_topk_bwd_cuda.launches += 1
+    if not table:
+        return dslot, ids
+    return segment_rows_cuda(dslot, ids, packed.shape[0])
 
 
 peel_topk_bwd_cuda.launches = 0
@@ -779,8 +905,9 @@ def peel_topk(packed: torch.Tensor, candidates: torch.Tensor,
     vacant layers have t1 = +inf and α = r = g = b = 0. t1 is the float64
     entry depth rounded once (the JAX package's is f32). The gradient
     flows through α and rgb to ``packed``; t1's cotangent is dropped.
-    Determinism as :func:`peel_fused`: the forward is bitwise
-    deterministic, the gradient agrees run to run only to f32 rounding.
+    Determinism as :func:`peel_fused`: forward and gradient are bitwise
+    repeatable (the backward's two stages, per-slot rows in a fixed order
+    and :func:`segment_rows` by splat, share the fused path's code).
     """
     layers = PeelTopK.apply(packed, candidates, pix, depth, impl)
     return tuple(layers.transpose(2, 3).unbind(1))

@@ -10,17 +10,19 @@ Times, on the bench scene (see :func:`_common.scene_tables`):
   narrow 3, with the early-exit bounds;
 * the fused forward (``peel_fused_cuda``), the top-K forward
   (``peel_topk_cuda``), the fused backward (``peel_fused_bwd_cuda``) and the
-  top-K backward (``peel_topk_bwd_cuda``) at the fit configuration, 100k @ 512x384, budget 1536; for each backward
-  also the gradient of the (N+1, 64) table (where a wrapper returns
-  per-slot rows (T, C, 64), the ``index_add_`` that scatters them is
-  included: that is what a training step pays), and beside them the
-  zero-fills of a dense (T, C, 64) block and of the table, and the
-  ``index_add_`` of such a block alone;
+  top-K backward (``peel_topk_bwd_cuda``) at the fit configuration, 100k @
+  512x384, budget 1536: each backward kernel alone (its pair rows), the
+  segment sum of the fused one's pair rows (``segment_rows.cu``) and each
+  backward with its segment sum into the (N+1, 64) table (what a training
+  step pays), and beside them the zero-fills of a dense (T, C, 64) block
+  and of the table, and the ``index_add_`` of such a block alone (what the
+  first port paid);
 * with ``--big`` the same at 1M @ 256x192, budget 3584, narrow 4.
 
 Each line: the wrapper's time (CUDA events around the call, median of
-``--iters``: host time of the call included) and the device time with the
-stream kept busy (:func:`_common.busy_ms`).
+``--iters``: host time of the call included), the device time with the
+stream kept busy (:func:`_common.busy_ms`) and the device time of what the
+call runs on the card, from ``torch.profiler`` (:func:`kernels_ms`).
 
 ``--sub`` builds the kernels from a temporary copy of ``ops/csrc`` in which
 ``OLD`` is replaced by ``NEW`` in ``FILE`` (the text must occur), and
@@ -67,11 +69,22 @@ def edited_sources(subs, tmp: pathlib.Path) -> None:
     _build.BUILD_DIR = tmp / "build"
 
 
-def table_grad(packed, cand, dfeats):
-    """The (N+1, 64) table gradient from a backward wrapper's result."""
-    if dfeats.dim() == 2:
-        return dfeats
-    return peel._scatter_slot_grads(packed, cand, dfeats)
+def kernels_ms(fn, iters: int) -> float:
+    """Device milliseconds of what one ``fn()`` runs on the card (kernels,
+    copies and fills), summed from a ``torch.profiler`` trace of ``iters``
+    calls: the kernels' own time also where the wrapper waits on the card
+    (the backwards read the pair count to the host), which defeats the
+    busy-stream measure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / iters / 1e3
 
 
 def main(argv=None):
@@ -99,7 +112,8 @@ def run(args, dev):
         ms, lo = _common.median_ms(fn, args.iters, dev)
         busy = _common.busy_ms(fn, args.iters, dev)
         print(f"{label:34s} {ms:8.4f} ms (min {lo:.4f}); stream busy "
-              f"{busy:8.4f} ms", flush=True)
+              f"{busy:8.4f} ms; kernels {kernels_ms(fn, args.iters):8.4f} ms",
+              flush=True)
 
     def tables(key):
         label, n, w, h, cand, narrow = SHAPES[key]
@@ -143,12 +157,20 @@ def run(args, dev):
             packed, cand, counts, pix, DEPTH))
         line(f"peel_topk_fwd {label}", lambda: peel.peel_topk_cuda(
             packed, cand, counts, pix, DEPTH))
-        line(f"peel_bwd {label}", bwd)
-        line(f"peel_bwd + table {label}",
-             lambda: table_grad(packed, cand, bwd()))
-        line(f"peel_topk_bwd {label}", topk_bwd)
-        line(f"peel_topk_bwd + table {label}",
-             lambda: table_grad(packed, cand, topk_bwd()))
+        rows, pair_ids = peel.peel_fused_bwd_cuda(
+            packed, cand, counts, pix, sl, g_rad, g_tr, DEPTH, table=False)
+        line(f"peel_bwd pair rows {label}",
+             lambda: peel.peel_fused_bwd_cuda(packed, cand, counts, pix, sl,
+                                              g_rad, g_tr, DEPTH,
+                                              table=False))
+        line(f"segment_rows {label}", lambda: peel.segment_rows_cuda(
+            rows, pair_ids, packed.shape[0]))
+        del rows, pair_ids
+        line(f"peel_bwd + table {label}", bwd)
+        line(f"peel_topk_bwd pair rows {label}",
+             lambda: peel.peel_topk_bwd_cuda(packed, cand, counts, pix, sl,
+                                             g_lay, DEPTH, table=False))
+        line(f"peel_topk_bwd + table {label}", topk_bwd)
 
     keys("keys")
     pair("fit")

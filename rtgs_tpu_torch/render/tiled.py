@@ -47,7 +47,7 @@ import torch.utils.checkpoint
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
 from rtgs_tpu_torch.ops.peel import (CHUNK, G_DIM, entry_depth, peel_fused,
-                                     peel_keys)
+                                     peel_keys, segment_rows)
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.utils import quaternion as quat
 
@@ -294,8 +294,9 @@ class _ShadeWinnersKP(torch.autograd.Function):
         packed, sid_kp, pix = ctx.saved_tensors
         # Vacant winners shade the sentinel row, whose gradient nobody
         # reads; they are dropped before the gather, so neither their rows
-        # nor their cotangents are built and the scatter-add below does not
-        # pile them onto one row.
+        # nor their cotangents are built and the sum by splat below does
+        # not pile them onto one row. nonzero lists the winners in (t, k, p)
+        # order, and segment_rows adds each splat's in that order.
         ti, ki, pi = torch.nonzero(sid_kp >= 0, as_tuple=True)
         ids = sid_kp[ti, ki, pi].long()                # (L,)
         rows = packed[ids]                             # (L, F)
@@ -327,8 +328,7 @@ class _ShadeWinnersKP(torch.autograd.Function):
             lo = 14 + 15 * ch
             d_rows[:, lo:lo + 15] = d_ch[:, None] * y
         d_rows[:, 59:] = 0.0
-        d_packed = torch.zeros_like(packed).index_add_(0, ids, d_rows)
-        return d_packed, None, None
+        return segment_rows(d_rows, ids, packed.shape[0]), None, None
 
 
 def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
@@ -343,13 +343,15 @@ def shade_winners_kp(packed: torch.Tensor, sid_kp: torch.Tensor,
     Differentiable in ``packed`` only, through a hand-written backward
     (``sid_kp`` is index selection, and ``pix`` gets no gradient on this
     path, as in the JAX package). The backward re-gathers the winners' rows,
-    recomputes the quadratic chain, and adds each winner's (64-lane) row
-    cotangent into its splat's row with ``index_add_``. Vacant winners are
-    dropped before that, so row N of the gradient is exactly zero (the JAX
-    scatter form adds the vacant layers' color cotangents there; that row is
-    the constant sentinel and its gradient is discarded either way).
-    ``index_add_`` sums in no fixed order on the card, so gradients agree
-    run to run only to f32 rounding; the forward is deterministic.
+    recomputes the quadratic chain, and sums each splat's winners' (64-lane)
+    row cotangents in (tile, layer, pixel) order with
+    :func:`~rtgs_tpu_torch.ops.peel.segment_rows` (``segment_rows.cu`` on
+    the card; the JAX package reduces with a mask-matmul and
+    ``segment_sum``). Vacant winners are dropped before that, so row N of
+    the gradient is exactly zero (the JAX scatter form adds the vacant
+    layers' color cotangents there; that row is the constant sentinel and
+    its gradient is discarded either way). No atomics on either pass:
+    forward and gradient are bitwise repeatable.
     """
     return _ShadeWinnersKP.apply(packed, sid_kp, pix)
 

@@ -9,10 +9,11 @@ Both select by the same float64 t1 chain and (t1, slot) order, so the
 winners' slots must be bitwise equal. Shading is f32 in the same operation
 order (built without FMA contraction); radiance and transmittance must
 agree to 1e-5 absolute. The backward kernel returns the gradient of the
-(N+1, 64) feature table: a slot's row summed over its tile's pixels in the
-order of an integer-atomic fill, and added into the table with device-memory
-atomics, in no fixed order; against ``index_add_`` of the twin's per-slot
-gradients each feature lane must agree to 1e-4 of that lane's largest entry,
+(N+1, 64) feature table in two stages: a slot's row summed over its tile's
+pixels in a fixed order (stable counting sort), then each splat's pair rows
+summed in order by segment_rows.cu; against the twin's per-slot gradients
+(summed by the same segment sum, its products from torch's elementwise
+kernels) each feature lane must agree to 1e-4 of that lane's largest entry,
 and the sentinel row N must be exactly 0."""
 
 import numpy as np

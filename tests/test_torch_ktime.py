@@ -58,8 +58,10 @@ def test_shapes_are_the_benchmarks(key):
 
 
 def test_table_grad_scatters_per_slot_rows():
-    """A (T, C, 64) block is scattered like PeelFused.backward's plain
-    path; an (N+1, 64) table is passed through."""
+    """A plain twin's (T, C, 64) per-slot block becomes the (N+1, 64) table
+    as PeelFused.backward's plain path makes it (``_scatter_slot_grads``):
+    the rows summed by splat in (tile, slot) order by ``segment_rows``, the
+    padding's zeros into the sentinel row."""
     rng = np.random.default_rng(0)
     n, t, c = 40, 3, 128
     packed = torch.zeros((n + 1, peel.F_DIM))
@@ -67,14 +69,14 @@ def test_table_grad_scatters_per_slot_rows():
     dfeats = torch.from_numpy(
         rng.standard_normal((t, c, peel.F_DIM)).astype(np.float32))
     dfeats[cand < 0] = 0.0
-    table = ktime.table_grad(packed, cand, dfeats)
+    table = peel._scatter_slot_grads(packed, cand, dfeats)
     assert table.shape == packed.shape and (table[n] == 0).all()
     want = np.zeros((n + 1, peel.F_DIM), np.float64)
     np.add.at(want, np.where(cand.numpy() >= 0, cand.numpy(), n).reshape(-1),
               dfeats.numpy().reshape(-1, peel.F_DIM).astype(np.float64))
     np.testing.assert_allclose(table.numpy(), want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(table, peel._scatter_slot_grads(packed, cand, dfeats))
-    assert ktime.table_grad(packed, cand, table) is table
+    assert torch.equal(table, peel.segment_rows(
+        dfeats.reshape(-1, peel.F_DIM), cand.reshape(-1), n + 1))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -9,11 +9,11 @@ Kernel and twin select by the same float64 t1 chain and (t1, slot) order,
 so the winners' slots and t1 must be bitwise equal. α and rgb are f32 in
 the same operation order (built without FMA contraction) and must agree to
 1e-5 absolute. The backward kernel returns the gradient of the (N+1, 64)
-table (sums in no fixed order): against ``index_add_`` of the twin's
-per-slot gradients each feature lane must agree to 1e-4 of that lane's
-largest entry, and the sentinel row must be exactly 0. The K-list composited by composite_hits equals the fused
-peel's radiance and transmittance to 1e-5 (the same layers, summed in
-another order)."""
+table (the fused backward's two stages, sums in fixed orders): against the
+twin's per-slot gradients each feature lane must agree to 1e-4 of that
+lane's largest entry, and the sentinel row must be exactly 0. The K-list
+composited by composite_hits equals the fused peel's radiance and
+transmittance to 1e-5 (the same layers, summed in another order)."""
 
 import numpy as np
 import pytest
