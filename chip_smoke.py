@@ -130,7 +130,13 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
  18. determinism, with torch's deterministic mode off (asserted):
      segment_rows.cu against its CPU twin on the card's inputs (the fused
      backward's pair rows and the keys path's winner ids at 100k@512x384
-     and 1M@256x192), bitwise, with its time beside index_add_'s; the
+     and 1M@256x192), bitwise, with its time beside index_add_'s; then at
+     the four shapes of probes.ktime.segment_inputs (those pair rows and
+     the fit configuration's winner rows, and the winner rows of the
+     busiest of 8 bands of the keys backward at 1M@1920x1088) bitwise its
+     CPU twin and a second launch, rows no id names +0.0, and its time
+     around the wrapper, busy and on the card, split by kernel, beside
+     index_add_, the bound and the ids' run lengths; the
      fused, top-K and keys backwards at those two configurations, each
      twice, bitwise; the keys path's forward+backward at 1M@1920x1088 in 8
      bands twice, bitwise; 20 training steps (a density-control pass at
@@ -2771,6 +2777,43 @@ def phase18_segment_case(label, g, cfg, dev):
     return out
 
 
+def phase18_segment_shapes(dev):
+    """segment_rows.cu at the four shapes its callers give it
+    (``probes.ktime.segment_inputs``: (a) the fit configuration's pair
+    rows, (b) its keys winner rows, (c) 1M@256x192's pair rows, (d) the
+    busiest of 8 bands of the 1M@1920x1088 keys backward's winner rows):
+    bitwise its CPU twin and a second launch, then around the wrapper, busy
+    and device ms, the device time split by kernel, the host's share,
+    index_add_'s ms, the bound and the ids' run lengths. Returns the
+    numbers by shape."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import segment_rows_cuda, segment_rows_torch
+    from rtgs_tpu_torch.probes import ktime
+
+    out = {}
+    for label, (rows, ids, n) in ktime.segment_inputs(dev).items():
+        got = segment_rows_cuda(rows, ids, n)
+        check(torch.equal(segment_rows_cuda(rows, ids, n), got),
+              f"segment {label}: a second launch differs")
+        want = segment_rows_torch(rows.cpu(), ids.cpu(), n)
+        n_diff = int((got.cpu() != want).any(1).sum())
+        check(n_diff == 0, f"segment {label}: {n_diff} rows differ from "
+              f"the CPU twin")
+        keep = ids[(ids >= 0) & (ids < n)].long()
+        named = torch.bincount(keep, minlength=n) > 0
+        unnamed = got[~named]
+        check(bool((unnamed == 0).all()) and not torch.signbit(unnamed).any(),
+              f"segment {label}: a row no id names is not +0.0")
+        with contextlib.redirect_stdout(io.StringIO()) as line:
+            o = ktime.segment_line(label, rows, ids, n, 9, dev)
+        out[label] = o
+        say(18, line.getvalue().strip() + "; bitwise the CPU twin and a "
+                "second launch")
+        del rows, ids, got, want
+    return out
+
+
 def train_twice(g, renderer):
     """Phase 8's re-fit cut to FIT_CLI_STEPS steps (a density-control pass
     half way), twice from the same state through ``renderer``; every
@@ -2864,6 +2907,7 @@ def phase18_determinism(g100k, g1m, g4k, dev):
     w, h = CFG_FIT["res"]
     seg = phase18_segment_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
     seg_1m = phase18_segment_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    phase18_segment_shapes(dev)
 
     wf, hf = FULL_RES
     kw = dict(max_candidates=3584, max_global=BENCH_MAX_GLOBAL, bin_narrow=4,

@@ -104,7 +104,7 @@ SIGNATURES = {
     "rtgs_peel_bwd": (_P,) * 10 + (_I,) * 5 + (_P,),
     "rtgs_peel_topk_fwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     "rtgs_peel_topk_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
-    "rtgs_segment_rows": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "rtgs_segment_rows": (_P,) * 4 + (_I,) * 3 + (_P,),
     "rtgs_probe_micro": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
     "rtgs_probe_ablate": (_I,) + (_P,) * 5 + (_I,) * 5 + (_F,) * 2 + (_I, _P),
     "rtgs_probe_floor": (_I, _P, _P, _P) + (_I,) * 6 + (_P,),

@@ -304,6 +304,58 @@ def segment_rows_torch(rows: torch.Tensor, ids: torch.Tensor,
                        device=rows.device).index_add_(0, ids.long(), rows)
 
 
+# segment_rows.cu's grouping: ids a scan tile, the longest run a placing
+# warp sums (longer runs are listed for the kernel's long-run warps).
+SEGMENT_TILE, SEGMENT_SHORT = 512, 32
+
+
+def _segment_scratch_ints(m: int, n_out: int) -> int:
+    """Size in int32 of ``segment_rows.cu``'s one scratch buffer (its
+    ``Scratch`` lays it out): counts padded to whole tiles, two ints of
+    look-back state a tile and four counters (the head the call zeroes,
+    rounded up to 4), starts padded like the counts, a rank and a placed
+    position an input row (each rounded up to 4), and four ints a run in
+    the list of runs longer than ``SEGMENT_SHORT`` and in that of the
+    others that an id names."""
+    padded = (n_out // SEGMENT_TILE + 1) * SEGMENT_TILE
+    ntile = padded // SEGMENT_TILE
+    zeroed = (padded + 2 * ntile + 4 + 3) // 4 * 4
+    per_row = (m + 3) // 4 * 4
+    return (zeroed + padded + 2 * per_row
+            + 4 * (m // (SEGMENT_SHORT + 1) + 1) + 4 * min(m, n_out))
+
+
+def segment_order_torch(ids: torch.Tensor, n_out: int,
+                        arrival: torch.Tensor | None = None):
+    """Plain version of ``segment_rows.cu``'s grouping: the counts of the
+    valid ids (those in [0, ``n_out``)), their exclusive scan (each run's
+    start), each i placed at its run's start plus its rank in ``arrival``
+    order (the kernel's integer atomics give some order; by default the
+    reverse of i), then each run sorted by i. Returns (starts (n_out + 1,)
+    int64, order (M_valid,) int64): the i of run r, ascending, at
+    ``order[starts[r]:starts[r + 1]]``, which is what a stable sort of the
+    valid ids gives."""
+    m = ids.shape[0]
+    ids = ids.long()
+    if arrival is None:
+        arrival = torch.arange(m - 1, -1, -1)
+    arrival = arrival[(ids[arrival] >= 0) & (ids[arrival] < n_out)]
+    counts = torch.bincount(ids[arrival], minlength=n_out)
+    starts = torch.zeros(n_out + 1, dtype=torch.long)
+    starts[1:] = torch.cumsum(counts, 0)
+    # An i's rank is the number of its run's i that arrived before it.
+    run = ids[arrival]
+    by_run = torch.sort(run, stable=True).indices
+    first = torch.zeros_like(run)
+    first[by_run] = torch.arange(run.shape[0]) - starts[run[by_run]]
+    order = torch.empty(run.shape[0], dtype=torch.long)
+    order[starts[run] + first] = arrival
+    # Each run sorted by i: by (run, i), the runs already in run order.
+    slot_run = torch.repeat_interleave(torch.arange(n_out), counts)
+    key = slot_run * max(m, 1) + order
+    return starts, order[torch.sort(key).indices]
+
+
 def segment_rows_cuda(rows: torch.Tensor, ids: torch.Tensor,
                       n_out: int) -> torch.Tensor:
     """Launch the Hopper segment sum (``csrc/segment_rows.cu``) on the
@@ -316,23 +368,25 @@ def segment_rows_cuda(rows: torch.Tensor, ids: torch.Tensor,
       ids: (M,) int32.
       n_out: rows of the result, at least 1.
 
-    The grouping by id is ``torch.sort(ids, stable=True)`` (the kernel walks
-    each id's run in the order the stable sort keeps); no atomic of any
-    kind, so the result is bitwise repeatable and bitwise
-    :func:`segment_rows_torch` on the CPU. Every input must be a contiguous
-    CUDA tensor on one device; a failed build or launch raises.
-    ``segment_rows_cuda.launches`` counts the launches."""
+    The grouping is the kernel's own (:func:`segment_order_torch` is its
+    plain version): counts, their scan, each i placed at its run's start
+    plus a rank from integer atomics, each run sorted by i before its sum; no float atomic, so the result is
+    bitwise repeatable and bitwise :func:`segment_rows_torch` on the CPU.
+    One memset and five kernels a call, one scratch allocation, no host
+    sync. Every input must be a contiguous CUDA tensor on one device; a
+    failed build or launch raises. ``segment_rows_cuda.launches`` counts
+    the calls."""
     m = rows.shape[0]
     dev = check_tensors("segment_rows_cuda", (
         ("rows", rows, torch.float32, (m, F_DIM)),
         ("ids", ids, torch.int32, (m,))))
     if n_out < 1:
         raise ValueError(f"segment_rows_cuda: n_out {n_out} < 1")
-    sorted_ids, perm = torch.sort(ids, stable=True)
-    starts = torch.empty(n_out + 1, dtype=torch.int32, device=dev)
+    scratch = torch.empty(_segment_scratch_ints(m, n_out), dtype=torch.int32,
+                          device=dev)
     out = torch.empty((n_out, F_DIM), dtype=torch.float32, device=dev)
-    _SEGMENT(dev, rows.data_ptr(), sorted_ids.data_ptr(), perm.data_ptr(),
-             starts.data_ptr(), out.data_ptr(), m, n_out)
+    _SEGMENT(dev, rows.data_ptr(), ids.data_ptr(), scratch.data_ptr(),
+             out.data_ptr(), m, n_out)
     segment_rows_cuda.launches += 1
     return out
 

@@ -67,7 +67,96 @@ SEGMENT_CASES = {"collisions": (20_000, 8), "one_row": (3000, 1),
                  "sparse": (300, 5000), "empty": (0, 7)}
 
 
+# Cases of segment_rows.cu's grouping: one run of the given length among
+# short ones (a kernel path each side of 32, of its 2048-entry shared sort,
+# and beyond it), one very long run among many short ones, and the two
+# producers' orders: pair rows tile by tile (an id at most once a tile, −1
+# gaps) and winner rows in (t, k, p) order (neighbouring pixels repeat a
+# splat, vacant layers −1).
+RUN_LENGTHS = (0, 1, 31, 32, 33, 1024, 1025, 5000)
+GROUPING_CASES = tuple(f"run_{n}" for n in RUN_LENGTHS) + (
+    "one_long_many_short", "pair_rows", "winner_rows")
+
+
+def _grouping_case(case, device="cpu"):
+    """(rows, ids (int32), n_out) of a GROUPING_CASES entry, from numpy."""
+    rng = np.random.default_rng(len(case) * 7 + sum(map(ord, case)))
+    if case.startswith("run_"):
+        n_out, length = 64, int(case[4:])
+        others = rng.integers(0, n_out - 1, 300)
+        others[others >= 3] += 1                  # every id but 3
+        ids = np.concatenate([np.full(length, 3), others, [-1] * 20])
+    elif case == "one_long_many_short":
+        n_out = 20_000
+        ids = np.concatenate([np.full(5000, 7),
+                              rng.integers(0, n_out, 20_000)])
+    elif case == "pair_rows":
+        n_out, t, c = 3000, 40, 256
+        tiles = [rng.choice(n_out, c, replace=False) for _ in range(t)]
+        ids = np.stack(tiles)
+        ids[:, ::11] = -1                         # interior gaps
+        ids = ids.reshape(-1)
+    else:
+        n_out, t, k, p = 500, 12, 16, 256
+        own = rng.integers(0, n_out, (t, k, 6))
+        ids = own[np.arange(t)[:, None, None], np.arange(k)[None, :, None],
+                  (np.arange(p) // 48)[None, None, :]]
+        ids[rng.random(ids.shape) < 0.2] = -1     # vacant layers
+        ids = ids.reshape(-1)
+    if case != "winner_rows" and case != "pair_rows":
+        ids = rng.permutation(ids)
+    rows, _ = _rows_ids(ids.shape[0], 1, seed=ids.shape[0])
+    return (rows.to(device), torch.from_numpy(ids.astype(np.int32)).to(device),
+            n_out)
+
+
 # ----- stage 2: segment_rows -----
+
+@pytest.mark.parametrize("case", GROUPING_CASES)
+def test_segment_grouping_twin_is_a_stable_sort(case):
+    """segment_order_torch, the plain version of segment_rows.cu's grouping
+    (counts, their scan, each i placed in an arbitrary order of arrival,
+    each run then sorted by i), lists every run's i as a stable sort of the
+    valid ids does, whatever the arrival order; summing the rows in that
+    order is segment_rows's result, bitwise."""
+    rows, ids, n = _grouping_case(case)
+    keep = (ids >= 0) & (ids < n)
+    want = torch.sort(torch.where(keep, ids.long(), n), stable=True).indices
+    want = want[:int(keep.sum())]
+    for seed in (0, 1):
+        arrival = torch.from_numpy(
+            np.random.default_rng(seed).permutation(ids.shape[0]))
+        starts, order = T_PEEL.segment_order_torch(ids, n, arrival)
+        assert torch.equal(order, want)
+        assert torch.equal(starts[1:] - starts[:-1],
+                           torch.bincount(ids[keep].long(), minlength=n))
+    got = segment_rows(rows, ids, n)
+    assert torch.equal(got, segment_rows_torch(rows[order], ids[order], n))
+    if case.startswith("run_"):
+        length = int(case[4:])
+        assert int((ids == 3).sum()) == length
+        if length == 0:
+            assert (got[3] == 0).all() and not torch.signbit(got[3]).any()
+        else:
+            assert (got[3] != 0).any()
+
+
+def test_segment_scratch_holds_the_layout():
+    """_segment_scratch_ints (segment_rows.cu's Scratch): the zeroed head
+    is whole tiles of counts, two ints a tile and four counters, rounded
+    to 4; then starts, a rank and an order entry a row (rounded to 4), and
+    four ints a run in the list of the runs longer than 32 (at most
+    M // 33) and in that of the shorter named runs (at most
+    min(M, n_out))."""
+    tile = T_PEEL.SEGMENT_TILE
+    for m, n in ((0, 1), (5, 2047), (5, 2048), (10**6, 10**5)):
+        padded = (n // tile + 1) * tile
+        assert padded >= n + 1
+        head = -(-(padded + 2 * (padded // tile) + 4) // 4) * 4
+        per_row = -(-m // 4) * 4
+        assert T_PEEL._segment_scratch_ints(m, n) == (
+            head + padded + 2 * per_row + 4 * (m // 33 + 1) + 4 * min(m, n))
+
 
 @pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
 def test_segment_rows_adds_row_by_row(case):
@@ -366,12 +455,16 @@ def test_render_and_gradient_repeat_bitwise_on_card(cuda, path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES) + list(GROUPING_CASES))
 def test_segment_rows_kernel_matches_cpu_twin(cuda, case):
     """segment_rows.cu against segment_rows_torch on the CPU, bitwise, and
     against itself on a second launch; ids outside [0, n_out) skipped."""
-    m, n = SEGMENT_CASES[case]
-    rows, ids = _rows_ids(m, n, seed=m)
+    if case in SEGMENT_CASES:
+        m, n = SEGMENT_CASES[case]
+        rows, ids = _rows_ids(m, n, seed=m)
+    else:
+        rows, ids, n = _grouping_case(case)
+        m = rows.shape[0]
     want = segment_rows_torch(rows, ids, n)
     got = T_PEEL.segment_rows_cuda(rows.to(cuda), ids.to(cuda), n)
     assert torch.equal(got.cpu(), want)

@@ -97,3 +97,38 @@ def test_ktime_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ktime.main(["--iters", "1"])
+
+
+@pytest.mark.parametrize("name, want", [
+    ("void at_cuda_detail::cub::DeviceRadixSortOnesweepKernel<at_cuda_detail"
+     "::cub::Policy<int>, false>(int*, int*)", "DeviceRadixSortOnesweepKernel"),
+    ("(anonymous namespace)::place_kernel(float const*, int)", "place_kernel"),
+    ("Memset (Device)", "Memset"),
+    ("at::native::(anonymous namespace)::fill_reverse_indices_kernel(long*)",
+     "fill_reverse_indices_kernel"),
+])
+def test_kernel_names_are_shortened(name, want):
+    assert ktime.short_name(name) == want
+
+
+def test_run_lengths_of_ids():
+    """The share of rows an id names and the run statistics, against
+    numpy; ids outside [0, n_out) are not counted."""
+    rng = np.random.default_rng(3)
+    ids = rng.integers(-1, 60, 5000)
+    ids[:400] = 7                                   # one long run
+    got = ktime.run_lengths(torch.from_numpy(ids.astype(np.int32)), 50)
+    runs = np.bincount(ids[(ids >= 0) & (ids < 50)], minlength=50)
+    named = runs[runs > 0]
+    assert got["named"] == named.size / 50
+    assert got["median"] == np.median(named)
+    assert got["longest"] == named.max() and got["over32"] == (named > 32).sum()
+    assert abs(got["p99"] - np.quantile(named, 0.99)) < 1e-9
+    empty = ktime.run_lengths(torch.full((4,), -1, dtype=torch.int32), 3)
+    assert empty["named"] == 0.0 and empty["longest"] == 0
+
+
+def test_segment_bound_counts_rows_ids_and_table():
+    """(M + n_out) rows of 256 bytes and M ids of 4, over 3.35 TB/s."""
+    assert ktime.segment_bound_ms(216_135, 100_001) == pytest.approx(
+        ((216_135 + 100_001) * 256 + 4 * 216_135) / 3.35e12 * 1e3)
