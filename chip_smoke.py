@@ -143,7 +143,21 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      step 10) through ``pallas`` and through ``keys`` twice from the same
      state, every parameter and every step's loss and PSNR bitwise; the
      ``oracle`` and ``tiled`` gradients twice, printed as bitwise or not
-     (plain torch autograd). Any other mismatch fails the run.
+     (plain torch autograd). Any other mismatch fails the run;
+ 19. deep peels, more layers than one kernel's list holds (64), run in
+     passes above each pixel's floor: the keys kernel chained at depth 65,
+     96, 128 and 256 at 1M@256x192 bitwise one twin call, one launch a
+     pass, each pass timed (and 96 and 128 also cut into other passes);
+     the fused and top-K forwards chained at depth 128 at the fit
+     configuration and at 1M@256x192, slots (and top-K t1) bitwise one
+     twin call's;
+     ``render -d 128`` and a 3-frame ``orbit`` through the CLI at
+     1M@1920x1088 in 8 bands (2 keys launches a band); in process at depth
+     16, 64 and 128 the frame time, rays/s, each keys pass's time, peak
+     memory and the residual transmittance (mean, p99); 20 fit steps at
+     depth 128 through ``pallas`` and ``keys`` twice (PSNR must rise, every
+     parameter bitwise); one ``serve`` frame at depth 128, bitwise the
+     in-process render. Its kernels' launches join the kernels line.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -292,6 +306,14 @@ MICRO_F64 = dict(chunkbody=13 * SWEEP_F64)
 ULP_VARIANTS = ("exp", "exp2", "exp_where")
 SUM_RTOL = 1e-5
 SHADE_TOL = 1e-6
+# Deep peels (phase 19): more layers than one kernel's list holds, run in
+# passes above each pixel's floor. The chains against one twin call at
+# these depths; the CLI, fits and viewer at DEEP; frames at FRAME_DEPTHS;
+# and two ways to cut 96 and 128 layers into passes, timed side by side.
+CHAIN_DEPTHS = (65, 96, 128, 256)
+DEEP = 128
+FRAME_DEPTHS = (16, 64, 128)
+PASS_SPLITS = {96: ((64, 32), (48, 48)), 128: ((64, 64), (32, 32, 32, 32))}
 
 
 class SmokeFailure(Exception):
@@ -447,7 +469,7 @@ def camera(res, dev):
     return camera_from_fov(pos, rot, res, POSE["fov"], device=dev)
 
 
-def keys_inputs(g, cfg, dev):
+def keys_inputs(g, cfg, dev, cam=None):
     from rtgs_tpu_torch.ops.peel import CHUNK, _counts
     from rtgs_tpu_torch.render.binning import tile_candidates
     from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
@@ -455,7 +477,7 @@ def keys_inputs(g, cfg, dev):
                                              pack_features,
                                              precompute_features)
 
-    cam = camera(cfg["res"], dev)
+    cam = camera(cfg["res"], dev) if cam is None else cam
     packed = pack_features(precompute_features(g, cam))
     b = tile_candidates(g, cam, tile=TILE,
                         max_candidates=cfg["max_candidates"],
@@ -1164,12 +1186,14 @@ def step_stages(solver, kw):
     return out
 
 
-def refit_solver(g, ds, renderer, steps):
+def refit_solver(g, ds, renderer, steps, depth=DEPTH, budgets=CFG_FIT,
+                 densify=True):
     """The fitbench protocol's solver on the views ``ds``: the ground truth
     ``g`` perturbed (means σ 0.01, log-scales 0.3, color logits 0.5; numpy
-    seed 7), one density-control pass half way through ``steps`` and one
-    opacity reset after the last step (a reset inside them would leave no
-    steps to recover)."""
+    seed 7), one density-control pass half way through ``steps`` (none
+    without ``densify``) and one opacity reset after the last step (a
+    reset inside them would leave no steps to recover); the binning's
+    budgets from ``budgets``."""
     import numpy as np
     import torch
 
@@ -1186,15 +1210,20 @@ def refit_solver(g, ds, renderer, steps):
     params = params._replace(means=noisy(params.means, 0.01),
                              log_scales=noisy(params.log_scales, 0.3),
                              color_logits=noisy(params.color_logits, 0.5))
-    mid = steps // 2
+    mid = steps // 2 if densify else steps + 1
     cfg = TrainConfig(iterations=steps, densify_from=mid, densify_until=mid,
                       densify_every=mid, opacity_reset_every=steps,
                       checkpoint_every=0)
     return Solver(params=params, mask=g.mask, cfg=cfg,
                   cameras=list(ds.cameras), targets=list(ds.images),
-                  depth=DEPTH, renderer=renderer,
-                  render_kwargs=dict(max_candidates=CFG_FIT["max_candidates"],
-                                     max_global=CFG_FIT["max_global"]))
+                  depth=depth, renderer=renderer,
+                  render_kwargs=fit_render_kwargs(budgets))
+
+
+def fit_render_kwargs(cfg):
+    """The binning's budgets of ``cfg`` as the renderers take them."""
+    return dict(max_candidates=cfg["max_candidates"],
+                max_global=cfg["max_global"], bin_narrow=cfg["bin_narrow"])
 
 
 def phase8_fitbench(g, dev, renderer="pallas", phase=8):
@@ -2814,26 +2843,39 @@ def phase18_segment_shapes(dev):
     return out
 
 
-def train_twice(g, renderer):
-    """Phase 8's re-fit cut to FIT_CLI_STEPS steps (a density-control pass
-    half way), twice from the same state through ``renderer``; every
-    parameter, the mask and every step's loss and PSNR must be bitwise
-    equal. Returns the first and the last step's PSNR and the live splats.
-    """
-    import torch
-
+def fit_views(g, renderer, depth, cfg):
+    """FIT_VIEWS orbit views of ``g`` at ``cfg``'s resolution and budgets,
+    rendered through ``renderer`` at ``depth``."""
     from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
 
-    ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
-                                 fov=POSE["fov"], radius=POSE["r"],
-                                 depth=DEPTH, renderer=renderer,
-                                 max_candidates=CFG_FIT["max_candidates"],
-                                 max_global=CFG_FIT["max_global"])
+    return synthetic_orbit_dataset(g, FIT_VIEWS, cfg["res"], fov=POSE["fov"],
+                                   radius=POSE["r"], depth=depth,
+                                   renderer=renderer,
+                                   **fit_render_kwargs(cfg))
+
+
+def train_twice(g, renderer, depth=DEPTH, cfg=CFG_FIT, ds=None,
+                densify=True):
+    """Phase 8's re-fit cut to FIT_CLI_STEPS steps (a density-control pass
+    half way, unless not ``densify``), twice from the same state through
+    ``renderer`` at ``depth``, on ``ds`` (else :func:`fit_views` at
+    ``cfg``); every parameter, the mask and every step's loss and PSNR must be
+    bitwise equal. Returns the first and the last step's PSNR, the live
+    splats and the median step time of the second run (host clock with a
+    sync, ms)."""
+    import torch
+
+    ds = fit_views(g, renderer, depth, cfg) if ds is None else ds
     runs = []
     for _ in range(2):
-        solver = refit_solver(g, ds, renderer, FIT_CLI_STEPS)
-        log = [solver.train_step() for _ in range(FIT_CLI_STEPS)]
-        torch.cuda.synchronize()
+        solver = refit_solver(g, ds, renderer, FIT_CLI_STEPS, depth=depth,
+                              budgets=cfg, densify=densify)
+        log, times = [], []
+        for _ in range(FIT_CLI_STEPS):
+            t0 = time.perf_counter()
+            log.append(solver.train_step())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
         runs.append((solver.params, solver.mask, log))
     (pa, ma, la), (pb, mb, lb) = runs
     check(la == lb, f"{renderer}: the two fits logged other losses or PSNR")
@@ -2841,7 +2883,8 @@ def train_twice(g, renderer):
     for name, a, b in zip(pa._fields, pa, pb):
         check(torch.equal(a, b), f"{renderer}: the two fits end with another "
               f"{name}")
-    return la[0]["psnr"], lb[-1]["psnr"], int(mb.sum())
+    return (la[0]["psnr"], lb[-1]["psnr"], int(mb.sum()),
+            statistics.median(times))
 
 
 def grads_twice(render, g, cam, **kw):
@@ -2938,7 +2981,7 @@ def phase18_determinism(g100k, g1m, g4k, dev):
             + "; ".join(f"{r}: every parameter, the mask and every step's "
                         f"loss and PSNR bitwise equal (PSNR {first:.4f} -> "
                         f"{last:.4f} dB, {live} live)"
-                        for r, (first, last, live) in fits.items()))
+                        for r, (first, last, live, _) in fits.items()))
 
     cam_o = camera(SMALL_FIT["res"], dev)
     cam_t = camera(CFG_FIT["res"], dev)
@@ -2960,6 +3003,572 @@ def phase18_determinism(g100k, g1m, g4k, dev):
             + "; ".join(f"{k} {'bitwise' if v else 'NOT bitwise'}"
                         for k, v in scatters.items()))
     return seg, seg_1m, launches
+
+
+def keys_passes(packed, cand, counts, lb, pix, depths):
+    """The keys kernel in passes of ``depths`` layers, each above the last
+    winner of the one before (what ``peel_keys`` runs for
+    ``pass_depths``); returns (t1, sid) concatenated along K and each
+    pass's pair of CUDA events."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+
+    t1s, sids, events, floor = [], [], [], None
+    for k in depths:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t1, sid = peel_keys_cuda(packed, cand, counts, lb, pix, k,
+                                 floor=floor)
+        b.record()
+        t1s.append(t1)
+        sids.append(sid)
+        events.append((a, b))
+        floor = (t1[:, -1].contiguous(), sid[:, -1].contiguous())
+    return torch.cat(t1s, dim=1), torch.cat(sids, dim=1), events
+
+
+def pass_times(packed, cand, counts, lb, pix, depths, reps=5):
+    """Median CUDA-event ms of each pass of ``keys_passes`` after a
+    warm-up."""
+    import torch
+
+    per = [[] for _ in depths]
+    for rep in range(reps + 1):
+        events = keys_passes(packed, cand, counts, lb, pix, depths)[2]
+        torch.cuda.synchronize()
+        if rep:
+            for i, (a, b) in enumerate(events):
+                per[i].append(a.elapsed_time(b))
+    return [statistics.median(x) for x in per]
+
+
+def phase19_keys(g1m, dev):
+    """The keys kernel chained at CHAIN_DEPTHS against one twin call at
+    1M@256x192, bitwise, one launch a pass; each pass timed, and the two
+    cuts of PASS_SPLITS side by side."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, pass_depths, peel_keys,
+                                         peel_keys_cuda, peel_keys_torch)
+
+    _, packed, cand, counts, lb, pix = keys_inputs(g1m, CFG_1M_GATE, dev)
+    t, c = cand.shape
+    for depth in CHAIN_DEPTHS:
+        t1_t, sid_t = peel_keys_torch(packed, cand, pix, depth)
+        depths = tuple(pass_depths(depth))
+        before = peel_keys_cuda.launches
+        t1_k, sid_k = peel_keys(packed, cand, pix, depth, chunk_lb=lb,
+                                counts=counts)
+        torch.cuda.synchronize()
+        launched = peel_keys_cuda.launches - before
+        check(launched == len(depths), f"keys at depth {depth}: {launched} "
+              f"launches for {len(depths)} passes")
+        check(torch.equal(sid_k, sid_t) and torch.equal(t1_k, t1_t),
+              f"keys chained at depth {depth}: ids or t1 differ from one "
+              f"twin call at {int((sid_k != sid_t).sum())} entries")
+        past = int((sid_t[:, MAX_DEPTH:] >= 0).sum())
+        full = float((sid_t[:, -1] >= 0).float().mean())
+        cuts = []
+        for split in (depths,) + tuple(x for x in PASS_SPLITS.get(depth, ())
+                                       if x != depths):
+            t1_s, sid_s, _ = keys_passes(packed, cand, counts, lb, pix,
+                                         split)
+            check(torch.equal(sid_s, sid_t) and torch.equal(t1_s, t1_t),
+                  f"keys in passes {split}: differ from one twin call")
+            ms = pass_times(packed, cand, counts, lb, pix, split)
+            cuts.append(f"{'+'.join(map(str, split))}: {sum(ms):.3f} ms "
+                        f"({', '.join(f'{m:.3f}' for m in ms)})")
+        ms_twin = time_ms(lambda: peel_keys_torch(packed, cand, pix, depth),
+                          reps=3)
+        say(19, f"keys 1M@256x192 (T={t} C={c} P={pix.shape[1]}) at depth "
+                f"{depth}: {len(depths)} passes, ids and t1 bitwise one "
+                f"twin call, with the early exit; {past} winners past layer "
+                f"{MAX_DEPTH}, {full:.1%} of pixels fill all {depth} layers; "
+                f"kernel passes (CUDA events, median of 5) "
+                + "; ".join(cuts) + f"; twin {ms_twin:.1f} ms")
+        del t1_t, sid_t, t1_k, sid_k
+
+
+def phase19_peels(label, g, cfg, dev, need_deep=False):
+    """The fused and top-K forward kernels chained at DEEP at one
+    configuration: the passes' winners bitwise one twin call's (slots, and
+    the top-K t1), radiance, transmittance, α and rgb to FWD_ATOL; the
+    dispatchers' chains equal the passes chained by hand; their backward
+    against one twin call (:func:`deep_backward`; ``need_deep``: some
+    splat must win only past layer MAX_DEPTH). Returns each kernel's
+    largest error, by kernel."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, pass_depths, peel_fused,
+                                         peel_fused_cuda, peel_fused_torch,
+                                         peel_topk, peel_topk_cuda,
+                                         peel_topk_torch)
+
+    _, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
+    t, p = cand.shape[0], pix.shape[1]
+    depths = pass_depths(DEEP)
+    slots, floor = [], None
+    for k in depths:
+        last = torch.empty((t, p), device=dev)
+        _, _, sl = peel_fused_cuda(packed, cand, counts, pix, k, floor=floor,
+                                   out_last_t1=last)
+        slots.append(sl)
+        floor = (last, sl[:, -1].contiguous())
+    sl_k = torch.cat(slots, dim=1)
+    with torch.no_grad():
+        rad_k, tr_k = peel_fused(packed, cand, pix, DEEP)
+    rad_p, tr_p, sl_p = plain_in_bands(
+        lambda c, q: peel_fused_torch(packed, c, q, DEEP), t, cand, pix)
+    torch.cuda.synchronize()
+    check(torch.equal(sl_k, sl_p), f"fused chained at depth {DEEP}: slots "
+          f"differ from one twin call at {int((sl_k != sl_p).sum())} entries")
+    fwd_err = max(float((rad_k - rad_p).abs().max()),
+                  float((tr_k - tr_p).abs().max()))
+    check(fwd_err <= FWD_ATOL, f"fused chained at depth {DEEP}: max |kernel "
+          f"− twin| {fwd_err} > {FWD_ATOL}")
+
+    lays, slots, floor = [], [], None
+    for k in depths:
+        lay, sl = peel_topk_cuda(packed, cand, counts, pix, k, floor=floor)
+        lays.append(lay)
+        slots.append(sl)
+        floor = (lay[:, 0, -1].contiguous(), sl[:, -1].contiguous())
+    lay_k, slt_k = torch.cat(lays, dim=2), torch.cat(slots, dim=1)
+    with torch.no_grad():
+        via = torch.stack(peel_topk(packed, cand, pix, DEEP), dim=1)
+    check(torch.equal(via.transpose(2, 3), lay_k), "peel_topk differs from "
+          "its passes chained by hand")
+    lay_p, slt_p = plain_in_bands(
+        lambda c, q: peel_topk_torch(packed, c, q, DEEP), t, cand, pix)
+    torch.cuda.synchronize()
+    check(torch.equal(slt_k, slt_p) and torch.equal(lay_k[:, 0],
+                                                    lay_p[:, 0]),
+          f"top-K chained at depth {DEEP}: slots or t1 differ from one twin "
+          f"call")
+    topk_err = float((lay_k[:, 1:] - lay_p[:, 1:]).abs().max())
+    check(topk_err <= FWD_ATOL, f"top-K chained at depth {DEEP}: α/rgb "
+          f"max |kernel − twin| {topk_err} > {FWD_ATOL}")
+    check(torch.equal(slt_k, sl_k), "the top-K and fused chains picked "
+          "other winners")
+    past = int((sl_p[:, MAX_DEPTH:] >= 0).sum())
+    bwd = deep_backward(packed, cand, pix, sl_p, rad_k.shape, lay_k.shape,
+                        need_deep, dev)
+
+    def fused():
+        with torch.no_grad():
+            return peel_fused(packed, cand, pix, DEEP)
+
+    def topk():
+        with torch.no_grad():
+            return peel_topk(packed, cand, pix, DEEP)
+
+    say(19, f"fused and top-K at {label} (T={t} C={cand.shape[1]}) at "
+            f"depth {DEEP} in {len(depths)} passes: slots bitwise one twin "
+            f"call's (top-K t1 too), radiance/transmittance max |diff| "
+            f"{fwd_err:.2e}, α/rgb {topk_err:.2e}; {past} winners past layer "
+            f"{MAX_DEPTH}; peel_fused {time_ms(fused):.3f} ms, peel_topk "
+            f"{time_ms(topk):.3f} ms (CUDA events, median of 5; the "
+            f"wrappers' passes)")
+    say(19, f"backward of the chains at {label}, depth {DEEP}, under "
+            f"autograd with seeded cotangents: " + "; ".join(
+                f"{name}: {b['launches']} launches (one a pass), table "
+                f"gradient against one twin call's at depth {DEEP}: max "
+                f"|diff| {b['abs']:.3e}, per lane {b['lane']:.3e} of the "
+                f"lane's largest, on the {b['deep_rows']} splats that win "
+                f"only past layer {MAX_DEPTH} {b['deep_lane']:.3e} of their "
+                f"lane's largest (limit {BWD_LANE_RTOL:g} both)"
+                for name, b in bwd.items()))
+    return dict(peel_fwd=fwd_err, peel_topk_fwd=topk_err,
+                peel_bwd=bwd["peel_fused"]["abs"],
+                peel_topk_bwd=bwd["peel_topk"]["abs"])
+
+
+def deep_backward(packed, cand, pix, slots, rad_shape, lay_shape,
+                  need_deep, dev):
+    """The fused and top-K chains' backward at DEEP under autograd, on
+    seeded cotangents, against one twin backward at DEEP on the twin's
+    winners ``slots``: the (N+1, 64) table gradient held by
+    ``table_errors``, and again on the rows of the splats that win only
+    past layer MAX_DEPTH (those reach the table through the later passes
+    alone, so a fault there shows against their own scale). The backward
+    kernels must run once a pass. Returns, by path, the launches and the
+    errors."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, _safe_ids, pass_depths,
+                                          peel_fused,
+                                         peel_fused_bwd_cuda,
+                                         peel_fused_bwd_torch, peel_topk,
+                                         peel_topk_bwd_cuda,
+                                         peel_topk_bwd_torch)
+
+    t = cand.shape[0]
+    # Bit 1: the splat wins a layer below MAX_DEPTH somewhere; bit 2: past.
+    won_at = torch.zeros(packed.shape[0], dtype=torch.int32, device=dev)
+    for s in range(0, t, PLAIN_BAND):
+        band = slots[s:s + PLAIN_BAND]
+        sid = _safe_ids(packed, cand[s:s + PLAIN_BAND].gather(
+            1, band.clamp(min=0).flatten(1).long()).where(
+                band.flatten(1) >= 0, -1)).reshape(band.shape)
+        won_at[sid[:, :MAX_DEPTH].reshape(-1)] |= 1
+        won_at[sid[:, MAX_DEPTH:].reshape(-1)] |= 2
+    deep_rows = won_at == 2
+    deep_rows[-1] = False
+    n_deep = int(deep_rows.sum())
+    check(n_deep > 0 or not need_deep, f"no splat wins only past layer "
+          f"{MAX_DEPTH}: the later passes' backward goes unchecked")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g_rad = torch.randn(rad_shape, generator=gen, device=dev)
+    g_tr = torch.randn(rad_shape[:1] + rad_shape[2:], generator=gen,
+                       device=dev)
+    g_lay = torch.randn(lay_shape, generator=gen, device=dev)
+    g_lay[:, 0] = 0.0                       # t1's cotangent is dropped
+
+    def through(run, counter):
+        leaf = packed.detach().clone().requires_grad_()
+        before = counter.launches
+        outs, cots = run(leaf)
+        torch.autograd.backward(outs, cots)
+        torch.cuda.synchronize()
+        return leaf.grad, counter.launches - before
+
+    d_f, n_f = through(lambda x: (peel_fused(x, cand, pix, DEEP),
+                                  (g_rad, g_tr)), peel_fused_bwd_cuda)
+    ref_f = table_in_bands(
+        packed, lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
+            packed, c, q, sl, gr, gt), t, cand, pix, slots, g_rad, g_tr)
+    lay_cots = tuple(g_lay.transpose(2, 3).unbind(1))
+    d_t, n_t = through(lambda x: (peel_topk(x, cand, pix, DEEP), lay_cots),
+                       peel_topk_bwd_cuda)
+    ref_t = table_in_bands(
+        packed, lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl,
+                                                         gl),
+        t, cand, pix, slots, g_lay[:, 1:])
+    out = {}
+    n_pass = len(pass_depths(DEEP))
+    for name, got, ref, n in (("peel_fused", d_f, ref_f, n_f),
+                              ("peel_topk", d_t, ref_t, n_t)):
+        check(n == n_pass, f"{name} at depth {DEEP}: the backward kernel "
+              f"ran {n} times for {n_pass} passes")
+        abs_err, lane = table_errors(f"{name} backward at depth {DEEP}", got,
+                                     ref)
+        deep_lane = 0.0
+        if n_deep:
+            got, ref = got[deep_rows], ref[deep_rows]
+            deep_lane = float(((got - ref).abs().amax(dim=0)
+                               / (ref.abs().amax(dim=0) + 1e-30)).max())
+            check(deep_lane <= BWD_LANE_RTOL, f"{name} backward at depth "
+                  f"{DEEP}: per-lane error {deep_lane} > {BWD_LANE_RTOL} on "
+                  f"the splats that win only past layer {MAX_DEPTH}")
+        out[name] = dict(launches=n, abs=abs_err, lane=lane,
+                         deep_lane=deep_lane, deep_rows=n_deep)
+    return out
+
+
+def deep_frame(g, cam, depth, kw):
+    """One banded keys frame at ``depth`` as ``render_tiled_keys`` runs it,
+    its keys passes launched here and timed: returns (the image, each
+    pass's ms summed over the bands, the shade and composite ms, the
+    residual transmittance (T, P) Π(1 − α), and which pixels have a hit
+    (T, P))."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import CHUNK, pass_depths
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             _tiles_to_image,
+                                             composite_layers_kp,
+                                             entry_lower_bound,
+                                             pack_features,
+                                             precompute_features,
+                                             shade_winners_kp)
+
+    w, h = cam.buf_size
+    packed = pack_features(precompute_features(g, cam))
+    pix = _tile_pixel_features(cam, TILE)
+    b = tile_candidates(g, cam, tile=TILE,
+                        max_candidates=kw["max_candidates"],
+                        max_global=kw["max_global"],
+                        narrow=kw["bin_narrow"], chunk=CHUNK,
+                        entry_lb=entry_lower_bound(g, cam, packed))
+    t = b.candidates.shape[0]
+    nb = -(-t // kw["tile_bands"])
+    depths = pass_depths(depth)
+    keys_ev, shade_ev, rads, trans, hit = [], [], [], [], []
+    for s in range(0, t, nb):
+        _, sid, ev = keys_passes(packed, b.candidates[s:s + nb],
+                                 b.counts[s:s + nb], b.chunk_lb[s:s + nb],
+                                 pix[s:s + nb], depths)
+        keys_ev.append(ev)
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        a.record()
+        layers = shade_winners_kp(packed, sid, pix[s:s + nb])
+        rads.append(composite_layers_kp(*layers))
+        e.record()
+        shade_ev.append((a, e))
+        trans.append(torch.prod(1.0 - layers[0], dim=1))
+        hit.append(sid[:, 0] >= 0)
+    torch.cuda.synchronize()
+    per_pass = [sum(ev[i][0].elapsed_time(ev[i][1]) for ev in keys_ev)
+                for i in range(len(depths))]
+    shade = sum(a.elapsed_time(e) for a, e in shade_ev)
+    img = _tiles_to_image(torch.cat(rads), b.n_tiles_x, b.n_tiles_y,
+                          TILE)[:w, :h]
+    return img, per_pass, shade, torch.cat(trans), torch.cat(hit)
+
+
+def phase19_frames(g1m, dev, tmp):
+    """``render -d DEEP`` and a 3-frame ``orbit`` through the CLI at
+    1M@1920x1088 in 8 bands (the keys kernel once a pass a band), then in
+    process at FRAME_DEPTHS: frame time and rays/s, each keys pass's ms,
+    shade, peak memory and the residual transmittance. Returns the keys
+    launches of the CLI run."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.ops.peel import pass_depths, peel_keys_cuda
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+    from rtgs_tpu_torch.scene import save_scene
+
+    ply = tmp / "scene_1m.ply"
+    save_scene(ply, g1m)
+    w, h = FULL_RES
+    argv = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEEP),
+            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+            "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+            "--max-candidates", "3584", "--tile-bands", str(BANDS),
+            "--bin-narrow", "4", "--renderer", "keys", "--device", "cuda"]
+    peel_keys_cuda.launches = 0
+    t0 = time.perf_counter()
+    cli(["render", *argv, "--output", str(tmp / "deep.npy")])
+    cli(["orbit", *argv, "--frames", str(ORBIT_FRAMES),
+         "--output", str(tmp / "deep_orbit")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = peel_keys_cuda.launches
+    frames = 1 + ORBIT_FRAMES
+    want = BANDS * len(pass_depths(DEEP)) * frames
+    check(launches == want, f"deep CLI: keys kernel launched {launches} "
+          f"times, expected {want}")
+    saved = [tmp / "deep.npy"] + sorted((tmp / "deep_orbit").glob("frame_*"))
+    check(len(saved) == frames and saved[0].is_file(),
+          f"deep CLI: expected {frames} frames, found "
+          f"{[p.name for p in saved]}")
+    for p in saved:
+        if p.suffix == ".npy":
+            img8 = np.load(p)
+            check(img8.shape == (h, w, 3) and img8.max() > 0,
+                  f"deep CLI {p.name}: shape {img8.shape}, max {img8.max()}")
+    say(19, f"CLI render + orbit --frames {ORBIT_FRAMES} at depth {DEEP}, "
+            f"1M@{w}x{h}, {BANDS} bands: {frames} frames in {wall:.2f} s "
+            f"wall (scene loads included); keys launches {launches} "
+            f"({len(pass_depths(DEEP))} passes a band)")
+
+    cam = camera(FULL_RES, dev)
+    kw = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
+              bin_narrow=4)
+    for depth in FRAME_DEPTHS:
+        with torch.inference_mode():
+            def frame():
+                out = render_tiled_keys(g1m, cam, depth=depth, tile=TILE,
+                                        **kw)
+                torch.cuda.synchronize()
+                return out
+
+            torch.cuda.reset_peak_memory_stats()
+            ref = frame()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            host = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                frame()
+                host.append((time.perf_counter() - t0) * 1e3)
+            frame_ms = statistics.median(host)
+            img, per_pass, shade, trans, hit = deep_frame(g1m, cam, depth,
+                                                          kw)
+        check(torch.equal(img, ref), f"depth {depth}: the frame with its "
+              f"passes launched here differs from render_tiled_keys")
+        check(bool(torch.isfinite(ref).all()) and float(ref.max()) > 0.05,
+              f"depth {depth}: image not finite or black")
+        tr, tr_hit = trans.reshape(-1), trans[hit]
+        say(19, f"frame 1M@{w}x{h} at depth {depth} ({BANDS} bands): "
+                f"{frame_ms:.2f} ms (host clock with sync, median of 3) = "
+                f"{w * h / frame_ms * 1e3 / 1e6:.2f} M rays/s; keys passes "
+                f"{', '.join(f'{m:.2f}' for m in per_pass)} ms (summed over "
+                f"the bands, CUDA events), shade+composite {shade:.2f} ms; "
+                f"peak device memory {peak:.2f} GiB; residual "
+                f"transmittance mean {float(tr.mean()):.4f}, p99 "
+                f"{float(torch.quantile(tr, 0.99)):.4f}, share of pixels "
+                f"above 0.01 {float((tr > 0.01).float().mean()):.2%}; over "
+                f"the {tr_hit.numel()} pixels with a hit mean "
+                f"{float(tr_hit.mean()):.4f}, p99 "
+                f"{float(torch.quantile(tr_hit, 0.99)):.4f}, above 0.01 "
+                f"{float((tr_hit > 0.01).float().mean()):.2%}")
+        del img, ref, trans, hit
+    return launches
+
+
+def winners_past(g, cams, cfg, dev):
+    """Per view, the keys path's winners at DEEP past layer MAX_DEPTH."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import MAX_DEPTH, peel_keys
+
+    out = []
+    for cam in cams:
+        _, packed, cand, counts, lb, pix = keys_inputs(g, cfg, dev, cam=cam)
+        with torch.no_grad():
+            sid = peel_keys(packed, cand, pix, DEEP, chunk_lb=lb,
+                            counts=counts)[1]
+        out.append(int((sid[:, MAX_DEPTH:] >= 0).sum()))
+    return out
+
+
+def density_cost(g1m, deep_views):
+    """What the density pass does to the 1M@256x192 fit: the last step's
+    PSNR of FIT_CLI_STEPS `pallas` steps with the pass at step 10 and
+    without, at DEPTH and at DEEP (``deep_views``: the views at DEEP).
+    Printed, not checked: it says why phase 19's 1M fit runs without."""
+    out = []
+    for depth in (DEPTH, DEEP):
+        ds = (deep_views if depth == DEEP
+              else fit_views(g1m, "pallas", depth, CFG_1M_GATE))
+        mid, psnr = FIT_CLI_STEPS // 2, {}
+        for densify in (True, False):
+            solver = refit_solver(g1m, ds, "pallas", FIT_CLI_STEPS,
+                                  depth=depth, budgets=CFG_1M_GATE,
+                                  densify=densify)
+            log = [solver.train_step()["psnr"] for _ in range(FIT_CLI_STEPS)]
+            psnr[densify] = " / ".join(f"{log[i]:.4f}"
+                                       for i in (0, mid - 1, mid, -1))
+        out.append(f"depth {depth}: PSNR at steps 1, {mid}, {mid + 1}, "
+                   f"{FIT_CLI_STEPS} with the pass {psnr[True]}, without "
+                   f"{psnr[False]}")
+    say(19, f"the density pass at step {FIT_CLI_STEPS // 2} on the "
+            f"1M@256x192 fit through pallas: " + "; ".join(out))
+
+
+def phase19_fits_serve(g100k, g1m, dev):
+    """20 fit steps at DEEP through ``pallas`` and ``keys``, twice each,
+    at the fit cell (100k@512x384, where no pixel has more than MAX_DEPTH
+    hits) and at 1M@256x192 (where some do, so the later passes carry
+    winners forward and gradients back): PSNR must rise and every
+    parameter repeat bitwise; then one ``serve`` frame at DEEP, bitwise the
+    in-process render. The 1M fit runs without the density pass, which
+    lowers that fit's PSNR at depth 16 as at DEEP (:func:`density_cost`
+    prints by how much). Returns the launches of the kernels on these
+    paths."""
+    import argparse
+    import threading
+
+    import torch
+
+    from rtgs_tpu_torch.camera import image_to_display
+    from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, pass_depths,
+                                         peel_fused_bwd_cuda,
+                                         peel_fused_cuda, peel_keys_cuda,
+                                         segment_rows_cuda)
+    from rtgs_tpu_torch.render.api import render
+    from rtgs_tpu_torch.utils.image import decode_png, to_uint8
+    from rtgs_tpu_torch.viewer.server import make_server
+
+    deep_ds = {r: fit_views(g1m, r, DEEP, CFG_1M_GATE)
+               for r in ("pallas", "keys")}
+    past = winners_past(g1m, deep_ds["keys"].cameras, CFG_1M_GATE, dev)
+    check(sum(past) > 0, f"the 1M fit's views have no winner past layer "
+          f"{MAX_DEPTH} at depth {DEEP}")
+    density_cost(g1m, deep_ds["pallas"])
+    counters = (peel_keys_cuda, peel_fused_cuda, peel_fused_bwd_cuda,
+                segment_rows_cuda)
+    for f in counters:
+        f.launches = 0
+    n_pass = len(pass_depths(DEEP))
+    fits = {}
+    w, h = CFG_FIT["res"]
+    for cell, g, cfg, views in ((f"100k@{w}x{h}", g100k, CFG_FIT, {}),
+                                ("1M@256x192", g1m, CFG_1M_GATE, deep_ds)):
+        for r in ("pallas", "keys"):
+            torch.cuda.reset_peak_memory_stats()
+            fits[cell, r] = train_twice(g, r, depth=DEEP, cfg=cfg,
+                                        ds=views.get(r),
+                                        densify=g is g100k) + (
+                torch.cuda.max_memory_allocated() / 2**30,)
+            first, last = fits[cell, r][:2]
+            check(last > first, f"fit at {cell}, depth {DEEP} through {r}: "
+                  f"PSNR {first:.4f} -> {last:.4f} dB did not rise")
+    want = 2 * sum(r == "pallas" for _, r in fits) * FIT_CLI_STEPS * n_pass
+    check(peel_fused_bwd_cuda.launches == want,
+          f"pallas fits at depth {DEEP}: {peel_fused_bwd_cuda.launches} "
+          f"backward launches, expected {want}")
+    launches = {f.__name__: f.launches for f in counters}
+    say(19, f"{FIT_CLI_STEPS} fit steps at depth {DEEP} ({n_pass} passes), "
+            f"twice from the same state (the 1M@256x192 views have "
+            f"{sum(past)} winners past layer {MAX_DEPTH}, "
+            f"{min(past)}-{max(past)} a view; no density pass there): "
+            + "; ".join(f"{cell} {r}: every parameter, the mask and every "
+                        f"step's loss and PSNR bitwise equal, PSNR {a:.4f} "
+                        f"-> {b:.4f} dB, {live} live, step {ms:.2f} ms (host "
+                        f"clock with sync, median), peak {peak:.2f} GiB"
+                        for (cell, r), (a, b, live, ms, peak) in fits.items())
+            + f"; launches {launches}")
+    del deep_ds
+
+    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEEP,
+                              renderer="keys", radius=POSE["r"], port=0)
+    server, session = make_server(g1m, args, render_kwargs=SERVE_KW)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        peel_keys_cuda.launches = 0
+        t0 = time.perf_counter()
+        png = http_get(port, "/frame")
+        total = (time.perf_counter() - t0) * 1e3
+        n = peel_keys_cuda.launches
+        launches["peel_keys_cuda"] += n
+        check(n == BANDS * n_pass, f"serve at depth {DEEP}: a frame launched "
+              f"the keys kernel {n} times, expected {BANDS * n_pass}")
+        with torch.inference_mode():
+            ref = render(g1m, session.camera(), depth=DEEP, renderer="keys",
+                         **SERVE_KW)
+            ref8 = to_uint8(image_to_display(ref).cpu().numpy())
+        got = decode_png(png)
+        check(got.shape == (FULL_RES[1], FULL_RES[0], 3)
+              and bool((got == ref8).all()), f"serve at depth {DEEP}: the "
+              f"PNG frame is not bitwise the in-process render")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve: the server thread did not stop")
+    t = {k: v * 1e3 for k, v in session.timings.items()}
+    say(19, f"serve at depth {DEEP}, 1M@{FULL_RES[0]}x{FULL_RES[1]}: GET "
+            f"/frame {total:.1f} ms (render {t['render']:.1f}, PNG "
+            f"{t['encode']:.1f}), bitwise the in-process render; keys "
+            f"launches {n}")
+    return launches
+
+
+def phase19_deep(g100k, g1m, dev):
+    """Phase 19: peels deeper than one kernel's list. Returns the launches
+    of the deep main path (CLI, fits, viewer) and the largest
+    kernel-against-twin error, each by kernel."""
+    phase19_keys(g1m, dev)
+    w, h = CFG_FIT["res"]
+    fit = phase19_peels(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    big = phase19_peels("1M@256x192", g1m, CFG_1M_GATE, dev, need_deep=True)
+    errs = {k: max(fit[k], big[k]) for k in fit}
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_keys = phase19_frames(g1m, dev, pathlib.Path(tmp))
+    launches = phase19_fits_serve(g100k, g1m, dev)
+    launches["peel_keys_cuda"] += cli_keys
+    for name, n in launches.items():
+        check(n > 0, f"{name} was launched no time on the deep main path")
+    return launches, errs
 
 
 def run():
@@ -3042,7 +3651,13 @@ def run():
     phase17_bvh_profiling(g1m, g100k, dev)
     seg_fit, seg_1m, seg_bench = phase18_determinism(g100k, g1m, g4k, dev)
     seg = seg_fit["pair rows"]
-    del g1m, g100k, g4k
+    del g4k
+    deep, deep_err = phase19_deep(g100k, g1m, dev)
+    launches += deep["peel_keys_cuda"]
+    fwd_launches += deep["peel_fused_cuda"]
+    bwd_launches += deep["peel_fused_bwd_cuda"]
+    seg_launches += deep["segment_rows_cuda"]
+    del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
 
@@ -3082,19 +3697,23 @@ def run():
              max(case_100k["max_abs_err"], case_1m["max_abs_err"]),
              case_100k["ms"], case_100k["ms_twin"], case_100k["shape"]),
         peel("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
-             max(fused_fit["fwd_err"], fused_1m["fwd_err"]),
+             max(fused_fit["fwd_err"], fused_1m["fwd_err"],
+                 deep_err["peel_fwd"]),
              fused_fit["ms"], fused_fit["ms_plain"], fused_fit["shape"]),
         peel("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
-             max(fused_fit["bwd_err"], fused_1m["bwd_err"]),
+             max(fused_fit["bwd_err"], fused_1m["bwd_err"],
+                 deep_err["peel_bwd"]),
              fused_fit["ms_pairs"], fused_fit["ms_pairs_plain"],
              fused_fit["shape"]),
         peel("peel_topk_fwd", "peel_topk_fwd.cu", 892,
              topk_fit["launches"][0] + topk_1m["launches"][0],
-             max(topk_fit["fwd_err"], topk_1m["fwd_err"]),
+             max(topk_fit["fwd_err"], topk_1m["fwd_err"],
+                 deep_err["peel_topk_fwd"]),
              topk_fit["ms"], topk_fit["ms_plain"], topk_fit["shape"]),
         peel("peel_topk_bwd", "peel_topk_bwd.cu", 913,
              topk_fit["launches"][1] + topk_1m["launches"][1],
-             max(topk_fit["bwd_err"], topk_1m["bwd_err"]),
+             max(topk_fit["bwd_err"], topk_1m["bwd_err"],
+                 deep_err["peel_topk_bwd"]),
              topk_fit["ms_pairs"], topk_fit["ms_pairs_plain"],
              topk_fit["shape"]),
         # The probe families: times, bounds and plain times summed over the
@@ -3136,7 +3755,8 @@ def run():
            f"segment_rows' the fused backward's pair rows there (launches: "
            f"the fused fit's and the keys fit's; {seg_bench} more in phase "
            f"18's 1M forward+backward), keys_sid's 100k@640x384; the probe "
-           f"families' are sums over their variants")
+           f"families' are sums over their variants; launches include "
+           f"phase 19's deep main path ({deep})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Inputs are read field by field with ``np.asarray``, so a JAX ``Gaussians``,
 ``Camera``, ``Rays`` or ``SceneParams``, a plain namespace or a mapping of
 arrays all work, and this module never imports JAX. The tests use it to
 feed one scene, one camera, one ray bundle, one parameter set and one Adam
-state to both packages.
+state to both packages. Each ``*_from_numpy`` builds its tensors on
+``device``, the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -18,15 +19,17 @@ import torch
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera, new_camera
 from rtgs_tpu_torch.rays import Rays
+from rtgs_tpu_torch.utils.device import resolve_device
 
 
 def _field(src, name):
     return src[name] if isinstance(src, Mapping) else getattr(src, name)
 
 
-def gaussians_from_numpy(src, device="cpu") -> G.Gaussians:
+def gaussians_from_numpy(src, device="cuda") -> G.Gaussians:
     """A port :class:`~rtgs_tpu_torch.gaussians.Gaussians` from any object
     or mapping holding the seven scene fields."""
+    device = resolve_device(device)
     return G.Gaussians(**{
         f: torch.from_numpy(np.array(_field(src, f), np.float32)).to(device)
         for f in G.FIELDS})
@@ -37,7 +40,7 @@ def gaussians_to_numpy(g: G.Gaussians) -> Dict[str, np.ndarray]:
     return {f: getattr(g, f).detach().cpu().numpy() for f in G.FIELDS}
 
 
-def camera_from_numpy(src, device="cpu") -> Camera:
+def camera_from_numpy(src, device="cuda") -> Camera:
     """A port :class:`~rtgs_tpu_torch.camera.Camera` from any object or
     mapping with ``position``, ``rotation``, ``focal_length`` and
     ``buf_size``."""
@@ -56,9 +59,10 @@ def camera_to_numpy(cam: Camera) -> dict:
     }
 
 
-def rays_from_numpy(src, device="cpu"):
+def rays_from_numpy(src, device="cuda"):
     """A port :class:`~rtgs_tpu_torch.rays.Rays` from any object or mapping
     with ``origins``, ``directions``, ``starts`` and ``ends``."""
+    device = resolve_device(device)
     return Rays(*(
         torch.from_numpy(np.array(_field(src, f), np.float32)).to(device)
         for f in Rays._fields))
@@ -70,9 +74,10 @@ def rays_to_numpy(rays) -> Dict[str, np.ndarray]:
             zip(rays._fields, rays)}
 
 
-def params_from_numpy(src, device="cpu"):
+def params_from_numpy(src, device="cuda"):
     """A port :class:`~rtgs_tpu_torch.train.solver.SceneParams` from any
     object or mapping holding the six raw parameter fields."""
+    device = resolve_device(device)
     from rtgs_tpu_torch.train.solver import SceneParams
 
     return SceneParams(*(

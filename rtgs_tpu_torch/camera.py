@@ -17,6 +17,7 @@ import torch
 
 from rtgs_tpu_torch.rays import Rays
 from rtgs_tpu_torch.utils import quaternion as quat
+from rtgs_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass
@@ -41,7 +42,11 @@ class Camera:
 
 
 def new_camera(position, rotation, buf_size, focal_length,
-               device="cpu") -> Camera:
+               device="cuda") -> Camera:
+    """A camera on ``device``, the card unless the caller asks for the
+    CPU."""
+    device = resolve_device(device)
+
     def f32(x):
         if isinstance(x, torch.Tensor):
             return x.to(device=device, dtype=torch.float32)
@@ -53,9 +58,10 @@ def new_camera(position, rotation, buf_size, focal_length,
 
 
 def camera_from_fov(position, rotation, buf_size, fov_deg: float,
-                    device="cpu") -> Camera:
+                    device="cuda") -> Camera:
     """Camera from a vertical FOV in degrees:
-    ``focal = (H/2)/tan(fov·π/360)`` on both axes."""
+    ``focal = (H/2)/tan(fov·π/360)`` on both axes; on ``device``, the card
+    unless asked."""
     focal = (buf_size[1] / 2.0) / math.tan(fov_deg * math.pi / 360.0)
     return new_camera(position, rotation, buf_size, (focal, focal), device)
 

@@ -20,6 +20,7 @@ import math
 import torch
 
 from rtgs_tpu_torch.utils import quaternion as quat
+from rtgs_tpu_torch.utils.device import resolve_device
 
 BOUNDING_THRESHOLD = 3.0
 
@@ -69,9 +70,12 @@ class Gaussians:
 
 def new_gaussians(means, quats=None, scales=None, colors=None,
                   opacities=None, sh=None, mask=None,
-                  device="cpu") -> Gaussians:
+                  device="cuda") -> Gaussians:
     """Constructor with the reference's defaults: identity rotation, unit
-    scale, magenta color, opacity 1, zero SH, all live."""
+    scale, magenta color, opacity 1, zero SH, all live; on ``device``, the
+    card unless the caller asks for the CPU."""
+    device = resolve_device(device)
+
     def f32(x):
         if isinstance(x, torch.Tensor):
             return x.to(device=device, dtype=torch.float32)

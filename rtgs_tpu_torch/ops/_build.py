@@ -99,10 +99,10 @@ def build() -> pathlib.Path:
 # as an int.
 _P, _I, _F = "ptr", "int", "float"
 SIGNATURES = {
-    "rtgs_keys_sid": (_P,) * 8 + (_I,) * 5 + (_P,),
-    "rtgs_peel_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
+    "rtgs_keys_sid": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "rtgs_peel_fwd": (_P,) * 11 + (_I,) * 5 + (_P,),
     "rtgs_peel_bwd": (_P,) * 10 + (_I,) * 5 + (_P,),
-    "rtgs_peel_topk_fwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "rtgs_peel_topk_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
     "rtgs_peel_topk_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
     "rtgs_segment_rows": (_P,) * 4 + (_I,) * 3 + (_P,),
     "rtgs_probe_micro": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),

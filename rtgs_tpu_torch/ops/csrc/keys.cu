@@ -45,6 +45,14 @@
 // the sweep stops, with the result exactly the full sweep's. Thread p
 // writes out[t, k, p], which coalesces.
 //
+// Depth. A list holds at most kMaxDepth = 64 pairs in registers (at K = 64
+// already 128 registers a thread, one block an SM; K = 128 would spill).
+// A deeper peel runs in passes (rtgs_tpu_torch.ops.peel.peel_keys): pass
+// j + 1 gets pass j's last winner per pixel, (out_t1, out_sid)[:, K − 1],
+// as its floor, and lists only the pairs lexicographically after it
+// (Floor, peel_common.cuh). The floor only removes candidates, so the early
+// exit stays exact.
+//
 // Numerics. B² and 4A·c0 nearly cancel in Δ (their ratio is within
 // ~3/|Σ^-½e|² of 1), so an f32 chain loses up to ~1e-3 of t1 at bench
 // splat sizes; the deciding chain runs in float64 from the f32 tables and
@@ -67,6 +75,8 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
                     const int* __restrict__ counts,
                     const float* __restrict__ chunk_lb,
                     const float* __restrict__ pix,
+                    const float* __restrict__ floor_t1,
+                    const int* __restrict__ floor_sid,
                     float* __restrict__ out_t1, int* __restrict__ out_sid,
                     unsigned long long* __restrict__ screen_counts, int C,
                     int P, int depth) {
@@ -84,6 +94,8 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
     const float* q =
         pix + (static_cast<size_t>(t) * P + (active ? p : P - 1)) * kPixFeat;
     const SweepPixel px = load_sweep_pixel(q);
+    const Floor fl = load_floor(floor_t1, floor_sid,
+                                static_cast<size_t>(t) * P + (active ? p : 0));
     stage_pixel_max(stage, q);
 
     float kt[K];
@@ -100,7 +112,7 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
       stage_chunk(stage, packed, cand_t, c);
       __syncthreads();
       if (active)
-        sweep_chunk<K, true, kCount>(stage, 0, px, kt, ks, n_pairs,
+        sweep_chunk<K, true, kCount>(stage, 0, px, fl, kt, ks, n_pairs,
                                      n_rejected);
     }
 
@@ -125,12 +137,14 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
 
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32,
-// chunk_lb (T, C/128 + 1) f32, pix (T, P, 24) f32, outputs (T, depth, P);
+// chunk_lb (T, C/128 + 1) f32, pix (T, P, 24) f32, floor_t1 (T, P) f32 and
+// floor_sid (T, P) i32 (both null: no floor), outputs (T, depth, P);
 // screen_counts: null, or two 64-bit counters the kernel adds the evaluated
 // and the screened-out (pixel, live candidate) pairs into.
 extern "C" int rtgs_keys_sid(const float* packed, const int* cand,
                              const int* counts, const float* chunk_lb,
-                             const float* pix, float* out_t1, int* out_sid,
+                             const float* pix, const float* floor_t1,
+                             const int* floor_sid, float* out_t1, int* out_sid,
                              unsigned long long* screen_counts, int T, int C,
                              int P, int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
@@ -138,12 +152,12 @@ extern "C" int rtgs_keys_sid(const float* packed, const int* cand,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (screen_counts)
       keys_sid_kernel<K, true><<<T, threads_for(P), 0, s>>>(
-          packed, cand, counts, chunk_lb, pix, out_t1, out_sid, screen_counts,
-          C, P, depth);
+          packed, cand, counts, chunk_lb, pix, floor_t1, floor_sid, out_t1,
+          out_sid, screen_counts, C, P, depth);
     else
       keys_sid_kernel<K, false><<<T, threads_for(P), 0, s>>>(
-          packed, cand, counts, chunk_lb, pix, out_t1, out_sid, nullptr, C, P,
-          depth);
+          packed, cand, counts, chunk_lb, pix, floor_t1, floor_sid, out_t1,
+          out_sid, nullptr, C, P, depth);
   });
 }
 

@@ -3,7 +3,8 @@
 // peel_topk_bwd.cu) on Hopper (sm_90a): the exact f32 screen in front of the
 // float64 entry depth, the staging of a candidate chunk and its sweep into
 // a pixel's top-K list (by splat id for the keys kernel, by candidate slot
-// for the peels: sweep_topk), the f32 shading of one winner, the contraction of the winners'
+// for the peels: sweep_topk) above the pixel's floor (a deep peel runs in
+// passes), the f32 shading of one winner, the contraction of the winners'
 // per-layer gradient scalars over a tile's pixels into one row a (tile,
 // slot) pair (stage 1 of the backward; segment_rows.cu adds the pairs' rows
 // into the (N+1, 64) feature table), and the launch dispatch over the list
@@ -66,6 +67,35 @@ constexpr int kGradScalars = 7;  // gradient scalars a winning layer
 
 __device__ __forceinline__ bool lex_less(float ta, int sa, float tb, int sb) {
   return ta < tb || (ta == tb && sa < sb);
+}
+
+// A pixel's floor in a deep peel. A list holds at most kMaxDepth pairs, so
+// a deeper peel runs in passes of at most kMaxDepth layers, as the
+// reference peels one layer a launch past the hit it consumed: pass j + 1
+// takes, per pixel, the (t1, key) of pass j's last winner, and only pairs
+// lexicographically after it may enter its list. The pairs a pixel gets
+// over the passes are then those one list of the whole depth would hold,
+// in the same order, ties included (keys are distinct within a tile: splat
+// ids, which the binning lists at most once a tile, or candidate slots).
+// The floor is the previous pass's output, the t1 rounded to f32 once, so
+// the comparison sees the very value the list held. A vacant last winner
+// (t1 = +inf, the key −1 as written or INT_MAX in a list) admits nothing:
+// its key becomes INT_MAX, and every t1 is ≤ +inf and every key ≤ INT_MAX.
+struct Floor {
+  float t1;
+  int key;
+};
+
+// No floor: every hit (t1 > 0) lies after it.
+__device__ __forceinline__ Floor no_floor() { return {-CUDART_INF_F, INT_MIN}; }
+
+// The floor of pixel i of the (T, P) floor arrays, or none if they are null.
+__device__ __forceinline__ Floor load_floor(const float* __restrict__ t1,
+                                            const int* __restrict__ key,
+                                            size_t i) {
+  if (t1 == nullptr) return no_floor();
+  const float ft = t1[i];
+  return {ft, ft < CUDART_INF_F ? key[i] : INT_MAX};
 }
 
 // ---------------------------------------------------------------------------
@@ -245,17 +275,18 @@ constexpr int kBatch = 32;  // candidates screened before their survivors run
 // candidates at once (independent f32 chains); then the pixel's survivors
 // of the batch run, in increasing slot order, through the float64 chain
 // (operations and order of rtgs_tpu_torch.ops.peel.entry_depth), and a hit
-// that beats the K-th pair is inserted with one unrolled compare-exchange
-// pass: a warp takes as many float64 turns as its busiest lane has
-// survivors, not one a candidate that any lane kept. The list is ordered by
-// (t1, key), the key being the candidate's id (kById) or its slot
-// slot_base + i; candidates arrive in increasing slot order, so among equal
-// (t1, key) the earlier one stays in front. kCount: also count the live
-// pairs and those the screen rejected.
+// that lies after the pixel's floor and beats the K-th pair is inserted
+// with one unrolled compare-exchange pass: a warp takes as many float64
+// turns as its busiest lane has survivors, not one a candidate that any
+// lane kept. The list is ordered by (t1, key), the key being the
+// candidate's id (kById) or its slot slot_base + i; candidates arrive in
+// increasing slot order, so among equal (t1, key) the earlier one stays in
+// front. kCount: also count the live pairs and those the screen rejected.
 template <int K, bool kById, bool kCount>
 __device__ __forceinline__ void sweep_chunk(const SweepStage& st,
                                             int slot_base,
                                             const SweepPixel& px,
+                                            const Floor& fl,
                                             float (&kt)[K], int (&ks)[K],
                                             unsigned long long& n_pairs,
                                             unsigned long long& n_rejected) {
@@ -294,6 +325,8 @@ __device__ __forceinline__ void sweep_chunk(const SweepStage& st,
       if (!(t1d > 0.0)) continue;
       const float t1 = static_cast<float>(t1d);
       const int key = kById ? row.id : slot_base + i;
+      // At or before the floor: an earlier pass listed it.
+      if (!lex_less(fl.t1, fl.key, t1, key)) continue;
       if (!lex_less(t1, key, kt[K - 1], ks[K - 1])) continue;
       // Insert: one compare-exchange pass carries the larger pair down.
       float ct = t1;
@@ -322,9 +355,10 @@ __device__ __forceinline__ void clear_list(float (&kt)[K], int (&ks)[K]) {
   }
 }
 
-// The K nearest hits of the pixel whose pix row is q, among the tile's
-// slots [0, n_chunks·128), as a (t1, slot) list sorted lexicographically;
-// vacant entries stay (+inf, INT_MAX). The block stages each chunk once
+// The K nearest hits after the floor fl (no_floor(): all of them) of the
+// pixel whose pix row is q, among the tile's slots [0, n_chunks·128), as a
+// (t1, slot) list sorted lexicographically; vacant entries stay
+// (+inf, INT_MAX). The block stages each chunk once
 // (stage_chunk) and every pixel sweeps it (sweep_chunk): the f32 screen in
 // front of the float64 chain, so the list is bitwise the unscreened one. A
 // hit whose t1 equals a listed one sorts after it: the TPU merge's
@@ -338,6 +372,7 @@ __device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
                                            int n_chunks, bool active,
                                            const float* q, SweepStage& st,
                                            float (&kt)[K], int (&ks)[K],
+                                           const Floor& fl,
                                            unsigned long long& n_pairs,
                                            unsigned long long& n_rejected) {
   const SweepPixel px = load_sweep_pixel(q);
@@ -350,8 +385,8 @@ __device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
     stage_chunk(st, packed, cand_t, c);
     __syncthreads();
     if (active)
-      sweep_chunk<K, false, kCount>(st, c * kChunk, px, kt, ks, n_pairs,
-                                    n_rejected);
+      sweep_chunk<K, false, kCount>(st, c * kChunk, px, fl, kt, ks,
+                                    n_pairs, n_rejected);
   }
 }
 
@@ -360,9 +395,10 @@ __device__ __forceinline__ void sweep_topk(const float* __restrict__ packed,
                                            const int* __restrict__ cand_t,
                                            int n_chunks, bool active,
                                            const float* q, SweepStage& st,
-                                           float (&kt)[K], int (&ks)[K]) {
+                                           float (&kt)[K], int (&ks)[K],
+                                           const Floor& fl = no_floor()) {
   unsigned long long n_pairs = 0, n_rejected = 0;
-  sweep_topk<K, false>(packed, cand_t, n_chunks, active, q, st, kt, ks,
+  sweep_topk<K, false>(packed, cand_t, n_chunks, active, q, st, kt, ks, fl,
                        n_pairs, n_rejected);
 }
 
@@ -653,13 +689,15 @@ __device__ __forceinline__ void contract_slot_grads(
 }
 
 // Check the shapes, then call launch(std::integral_constant<int, K>()) for
-// the smallest list capacity K ∈ {8, 16, 32, 64} that holds depth. Returns
-// the cudaError_t of the launch (0 on success).
+// the smallest list capacity K ∈ {8, 16, 32, 64} that holds depth (one
+// pass of a deeper peel; the wrappers run the passes). Any number of pixels
+// a tile: every kernel takes them group after group of at most kThreads.
+// Returns the cudaError_t of the launch (0 on success).
 template <typename Launch>
 int launch_for_depth(int device, int C, int P, int depth, Launch&& launch) {
   const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (C % kChunk != 0 || P < 1 || P > 1024 || depth < 1 || depth > kMaxDepth)
+  if (C % kChunk != 0 || P < 1 || depth < 1 || depth > kMaxDepth)
     return static_cast<int>(cudaErrorInvalidValue);
   if (depth <= 8)
     launch(std::integral_constant<int, 8>());

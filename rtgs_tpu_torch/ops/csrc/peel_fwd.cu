@@ -20,6 +20,14 @@
 // winners' slots are written out (T, K, P) as the residual of the backward
 // kernel (csrc/peel_bwd.cu).
 //
+// Depth. The list holds at most kMaxDepth = 64 pairs (peel_common.cuh); a
+// deeper peel runs in passes (rtgs_tpu_torch.ops.peel.peel_fused), each a
+// launch that sweeps the tile again above the pixel's floor (floor_t1,
+// floor_slot: the last winner of the pass before) and composites its own
+// layers from T = 1; the caller chains the passes' radiance and
+// transmittance. out_last_t1, where given, receives the t1 of the pass's
+// last layer (+inf when vacant), the next pass's floor with its slot.
+//
 // Bound. Operations: the float64 chain is 21 operations a (pixel,
 // candidate) pair without FMA at half the f32 rate, and ~98% of the pairs
 // miss; 48 staged bytes a candidate are shared by the whole block. The
@@ -47,9 +55,12 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
                     const int* __restrict__ cand,
                     const int* __restrict__ counts,
                     const float* __restrict__ pix,
+                    const float* __restrict__ floor_t1,
+                    const int* __restrict__ floor_slot,
                     float* __restrict__ out_rad,
                     float* __restrict__ out_trans,
                     int* __restrict__ out_slot,
+                    float* __restrict__ out_last_t1,
                     unsigned long long* __restrict__ screen_counts, int C,
                     int P, int depth) {
   __shared__ SweepStage stage;
@@ -64,21 +75,23 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
   for (int p0 = 0; p0 < P; p0 += blockDim.x) {
     const int p = p0 + threadIdx.x;
     const bool active = p < P;
-    const float* q =
-        pix + (static_cast<size_t>(t) * P + (active ? p : 0)) * kPixFeat;
+    const size_t tp = static_cast<size_t>(t) * P + (active ? p : 0);
+    const float* q = pix + tp * kPixFeat;
     float kt[K];
     int ks[K];
     sweep_topk<K, kCount>(packed, cand_t, n_chunks, active, q, stage, kt, ks,
-                          n_pairs, n_rejected);
+                          load_floor(floor_t1, floor_slot, tp), n_pairs,
+                          n_rejected);
     if (!active) continue;
 
     // Shade the winners in f32 and composite front to back.
     const Pixel px = load_pixel(q);
-    float rr = 0.f, rg = 0.f, rb = 0.f, tr = 1.f;
+    float rr = 0.f, rg = 0.f, rb = 0.f, tr = 1.f, last = CUDART_INF_F;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       if (k < depth) {
         const bool hit = kt[k] < CUDART_INF_F;
+        if (k == depth - 1 && hit) last = kt[k];
         out_slot[(static_cast<size_t>(t) * depth + k) * P + p] =
             hit ? ks[k] : -1;
         if (hit) {
@@ -96,7 +109,8 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
     out_rad[(static_cast<size_t>(t) * 3 + 0) * P + p] = rr;
     out_rad[(static_cast<size_t>(t) * 3 + 1) * P + p] = rg;
     out_rad[(static_cast<size_t>(t) * 3 + 2) * P + p] = rb;
-    out_trans[static_cast<size_t>(t) * P + p] = tr;
+    out_trans[tp] = tr;
+    if (out_last_t1) out_last_t1[tp] = last;
   }
   if (kCount) {
     atomicAdd(screen_counts, n_pairs);
@@ -108,12 +122,16 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
 
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
-// f32; out_rad (T, 3, P) f32, out_trans (T, P) f32, out_slot (T, depth, P)
-// i32 (−1 vacant); screen_counts: null, or two 64-bit counters the kernel
-// adds the swept and the screened-out (pixel, live candidate) pairs into.
+// f32, floor_t1 (T, P) f32 and floor_slot (T, P) i32 (both null: no
+// floor); out_rad (T, 3, P) f32, out_trans (T, P) f32, out_slot
+// (T, depth, P) i32 (−1 vacant), out_last_t1 (T, P) f32 or null;
+// screen_counts: null, or two 64-bit counters the kernel adds the swept and
+// the screened-out (pixel, live candidate) pairs into.
 extern "C" int rtgs_peel_fwd(const float* packed, const int* cand,
                              const int* counts, const float* pix,
+                             const float* floor_t1, const int* floor_slot,
                              float* out_rad, float* out_trans, int* out_slot,
+                             float* out_last_t1,
                              unsigned long long* screen_counts, int T, int C,
                              int P, int depth, int device, void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
@@ -124,16 +142,16 @@ extern "C" int rtgs_peel_fwd(const float* packed, const int* cand,
           cudaSuccess)
         return;
       peel_fwd_kernel<K, true><<<T, threads_for(P), kShadeBytes, s>>>(
-          packed, cand, counts, pix, out_rad, out_trans, out_slot,
-          screen_counts, C, P, depth);
+          packed, cand, counts, pix, floor_t1, floor_slot, out_rad,
+          out_trans, out_slot, out_last_t1, screen_counts, C, P, depth);
     } else {
       if (dynamic_smem_opt_in<peel_fwd_kernel<K, false>>(device,
                                                           kShadeBytes) !=
           cudaSuccess)
         return;
       peel_fwd_kernel<K, false><<<T, threads_for(P), kShadeBytes, s>>>(
-          packed, cand, counts, pix, out_rad, out_trans, out_slot, nullptr, C,
-          P, depth);
+          packed, cand, counts, pix, floor_t1, floor_slot, out_rad,
+          out_trans, out_slot, out_last_t1, nullptr, C, P, depth);
     }
   });
 }

@@ -23,6 +23,11 @@
 // winners' slots are written (T, K, P) as the residual of the backward
 // kernel (csrc/peel_topk_bwd.cu).
 //
+// Depth. As in peel_fwd.cu: a peel deeper than kMaxDepth = 64 runs in
+// passes (rtgs_tpu_torch.ops.peel.peel_topk), pass j + 1 above the floor
+// (floor_t1, floor_slot) that pass j's last layer gives (its t1 lane and
+// its slot); the caller concatenates the passes' layers.
+//
 // Bound. The sweep, as in peel_fwd.cu: the screen's f32 instructions, the
 // survivors' float64 chain and the list insertion. The output is 24 bytes per (pixel, layer), 6·K words
 // per pixel, where peel_fwd.cu writes 4 + K.
@@ -43,6 +48,8 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
                          const int* __restrict__ cand,
                          const int* __restrict__ counts,
                          const float* __restrict__ pix,
+                         const float* __restrict__ floor_t1,
+                         const int* __restrict__ floor_slot,
                          float* __restrict__ out_layers,
                          int* __restrict__ out_slot, int C, int P,
                          int depth) {
@@ -65,7 +72,9 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
         pix + (static_cast<size_t>(t) * P + (active ? p : 0)) * kPixFeat;
     float kt[K];
     int ks[K];
-    sweep_topk<K>(packed, cand_t, n_chunks, active, q, stage, kt, ks);
+    sweep_topk<K>(packed, cand_t, n_chunks, active, q, stage, kt, ks,
+                  load_floor(floor_t1, floor_slot,
+                             static_cast<size_t>(t) * P + (active ? p : 0)));
     if (!active) continue;
 
     const Pixel px = load_pixel(q);
@@ -99,11 +108,14 @@ __global__ void __launch_bounds__(kThreads, K <= 16 ? 2 : 1)
 
 // Returns the cudaError_t of the launch (0 on success). Shapes:
 // packed (N+1, 64) f32, cand (T, C) i32, counts (T,) i32, pix (T, P, 24)
-// f32; out_layers (T, 5, depth, P) f32 (lanes t1, α, r, g, b), out_slot
+// f32, floor_t1 (T, P) f32 and floor_slot (T, P) i32 (both null: no
+// floor); out_layers (T, 5, depth, P) f32 (lanes t1, α, r, g, b), out_slot
 // (T, depth, P) i32 (−1 vacant).
 extern "C" int rtgs_peel_topk_fwd(const float* packed, const int* cand,
                                   const int* counts, const float* pix,
-                                  float* out_layers, int* out_slot, int T,
+                                  const float* floor_t1,
+                                  const int* floor_slot, float* out_layers,
+                                  int* out_slot, int T,
                                   int C, int P, int depth, int device,
                                   void* stream) {
   return launch_for_depth(device, C, P, depth, [&](auto cap) {
@@ -114,6 +126,7 @@ extern "C" int rtgs_peel_topk_fwd(const float* packed, const int* cand,
     peel_topk_fwd_kernel<K>
         <<<T, threads_for(P), kShadeBytes,
            static_cast<cudaStream_t>(stream)>>>(
-            packed, cand, counts, pix, out_layers, out_slot, C, P, depth);
+            packed, cand, counts, pix, floor_t1, floor_slot, out_layers,
+            out_slot, C, P, depth);
   });
 }

@@ -47,6 +47,18 @@ sums each splat's rows into the (N+1, 64) table in row order
 card: gradients are bitwise repeatable. The dispatchers (:func:`peel_keys`,
 :func:`peel_fused`, :func:`peel_topk`, :func:`segment_rows`) pick by the
 tensors' device.
+
+Depth. A kernel keeps each pixel's list in registers, at most
+``MAX_DEPTH`` pairs. The dispatchers peel deeper in passes of at most
+``MAX_DEPTH`` layers (:func:`pass_depths`), as the reference peels one
+layer a launch past the hit it consumed: pass j + 1 takes each pixel's
+floor, the (t1, key) of pass j's last winner, and lists only the pairs
+lexicographically after it (key: the splat id on the keys path, the
+candidate slot on the others). The layers a pixel gets are those one list
+of the whole depth would hold, bitwise. The pass loop sits above the
+choice of implementation: the twins take the same floor and the CPU runs
+the same chain as the card. A peel of at most ``MAX_DEPTH`` layers is one
+call, as before.
 """
 
 from __future__ import annotations
@@ -63,13 +75,51 @@ G_DIM = 24
 # Candidate-chunk width of the kernel's sweep; the binning's chunk_lb must
 # be built at this width.
 CHUNK = 128
-# The kernel keeps each pixel's list in registers, instantiated for these
-# capacities (csrc/keys.cu).
+# The kernels keep each pixel's list in registers, instantiated for
+# capacities up to this (csrc/peel_common.cuh, kMaxDepth): the most layers
+# one launch selects, and the size of a pass of a deeper peel.
 MAX_DEPTH = 64
 # Pixels a backward block takes at once (csrc/peel_common.cuh, kThreads):
 # a tile of more pixels is contracted group after group.
 PIXEL_GROUP = 256
 _INT32_MAX = 2**31 - 1
+
+
+def pass_depths(depth: int) -> list[int]:
+    """The layers of each pass of a peel ``depth`` layers deep: as many
+    passes of ``MAX_DEPTH`` as fit, then the rest (which takes the smallest
+    list capacity that holds it). One pass at ``depth`` ≤ ``MAX_DEPTH``."""
+    if depth < 1:
+        raise ValueError(f"depth {depth} < 1")
+    full, rest = divmod(depth, MAX_DEPTH)
+    return [MAX_DEPTH] * full + ([rest] if rest else [])
+
+
+def _after_floor(t1: torch.Tensor, keys: torch.Tensor, floor) -> torch.Tensor:
+    """The (T, P, C) t1 field with +inf (a miss) wherever (t1, key) is not
+    lexicographically after the pixel's floor (its (T, P) t1 and key);
+    ``keys`` broadcasts against ``t1``. ``floor`` None: the field as it is.
+    A vacant floor, t1 = +inf, admits nothing (every t1 is ≤ +inf and a
+    miss stays a miss). Plain version of the kernels' ``Floor``
+    (csrc/peel_common.cuh)."""
+    if floor is None:
+        return t1
+    ft, fk = floor[0][..., None], floor[1][..., None]
+    after = (t1 > ft) | ((t1 == ft) & (keys > fk))
+    return torch.where(after, t1, math.inf)
+
+
+def _floor_specs(floor, t: int, p: int, key: str):
+    """Input specs (:func:`check_tensors`) of a floor, or none."""
+    if floor is None:
+        return []
+    return [("floor_t1", floor[0], torch.float32, (t, p)),
+            (f"floor_{key}", floor[1], torch.int32, (t, p))]
+
+
+def _floor_ptrs(floor):
+    return (None, None) if floor is None else (floor[0].data_ptr(),
+                                               floor[1].data_ptr())
 
 
 def _counts(candidates: torch.Tensor) -> torch.Tensor:
@@ -155,16 +205,18 @@ def screen_rejects(rows: torch.Tensor, pix: torch.Tensor) -> torch.Tensor:
 
 
 def peel_keys_torch(packed: torch.Tensor, candidates: torch.Tensor,
-                    pix: torch.Tensor, depth: int):
+                    pix: torch.Tensor, depth: int, floor=None):
     """Plain twin of the keys kernel: gather the candidates' rows, evaluate
     the whole (T, P, C) t1 field, and sort it lexicographically by
     (t1, id) — candidates are stable-sorted by id once, then the field is
-    stable-sorted by t1. Returns (t1, sid), each (T, K, P)."""
+    stable-sorted by t1. ``floor``: None, or each pixel's (t1 (T, P) f32,
+    splat id (T, P) int32), after which the pairs must lie (a pass of a
+    deep peel). Returns (t1, sid), each (T, K, P)."""
     ids, _ = torch.sort(torch.where(candidates >= 0, candidates, _INT32_MAX),
                         dim=1, stable=True)
     n_sentinel = packed.shape[0] - 1
     rows = packed[:, :10][torch.where(ids < _INT32_MAX, ids, n_sentinel)]
-    t1 = entry_depth(rows, pix)                        # (T, P, C)
+    t1 = _after_floor(entry_depth(rows, pix), ids[:, None, :], floor)
     if t1.shape[2] < depth:
         t1 = F.pad(t1, (0, depth - t1.shape[2]), value=math.inf)
         ids = F.pad(ids, (0, depth - ids.shape[1]), value=_INT32_MAX)
@@ -180,17 +232,19 @@ def peel_keys_torch(packed: torch.Tensor, candidates: torch.Tensor,
 def _check_launch(who: str, specs, c: int, p: int, depth: int):
     """Common input checks of the kernel wrappers: ``specs`` as
     :func:`~rtgs_tpu_torch.ops._launch.check_tensors` takes them, then the
-    candidate width, list capacity and tile size the kernels are built
-    for. Returns the tensors' device."""
+    candidate width and list capacity the kernels are built for (any
+    number of pixels a tile: the kernels take them group after group).
+    Returns the tensors' device."""
     dev = check_tensors(who, specs)
     if c % CHUNK != 0:
         raise ValueError(f"{who}: candidate width {c} is not a multiple of "
                          f"{CHUNK}")
     if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"{who}: depth {depth} outside 1..{MAX_DEPTH}")
-    if not 1 <= p <= 1024:
-        raise ValueError(f"{who}: {p} pixels per tile; one block holds "
-                         "≤ 1024")
+        raise ValueError(f"{who}: depth {depth} outside 1..{MAX_DEPTH} (a "
+                         "deeper peel runs in passes: peel_keys, peel_fused, "
+                         "peel_topk)")
+    if p < 1:
+        raise ValueError(f"{who}: {p} pixels per tile")
     return dev
 
 
@@ -205,7 +259,7 @@ _SEGMENT = Launcher("rtgs_segment_rows", "segment rows")
 def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
                    counts: torch.Tensor, chunk_lb: torch.Tensor,
                    pix: torch.Tensor, depth: int,
-                   screen_counts: torch.Tensor | None = None):
+                   screen_counts: torch.Tensor | None = None, floor=None):
     """Launch the Hopper keys kernel (``csrc/keys.cu``) on the current
     stream.
 
@@ -215,12 +269,16 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
       counts: (T,) int32 swept prefix length per tile (:func:`_counts`).
       chunk_lb: (T, C/CHUNK + 1) f32 entry-depth suffix bounds from
         ``tile_candidates(..., chunk=CHUNK)``; zeros disable the early exit.
-      pix: (T, P, 24) f32 pixel features, P ≤ 1024.
-      depth: K, 1..``MAX_DEPTH``.
+      pix: (T, P, 24) f32 pixel features.
+      depth: K, 1..``MAX_DEPTH`` (one pass; :func:`peel_keys` runs deeper
+        peels in passes).
       screen_counts: None, or a (2,) int64 tensor into which the kernel adds
         the (pixel, live candidate) pairs it evaluated and those its f32
         screen rejected before the float64 chain (another instantiation of
         the kernel: the one without counters is the one to time).
+      floor: None, or each pixel's (t1 (T, P) f32, splat id (T, P) int32):
+        only pairs lexicographically after it are listed (the last winner
+        of the pass before; t1 = +inf admits nothing).
 
     Returns (t1 (T, K, P) f32, sid (T, K, P) int32). Every input must be a
     contiguous CUDA tensor on one device; a failed build or launch raises.
@@ -236,6 +294,7 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("pix", pix, torch.float32, (t, p, G_DIM))]
     if screen_counts is not None:
         specs.append(("screen_counts", screen_counts, torch.int64, (2,)))
+    specs += _floor_specs(floor, t, p, "sid")
     dev = _check_launch("peel_keys_cuda", specs, c, p, depth)
 
     # One allocation for both outputs (it saves the host one allocation a
@@ -246,7 +305,8 @@ def peel_keys_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     if t == 0:
         return t1, sid
     _KEYS(dev, packed.data_ptr(), candidates.data_ptr(), counts.data_ptr(),
-          chunk_lb.data_ptr(), pix.data_ptr(), t1.data_ptr(), sid.data_ptr(),
+          chunk_lb.data_ptr(), pix.data_ptr(), *_floor_ptrs(floor),
+          t1.data_ptr(), sid.data_ptr(),
           None if screen_counts is None else screen_counts.data_ptr(),
           t, c, p, depth)
     peel_keys_cuda.launches += 1
@@ -267,20 +327,39 @@ def peel_keys(packed: torch.Tensor, candidates: torch.Tensor,
     tensors), ``"cuda"`` or ``"torch"``. ``chunk_lb`` enables the kernel's
     exact early exit; the twin sorts everything and ignores it. ``counts``:
     the binning's (T,) int32 valid-prefix lengths where the caller has them
-    (else a pass over ``candidates`` finds them). Returns (t1, sid), each
-    (T, K, P)."""
+    (else a pass over ``candidates`` finds them). Any depth: deeper than
+    ``MAX_DEPTH`` it runs in passes (:func:`pass_depths`), each above the
+    last winner of the pass before, and concatenates them along K; a tile's
+    list must name each splat at most once (the binning's do), or two
+    entries of one splat at one t1 could fall on either side of a pass.
+    Returns (t1, sid), each (T, K, P)."""
     packed, pix = packed.detach(), pix.detach()
     if impl not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown keys impl {impl!r}")
     if impl == "torch" or (impl == "auto" and packed.device.type == "cpu"):
-        return peel_keys_torch(packed, candidates, pix, depth)
-    t, c = candidates.shape
-    if chunk_lb is None:
-        chunk_lb = torch.zeros((t, c // CHUNK + 1), device=packed.device)
-    if counts is None:
-        counts = _counts(candidates)
-    return peel_keys_cuda(packed, candidates, counts.contiguous(),
-                          chunk_lb.detach().contiguous(), pix, depth)
+        def one(k, floor):
+            return peel_keys_torch(packed, candidates, pix, k, floor)
+    else:
+        t, c = candidates.shape
+        if chunk_lb is None:
+            chunk_lb = torch.zeros((t, c // CHUNK + 1), device=packed.device)
+        counts = _counts(candidates) if counts is None else counts
+        counts, chunk_lb = counts.contiguous(), chunk_lb.detach().contiguous()
+
+        def one(k, floor):
+            return peel_keys_cuda(packed, candidates, counts, chunk_lb, pix,
+                                  k, floor=floor)
+    depths = pass_depths(depth)
+    t1s, sids, floor = [], [], None
+    for j, k in enumerate(depths):
+        t1, sid = one(k, floor)
+        t1s.append(t1)
+        sids.append(sid)
+        if j + 1 < len(depths):
+            floor = (t1[:, -1].contiguous(), sid[:, -1].contiguous())
+    if len(t1s) == 1:
+        return t1s[0], sids[0]
+    return torch.cat(t1s, dim=1), torch.cat(sids, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -433,11 +512,12 @@ def _safe_ids(packed: torch.Tensor, candidates: torch.Tensor) -> torch.Tensor:
 
 
 def _select(packed: torch.Tensor, candidates: torch.Tensor,
-            pix: torch.Tensor, depth: int):
+            pix: torch.Tensor, depth: int, floor=None):
     """The K nearest hits' t1 (T, K, P) f32 (+inf vacant) and candidate
     slots (T, K, P) int32 (−1 vacant); see :func:`select_slots`."""
     rows = packed[:, :10][_safe_ids(packed, candidates)]
-    t1 = entry_depth(rows, pix)                        # (T, P, C)
+    slot = torch.arange(candidates.shape[1], device=candidates.device)
+    t1 = _after_floor(entry_depth(rows, pix), slot, floor)  # (T, P, C)
     if t1.shape[2] < depth:
         t1 = F.pad(t1, (0, depth - t1.shape[2]), value=math.inf)
     t1_s, order = torch.sort(t1, dim=2, stable=True)
@@ -448,12 +528,14 @@ def _select(packed: torch.Tensor, candidates: torch.Tensor,
 
 
 def select_slots(packed: torch.Tensor, candidates: torch.Tensor,
-                 pix: torch.Tensor, depth: int) -> torch.Tensor:
+                 pix: torch.Tensor, depth: int, floor=None) -> torch.Tensor:
     """Candidate slots (T, K, P) int32 of each pixel's K nearest hits,
     ordered lexicographically by (t1, slot): the field is stable-sorted by
     t1 along the slot axis, so among equal t1 the earlier slot wins, as in
-    the JAX ``_merge_topk``. −1 marks a vacant layer."""
-    return _select(packed, candidates, pix, depth)[1]
+    the JAX ``_merge_topk``. −1 marks a vacant layer. ``floor``: None, or
+    each pixel's (t1 (T, P) f32, slot (T, P) int32), after which the hits
+    must lie (a pass of a deep peel)."""
+    return _select(packed, candidates, pix, depth, floor)[1]
 
 
 def _winner_rows(packed: torch.Tensor, candidates: torch.Tensor,
@@ -497,16 +579,22 @@ def _shade_layers(rows: torch.Tensor, pix: torch.Tensor,
 
 
 def peel_fused_torch(packed: torch.Tensor, candidates: torch.Tensor,
-                     pix: torch.Tensor, depth: int):
+                     pix: torch.Tensor, depth: int, floor=None):
     """Plain twin of the fused forward kernel (the counterpart of the JAX
     ``peel_reference``): select the K nearest by (t1, slot)
-    (:func:`select_slots`), shade them in f32 and composite front to back.
-    Differentiable in ``packed`` through the shading (the selection is
-    piecewise constant). Returns (radiance (T, 3, P), transmittance (T, P),
-    slots (T, K, P) int32)."""
+    (:func:`select_slots`; ``floor`` as there), shade them in f32 and
+    composite front to back. Differentiable in ``packed`` through the
+    shading (the selection is piecewise constant). Returns (radiance
+    (T, 3, P), transmittance (T, P), slots (T, K, P) int32)."""
+    return _fused_twin(packed, candidates, pix, depth, floor)[:3]
+
+
+def _fused_twin(packed, candidates, pix, depth, floor=None):
+    """:func:`peel_fused_torch`, and the t1 (T, P) of each pixel's last
+    layer (+inf when vacant)."""
     with torch.no_grad():
-        slots = select_slots(packed.detach(), candidates, pix.detach(),
-                             depth)
+        t1, slots = _select(packed.detach(), candidates, pix.detach(), depth,
+                            floor)
     rows = _winner_rows(packed, candidates, slots)
     _, _, _, alpha, rgb = _shade_layers(rows, pix, slots >= 0)
     t, _, p = slots.shape
@@ -520,7 +608,7 @@ def peel_fused_torch(packed: torch.Tensor, candidates: torch.Tensor,
         rg = rg + w * rgb[1][:, k]
         rb = rb + w * rgb[2][:, k]
         tr = tr * (1.0 - a)
-    return torch.stack([rr, rg, rb], dim=1), tr, slots
+    return torch.stack([rr, rg, rb], dim=1), tr, slots, t1[:, -1]
 
 
 def _layer_cotangents(grad_rad, grad_trans, alpha, r, g, b):
@@ -617,7 +705,8 @@ def _slot_grads(candidates, pix, slots, a, b, rho, alpha,
 
 def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
                     counts: torch.Tensor, pix: torch.Tensor, depth: int,
-                    screen_counts: torch.Tensor | None = None):
+                    screen_counts: torch.Tensor | None = None, floor=None,
+                    out_last_t1: torch.Tensor | None = None):
     """Launch the Hopper fused forward kernel (``csrc/peel_fwd.cu``) on the
     current stream.
 
@@ -625,10 +714,17 @@ def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
       packed: (N+1, 64) f32 feature table; row N is the sentinel.
       candidates: (T, C) int32 ids, −1 padded, C a multiple of ``CHUNK``.
       counts: (T,) int32 swept prefix length per tile (:func:`_counts`).
-      pix: (T, P, 24) f32 pixel features, P ≤ 1024.
-      depth: K, 1..``MAX_DEPTH``.
+      pix: (T, P, 24) f32 pixel features.
+      depth: K, 1..``MAX_DEPTH`` (one pass; :func:`peel_fused` runs deeper
+        peels in passes).
       screen_counts: as :func:`peel_keys_cuda`'s (the counting
         instantiation of the same sweep).
+      floor: None, or each pixel's (t1 (T, P) f32, slot (T, P) int32): only
+        hits lexicographically after it are selected (the last winner of
+        the pass before; t1 = +inf admits nothing).
+      out_last_t1: None, or a (T, P) f32 tensor that receives the t1 of each
+        pixel's last layer (+inf when vacant): with ``slots[:, -1]`` the
+        next pass's floor.
 
     Returns (radiance (T, 3, P) f32, transmittance (T, P) f32, slots
     (T, K, P) int32). Every input must be a contiguous CUDA tensor on one
@@ -644,6 +740,9 @@ def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("pix", pix, torch.float32, (t, p, G_DIM))]
     if screen_counts is not None:
         specs.append(("screen_counts", screen_counts, torch.int64, (2,)))
+    specs += _floor_specs(floor, t, p, "slot")
+    if out_last_t1 is not None:
+        specs.append(("out_last_t1", out_last_t1, torch.float32, (t, p)))
     dev = _check_launch("peel_fused_cuda", specs, c, p, depth)
     rad = torch.empty((t, 3, p), dtype=torch.float32, device=dev)
     trans = torch.empty((t, p), dtype=torch.float32, device=dev)
@@ -651,8 +750,9 @@ def peel_fused_cuda(packed: torch.Tensor, candidates: torch.Tensor,
     if t == 0:
         return rad, trans, slots
     _FUSED_FWD(dev, packed.data_ptr(), candidates.data_ptr(),
-               counts.data_ptr(), pix.data_ptr(), rad.data_ptr(),
-               trans.data_ptr(), slots.data_ptr(),
+               counts.data_ptr(), pix.data_ptr(), *_floor_ptrs(floor),
+               rad.data_ptr(), trans.data_ptr(), slots.data_ptr(),
+               None if out_last_t1 is None else out_last_t1.data_ptr(),
                None if screen_counts is None else screen_counts.data_ptr(),
                t, c, p, depth)
     peel_fused_cuda.launches += 1
@@ -730,28 +830,41 @@ def _use_kernel(impl: str, packed: torch.Tensor) -> bool:
 
 class PeelFused(torch.autograd.Function):
     """The fused peel with its hand-written backward: the counterpart of
-    the JAX ``peel_pallas`` custom VJP. The forward saves its inputs and
-    the winners' slots; the backward returns a gradient for ``packed``
-    only, in two stages (per-slot rows, then :func:`segment_rows` by
-    splat): through the kernels on CUDA tensors, through the plain twin and
-    :func:`segment_rows_torch` on CPU tensors (the sentinel row takes the
-    padding's zeros)."""
+    the JAX ``peel_pallas`` custom VJP, for one pass of at most
+    ``MAX_DEPTH`` layers (``floor_t1``, ``floor_slot``: None, or the
+    pass's floor). The forward saves its inputs and the winners' slots;
+    with ``want_floor`` it also returns the next pass's floor (the last
+    layer's t1 and slot, no gradient). The backward returns a gradient for
+    ``packed`` only, in two stages (per-slot rows, then
+    :func:`segment_rows` by splat): through the kernels on CUDA tensors,
+    through the plain twin and :func:`segment_rows_torch` on CPU tensors
+    (the sentinel row takes the padding's zeros)."""
 
     @staticmethod
-    def forward(ctx, packed, candidates, pix, depth, impl):
+    def forward(ctx, packed, candidates, pix, depth, impl, floor_t1=None,
+                floor_slot=None, want_floor=False):
+        floor = None if floor_t1 is None else (floor_t1, floor_slot)
         use_kernel = _use_kernel(impl, packed)
         if use_kernel:
+            t, p = candidates.shape[0], pix.shape[1]
+            last = (torch.empty((t, p), dtype=torch.float32,
+                                device=packed.device) if want_floor else None)
             rad, trans, slots = peel_fused_cuda(
-                packed, candidates, _counts(candidates), pix, depth)
+                packed, candidates, _counts(candidates), pix, depth,
+                floor=floor, out_last_t1=last)
         else:
-            rad, trans, slots = peel_fused_torch(packed, candidates, pix,
-                                                 depth)
+            rad, trans, slots, last = _fused_twin(packed, candidates, pix,
+                                                  depth, floor)
         ctx.save_for_backward(packed, candidates, pix, slots)
         ctx.depth, ctx.use_kernel = depth, use_kernel
-        return rad, trans
+        if not want_floor:
+            return rad, trans
+        nxt = (last.contiguous(), slots[:, -1].contiguous())
+        ctx.mark_non_differentiable(*nxt)
+        return rad, trans, *nxt
 
     @staticmethod
-    def backward(ctx, grad_rad, grad_trans):
+    def backward(ctx, grad_rad, grad_trans, *_floor):
         # Autograd materializes an unused output's cotangent as zeros.
         packed, candidates, pix, slots = ctx.saved_tensors
         if ctx.use_kernel:
@@ -763,7 +876,7 @@ class PeelFused(torch.autograd.Function):
                                           peel_fused_bwd_torch(
                                               packed, candidates, pix, slots,
                                               grad_rad, grad_trans))
-        return dpacked, None, None, None, None
+        return dpacked, None, None, None, None, None, None, None
 
 
 def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
@@ -777,13 +890,20 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
       candidates: (T, C) int32 candidate ids, −1 padded, C a multiple of
         ``CHUNK``; interior −1 gaps are allowed.
       pix: (T, P, 24) f32 per-pixel features.
-      depth: composited layers K (≤ ``MAX_DEPTH`` on the card).
+      depth: composited layers K, any number: deeper than ``MAX_DEPTH``
+        the peel runs in passes (:func:`pass_depths`), one
+        :class:`PeelFused` each above the last winner of the pass before,
+        each compositing its own layers; they are chained in torch, radiance
+        Σⱼ (Π_{i<j} transᵢ)·radⱼ and transmittance Πⱼ transⱼ (the same
+        layers as one list of that depth; the composite rounds otherwise).
       impl: ``"auto"`` (the Hopper kernels for CUDA tensors, the plain
         twins for CPU tensors), ``"cuda"`` or ``"torch"``. On CUDA tensors
         ``auto`` launches the kernels or raises; it never falls back.
 
     Returns (radiance (T, 3, P), transmittance (T, P)). The backward gives
-    ``packed`` a gradient and ``candidates``/``pix`` none, as the JAX rule.
+    ``packed`` a gradient and ``candidates``/``pix`` none, as the JAX rule;
+    a deep peel's backward runs each pass's backward kernel once, on the
+    cotangents autograd carries through the chain.
 
     Determinism: forward and gradient are bitwise repeatable on the card,
     as the JAX package's are, with torch's deterministic mode off. The
@@ -795,7 +915,19 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
     same orders (on the card's tensors it is held to 1e-4 of each lane's
     largest entry; its products come from torch's elementwise kernels).
     """
-    return PeelFused.apply(packed, candidates, pix, depth, impl)
+    depths = pass_depths(depth)
+    rad = trans = None
+    floor = (None, None)
+    for j, k in enumerate(depths):
+        out = PeelFused.apply(packed, candidates, pix, k, impl, *floor,
+                              j + 1 < len(depths))
+        if rad is None:
+            rad, trans = out[0], out[1]
+        else:
+            rad = rad + trans[:, None] * out[0]
+            trans = trans * out[1]
+        floor = out[2:]
+    return rad, trans
 
 
 # ---------------------------------------------------------------------------
@@ -808,17 +940,19 @@ TOPK_LANES = ("t1", "alpha", "r", "g", "b")
 
 
 def peel_topk_torch(packed: torch.Tensor, candidates: torch.Tensor,
-                    pix: torch.Tensor, depth: int):
+                    pix: torch.Tensor, depth: int, floor=None):
     """Plain twin of the top-K forward kernel (the counterpart of the JAX
     ``peel_topk_xla``): select the K nearest by (t1, slot) (as
-    :func:`select_slots`) and shade them in f32 (:func:`_shade_layers`),
-    without compositing. Differentiable in ``packed`` through the shading.
+    :func:`select_slots`, ``floor`` as there) and shade them in f32
+    (:func:`_shade_layers`), without compositing. Differentiable in
+    ``packed`` through the shading.
 
     Returns (layers (T, 5, K, P) f32 with lanes ``TOPK_LANES``, slots
     (T, K, P) int32). Vacant layers have t1 = +inf and α = r = g = b = 0
     (they shade the sentinel row)."""
     with torch.no_grad():
-        t1, slots = _select(packed.detach(), candidates, pix.detach(), depth)
+        t1, slots = _select(packed.detach(), candidates, pix.detach(), depth,
+                            floor)
     _, _, _, alpha, rgb = _shade_layers(
         _winner_rows(packed, candidates, slots), pix, slots >= 0)
     return torch.stack([t1, alpha, *rgb], dim=1), slots
@@ -838,9 +972,11 @@ def peel_topk_bwd_torch(packed: torch.Tensor, candidates: torch.Tensor,
 
 
 def peel_topk_cuda(packed: torch.Tensor, candidates: torch.Tensor,
-                   counts: torch.Tensor, pix: torch.Tensor, depth: int):
+                   counts: torch.Tensor, pix: torch.Tensor, depth: int,
+                   floor=None):
     """Launch the Hopper top-K forward kernel (``csrc/peel_topk_fwd.cu``)
-    on the current stream. Inputs as :func:`peel_fused_cuda`.
+    on the current stream. Inputs as :func:`peel_fused_cuda` (``floor``
+    too; the next pass's floor is the last layer's t1 lane and slot).
 
     Returns (layers (T, 5, K, P) f32 with lanes ``TOPK_LANES``, slots
     (T, K, P) int32). Every input must be a contiguous CUDA tensor on one
@@ -852,15 +988,16 @@ def peel_topk_cuda(packed: torch.Tensor, candidates: torch.Tensor,
         ("packed", packed, torch.float32, (packed.shape[0], F_DIM)),
         ("candidates", candidates, torch.int32, (t, c)),
         ("counts", counts, torch.int32, (t,)),
-        ("pix", pix, torch.float32, (t, p, G_DIM))), c, p, depth)
+        ("pix", pix, torch.float32, (t, p, G_DIM)),
+        *_floor_specs(floor, t, p, "slot")), c, p, depth)
     layers = torch.empty((t, len(TOPK_LANES), depth, p), dtype=torch.float32,
                          device=dev)
     slots = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
     if t == 0:
         return layers, slots
     _TOPK_FWD(dev, packed.data_ptr(), candidates.data_ptr(),
-              counts.data_ptr(), pix.data_ptr(), layers.data_ptr(),
-              slots.data_ptr(), t, c, p, depth)
+              counts.data_ptr(), pix.data_ptr(), *_floor_ptrs(floor),
+              layers.data_ptr(), slots.data_ptr(), t, c, p, depth)
     peel_topk_cuda.launches += 1
     return layers, slots
 
@@ -909,26 +1046,35 @@ peel_topk_bwd_cuda.launches = 0
 
 class PeelTopK(torch.autograd.Function):
     """The top-K peel with its hand-written backward: the counterpart of
-    the JAX ``peel_topk_pallas`` custom VJP. The forward returns the layer
-    table (T, 5, K, P) and saves its inputs and the winners' slots; the
-    backward drops the t1 cotangent (the order is piecewise constant, as
-    the JAX rule does) and returns a gradient for ``packed`` only, as
-    :class:`PeelFused` does."""
+    the JAX ``peel_topk_pallas`` custom VJP, for one pass of at most
+    ``MAX_DEPTH`` layers (floor and ``want_floor`` as :class:`PeelFused`'s).
+    The forward returns the layer table (T, 5, K, P) and saves its inputs
+    and the winners' slots; the backward drops the t1 cotangent (the order
+    is piecewise constant, as the JAX rule does) and returns a gradient for
+    ``packed`` only, as :class:`PeelFused` does."""
 
     @staticmethod
-    def forward(ctx, packed, candidates, pix, depth, impl):
+    def forward(ctx, packed, candidates, pix, depth, impl, floor_t1=None,
+                floor_slot=None, want_floor=False):
+        floor = None if floor_t1 is None else (floor_t1, floor_slot)
         use_kernel = _use_kernel(impl, packed)
         if use_kernel:
             layers, slots = peel_topk_cuda(packed, candidates,
-                                           _counts(candidates), pix, depth)
+                                           _counts(candidates), pix, depth,
+                                           floor=floor)
         else:
-            layers, slots = peel_topk_torch(packed, candidates, pix, depth)
+            layers, slots = peel_topk_torch(packed, candidates, pix, depth,
+                                            floor)
         ctx.save_for_backward(packed, candidates, pix, slots)
         ctx.depth, ctx.use_kernel = depth, use_kernel
-        return layers
+        if not want_floor:
+            return layers
+        nxt = (layers[:, 0, -1].contiguous(), slots[:, -1].contiguous())
+        ctx.mark_non_differentiable(*nxt)
+        return layers, *nxt
 
     @staticmethod
-    def backward(ctx, grad_layers):
+    def backward(ctx, grad_layers, *_floor):
         packed, candidates, pix, slots = ctx.saved_tensors
         grad_layers = grad_layers[:, 1:].contiguous()     # (α, r, g, b)
         if ctx.use_kernel:
@@ -940,7 +1086,7 @@ class PeelTopK(torch.autograd.Function):
                                           peel_topk_bwd_torch(
                                               packed, candidates, pix, slots,
                                               grad_layers))
-        return dpacked, None, None, None, None
+        return dpacked, None, None, None, None, None, None, None
 
 
 def peel_topk(packed: torch.Tensor, candidates: torch.Tensor,
@@ -954,6 +1100,10 @@ def peel_topk(packed: torch.Tensor, candidates: torch.Tensor,
     Args as :func:`peel_fused`; ``impl``: ``"auto"`` (the Hopper kernels
     for CUDA tensors, the plain twins for CPU tensors), ``"cuda"`` or
     ``"torch"``. On CUDA tensors ``auto`` launches the kernels or raises.
+    Any depth: deeper than ``MAX_DEPTH`` it runs in passes
+    (:func:`pass_depths`), one :class:`PeelTopK` each above the last layer
+    of the pass before, concatenated along K; the backward runs once a
+    pass.
 
     Returns ``(t1, alpha, r, g, b)``, each (T, P, K), depth-ascending;
     vacant layers have t1 = +inf and α = r = g = b = 0. t1 is the float64
@@ -963,5 +1113,13 @@ def peel_topk(packed: torch.Tensor, candidates: torch.Tensor,
     repeatable (the backward's two stages, per-slot rows in a fixed order
     and :func:`segment_rows` by splat, share the fused path's code).
     """
-    layers = PeelTopK.apply(packed, candidates, pix, depth, impl)
+    depths = pass_depths(depth)
+    parts, floor = [], (None, None)
+    for j, k in enumerate(depths):
+        out = PeelTopK.apply(packed, candidates, pix, k, impl, *floor,
+                             j + 1 < len(depths))
+        if j + 1 < len(depths):
+            out, floor = out[0], out[1:]
+        parts.append(out)
+    layers = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
     return tuple(layers.transpose(2, 3).unbind(1))

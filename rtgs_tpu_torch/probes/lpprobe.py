@@ -233,7 +233,8 @@ def host_table(packed, cand, lb, pix, depth: int):
     t1 = torch.empty((t, depth, p), dtype=torch.float32, device=dev)
     sid = torch.empty((t, depth, p), dtype=torch.int32, device=dev)
     ptrs = (packed.data_ptr(), cand.data_ptr(), counts.data_ptr(),
-            lb.data_ptr(), pix.data_ptr(), t1.data_ptr(), sid.data_ptr())
+            lb.data_ptr(), pix.data_ptr(), None, None,   # no floor
+            t1.data_ptr(), sid.data_ptr())
     row("keys: the whole wrapper call",
         lambda: peel.peel_keys_cuda(packed, cand, counts, lb, pix, depth))
     row("keys: checks",

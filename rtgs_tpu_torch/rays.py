@@ -7,6 +7,8 @@ from typing import NamedTuple
 
 import torch
 
+from rtgs_tpu_torch.utils.device import resolve_device
+
 
 class Rays(NamedTuple):
     """A bundle of rays.
@@ -36,9 +38,12 @@ class Rays(NamedTuple):
 
 
 def new_rays(origins, directions, starts=None, ends=None,
-             device="cpu") -> Rays:
+             device="cuda") -> Rays:
     """Constructor with the reference's defaults: ``start = 0``,
-    ``end = inf``."""
+    ``end = inf``; on ``device``, the card unless the caller asks for the
+    CPU."""
+    device = resolve_device(device)
+
     def f32(x):
         if isinstance(x, torch.Tensor):
             return x.to(device=device, dtype=torch.float32)

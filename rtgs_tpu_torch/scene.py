@@ -19,6 +19,7 @@ import torch
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.io.ply import read_ply, write_ply
+from rtgs_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -46,13 +47,15 @@ def _from_numpy(device, **fields) -> G.Gaussians:
 
 
 def load_scene(path, scale: float = 1.0, sh_layout: str = "inria",
-               device="cpu") -> G.Gaussians:
+               device="cuda") -> G.Gaussians:
     """Load a ``.ply`` (62-property 3DGS schema) or ``.splt``/``.splat``
-    scene onto ``device``.
+    scene onto ``device`` (the card unless the caller asks for the CPU;
+    :func:`~rtgs_tpu_torch.utils.device.resolve_device`).
 
     ``sh_layout``: ``"inria"`` (correct channel pairing) or
     ``"reference_flat"`` (the reference's (N, 3, 15) buffer read as
     (N, 15, 3))."""
+    device = resolve_device(device)
     path = pathlib.Path(path)
     if path.suffix.lower() in (".splt", ".splat"):
         from rtgs_tpu_torch.io.splt import read_splt
@@ -179,24 +182,27 @@ def random_scene_arrays(n: int, extent: float = 1.0,
 
 
 def random_scene(n: int, extent: float = 1.0, scale_range=(0.02, 0.1),
-                 seed: int = 0, device="cpu") -> G.Gaussians:
+                 seed: int = 0, device="cuda") -> G.Gaussians:
     """Seeded synthetic scene: random anisotropic Gaussians in a cube of
     half-size ``extent``, drawn from the same distributions as
     :func:`rtgs_tpu.scene.random_scene` with a numpy ``Generator`` (so the
-    bits differ from JAX's)."""
+    bits differ from JAX's), on ``device`` (the card unless asked)."""
+    device = resolve_device(device)
     return _from_numpy(device, **random_scene_arrays(n, extent, scale_range,
                                                      seed))
 
 
 def anisotropic_scene(n: int, extent: float = 0.5,
                       minor_range=(1e-4, 1e-3), ratio_range=(100.0, 1000.0),
-                      seed: int = 0, device="cpu") -> G.Gaussians:
+                      seed: int = 0, device="cuda") -> G.Gaussians:
     """Seeded scene of needles and discs: as :func:`random_scene`, but every
     splat has one axis drawn log-uniformly from ``minor_range`` and each of
     the other two either equal to it or ``ratio_range`` times longer (at
     least one is), so the scale ratio within a splat is at least
     ``ratio_range[0]``. Seen from very near and from very far it strains the
-    entry depth's cancellation and the keys kernel's f32 screen."""
+    entry depth's cancellation and the keys kernel's f32 screen. On
+    ``device``, the card unless asked."""
+    device = resolve_device(device)
     fields = random_scene_arrays(n, extent, (1.0, 1.0), seed)
     rng = np.random.default_rng(seed + 1)
     minor = np.exp(rng.uniform(np.log(minor_range[0]),

@@ -23,6 +23,7 @@ import torch
 
 from rtgs_tpu_torch.camera import Camera, camera_from_fov, new_camera
 from rtgs_tpu_torch.utils import quaternion as quat
+from rtgs_tpu_torch.utils.device import resolve_device
 
 
 class MultiviewDataset(NamedTuple):
@@ -66,11 +67,13 @@ def _display_to_render_layout(img_hw3: np.ndarray) -> np.ndarray:
 
 
 def load_transforms_dataset(path, downscale: int = 1,
-                            device="cpu") -> MultiviewDataset:
-    """Load a nerfstudio/Blender ``transforms.json`` dataset. The matrices
+                            device="cuda") -> MultiviewDataset:
+    """Load a nerfstudio/Blender ``transforms.json`` dataset onto
+    ``device`` (the card unless the caller asks for the CPU). The matrices
     are OpenGL camera-to-world (camera −z forward, +y up), the convention
     of :mod:`rtgs_tpu_torch.camera`, so rotations come straight from the
     3×3 block."""
+    device = resolve_device(device)
     from rtgs_tpu_torch.utils.image import load_image
 
     path = pathlib.Path(path)

@@ -41,8 +41,8 @@ def _inputs(case):
     pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, c["r"], np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     jcam = camera_from_fov(pos, rot, c["res"], 60.0)
-    return (jg, jcam, gaussians_from_numpy(fields), camera_from_numpy(jcam),
-            c["kw"])
+    return (jg, jcam, gaussians_from_numpy(fields, device="cpu"),
+            camera_from_numpy(jcam, device="cpu"), c["kw"])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -84,10 +84,11 @@ def test_chunk_lb_is_a_sound_bound():
                                              precompute_features)
 
     fields = random_scene_arrays(3000, 0.6, (0.01, 0.06), seed=3)
-    g = gaussians_from_numpy(fields)
+    g = gaussians_from_numpy(fields, device="cpu")
     pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, 2.0, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
-    cam = camera_from_numpy(camera_from_fov(pos, rot, (32, 32), 60.0))
+    cam = camera_from_numpy(camera_from_fov(pos, rot, (32, 32), 60.0),
+                            device="cpu")
     b = tile_candidates(g, cam, max_candidates=1024, max_global=64,
                         chunk=CHUNK)
     cand = b.candidates

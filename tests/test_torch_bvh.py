@@ -32,7 +32,7 @@ DELTA_ULPS = 4 * 2.0**-23
 
 
 def _scene(n, seed=0, extent=1.0):
-    return random_scene(n, extent=extent, seed=seed)
+    return random_scene(n, extent=extent, seed=seed, device="cpu")
 
 
 def test_morton_orders_locality():
@@ -110,7 +110,7 @@ def test_bvh_hit_matches_bruteforce():
     g = _scene(200)
     bvh = build_lbvh(g.means, g.quats, g.scales, g.mask)
     origins, dirs = _random_rays(128)
-    hit = bvh_hit(bvh, g, new_rays(origins, dirs))
+    hit = bvh_hit(bvh, g, new_rays(origins, dirs, device="cpu"))
 
     o, d = torch.from_numpy(origins), torch.from_numpy(dirs)
     t1, _ = G.hit(G.inv_covariance(g.quats, g.scales), g.means, o[:, None],
@@ -130,17 +130,18 @@ def test_bvh_hit_respects_interval():
     g = _scene(50)
     bvh = build_lbvh(g.means, g.quats, g.scales, g.mask)
     o, d = [[0.0, 0.0, 3.0]], [[0.0, 0.0, -1.0]]
-    free = bvh_hit(bvh, g, new_rays(o, d))
+    free = bvh_hit(bvh, g, new_rays(o, d, device="cpu"))
     assert int(free.gaussian_idx[0]) >= 0
     clipped = bvh_hit(bvh, g, new_rays(o, d,
-                                       starts=float(free.t1[0]) + 1e-4))
+                                       starts=float(free.t1[0]) + 1e-4,
+                                       device="cpu"))
     if int(clipped.gaussian_idx[0]) >= 0:
         assert float(clipped.t1[0]) > float(free.t1[0])
 
 
 def test_bvh_masked_primitives_invisible():
     g = _scene(40, extent=0.5)
-    rays = new_rays([[0.0, 0.0, 3.0]], [[0.0, 0.0, -1.0]])
+    rays = new_rays([[0.0, 0.0, 3.0]], [[0.0, 0.0, -1.0]], device="cpu")
     first = bvh_hit(build_lbvh(g.means, g.quats, g.scales, g.mask), g, rays)
     assert int(first.gaussian_idx[0]) >= 0
     mask2 = g.mask.clone()
@@ -168,7 +169,8 @@ def test_lbvh_all_duplicate_morton_codes():
                     colors=torch.full((n, 3), 0.5),
                     opacities=torch.full((n,), 0.8),
                     sh=torch.zeros((n, 15, 3)), mask=torch.ones((n,)))
-    hit = bvh_hit(bvh, g, new_rays([[0.5, 0.5, -5.0]], [[0.0, 0.0, 1.0]]))
+    hit = bvh_hit(bvh, g, new_rays([[0.5, 0.5, -5.0]], [[0.0, 0.0, 1.0]],
+                                   device="cpu"))
     assert int(hit.gaussian_idx[0]) >= 0
     assert np.isfinite(float(hit.t1[0]))
     assert int(hit.steps[0]) == 4096       # cut, and the hit found anyway
@@ -177,7 +179,7 @@ def test_lbvh_all_duplicate_morton_codes():
 def _both(n, seed):
     fields = random_scene_arrays(n, 1.0, (0.02, 0.1), seed=seed)
     return (JG.Gaussians(**{k: jnp.asarray(v) for k, v in fields.items()}),
-            gaussians_from_numpy(fields))
+            gaussians_from_numpy(fields, device="cpu"))
 
 
 def test_morton_codes_match_jax():
@@ -226,7 +228,7 @@ def test_bvh_hit_matches_jax():
                                       jg.mask), jg,
                       j_new_rays(origins, dirs))
     th = bvh_hit(build_lbvh(tg.means, tg.quats, tg.scales, tg.mask), tg,
-                 new_rays(origins, dirs))
+                 new_rays(origins, dirs, device="cpu"))
     idx = np.asarray(jh.gaussian_idx)
     np.testing.assert_array_equal(th.gaussian_idx.numpy(), idx)
     hit = idx >= 0

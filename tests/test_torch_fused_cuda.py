@@ -14,7 +14,11 @@ pixels in a fixed order (stable counting sort), then each splat's pair rows
 summed in order by segment_rows.cu; against the twin's per-slot gradients
 (summed by the same segment sum, its products from torch's elementwise
 kernels) each feature lane must agree to 1e-4 of that lane's largest entry,
-and the sentinel row N must be exactly 0."""
+and the sentinel row N must be exactly 0. Deeper than MAX_DEPTH, peel_fused
+chains the kernels in passes above each pixel's floor: the passes' slots
+bitwise one twin call's at the whole depth, the chained composite and its
+gradient at the same tolerances; tiles of 4096 pixels are swept and
+contracted group after group."""
 
 import numpy as np
 import pytest
@@ -23,7 +27,7 @@ import torch
 from rtgs_tpu_torch.camera import camera_from_fov
 from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, _safe_ids,
                                      _scatter_slot_grads, entry_depth,
-                                     peel_fused,
+                                     pass_depths, peel_fused,
                                      peel_fused_bwd_cuda,
                                      peel_fused_bwd_torch, peel_fused_cuda,
                                      peel_fused_torch)
@@ -33,7 +37,8 @@ from rtgs_tpu_torch.render.tiled import (_tile_pixel_features, pack_features,
                                          render_tiled_pallas)
 from rtgs_tpu_torch.scene import random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
-from _torch_frames import SWEEP_SHAPES, sweep_inputs
+from _torch_frames import (DEEP_DEPTHS, SWEEP_SHAPES, deep_inputs,
+                           sweep_inputs)
 
 FWD_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
@@ -124,6 +129,50 @@ def test_screened_sweep_winners_bitwise(cuda, shape, depth):
         packed[:, :10][_safe_ids(packed, cand)], pix)
         [(cand >= 0)[:, None, :].expand(-1, pix.shape[1], -1)]).sum())
     assert 0 < rejected <= pairs - hits
+
+
+def _chained_slots(packed, cand, pix, depth):
+    """The fused forward kernel in passes, each above the last winner of
+    the one before; their slots concatenated along K."""
+    counts, slots, floor = _counts(cand), [], None
+    t, p = cand.shape[0], pix.shape[1]
+    for k in pass_depths(depth):
+        last = torch.empty((t, p), device=pix.device)
+        _, _, sl = peel_fused_cuda(packed, cand, counts, pix, k, floor=floor,
+                                   out_last_t1=last)
+        slots.append(sl)
+        floor = (last, sl[:, -1].contiguous())
+    return torch.cat(slots, dim=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,depth", [("16x16", d) for d in DEEP_DEPTHS]
+                         + [("64x64", 96)])
+def test_chained_kernels_match_twin(cuda, shape, depth):
+    """peel_fused at a depth of several passes: one launch of each kernel a
+    pass; winners bitwise one twin call's; radiance, transmittance and the
+    table gradient (the passes' backwards on the cotangents autograd
+    chains) against the twin's one call."""
+    packed, cand, _, pix = deep_inputs(cuda, shape)
+    rad_t, tr_t, sl_t = peel_fused_torch(packed, cand, pix, depth)
+    assert (sl_t[:, depth - 1] >= 0).any() or shape == "64x64"
+    assert torch.equal(_chained_slots(packed, cand, pix, depth), sl_t)
+    gen = torch.Generator(device=cuda).manual_seed(depth)
+    g_rad = torch.randn(rad_t.shape, generator=gen, device=cuda)
+    g_tr = torch.randn(tr_t.shape, generator=gen, device=cuda)
+    x = packed.detach().clone().requires_grad_()
+    fwd0, bwd0 = peel_fused_cuda.launches, peel_fused_bwd_cuda.launches
+    rad_k, tr_k = peel_fused(x, cand, pix, depth)
+    ((rad_k * g_rad).sum() + (tr_k * g_tr).sum()).backward()
+    torch.cuda.synchronize()
+    n_pass = len(pass_depths(depth))
+    assert peel_fused_cuda.launches == fwd0 + n_pass
+    assert peel_fused_bwd_cuda.launches == bwd0 + n_pass
+    assert (rad_k - rad_t).abs().max() <= FWD_ATOL
+    assert (tr_k - tr_t).abs().max() <= FWD_ATOL
+    d_t = _scatter_slot_grads(packed, cand, peel_fused_bwd_torch(
+        packed, cand, pix, sl_t, g_rad, g_tr))
+    assert_tables_close(x.grad, d_t)
 
 
 @pytest.mark.cuda

@@ -11,7 +11,10 @@ equal; with chunk_lb (exact early exit) the kernel must be bitwise equal
 to itself without it. The kernel's f32 screen rejects a pair only when its
 float64 Δ is provably negative, so it changes no bit: held here on a scene
 of needles and discs seen from 0.2 and from 50 units away, where the
-entry depth cancels hardest, and by the screen's counters."""
+entry depth cancels hardest, and by the screen's counters. Deeper than
+MAX_DEPTH, peel_keys chains the kernel in passes above each pixel's floor:
+bitwise one twin call at the whole depth, one launch a pass; tiles of 4096
+pixels are swept group after group."""
 
 import numpy as np
 import pytest
@@ -19,8 +22,9 @@ import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
 from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, _safe_ids,
-                                     entry_depth, peel_keys, peel_keys_cuda,
-                                     peel_keys_torch, screen_rejects)
+                                     entry_depth, pass_depths, peel_keys,
+                                     peel_keys_cuda, peel_keys_torch,
+                                     screen_rejects)
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
                                          entry_lower_bound, pack_features,
@@ -28,6 +32,7 @@ from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
                                          render_tiled_keys)
 from rtgs_tpu_torch.scene import anisotropic_scene, random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
+from _torch_frames import DEEP_DEPTHS, deep_inputs
 
 
 @pytest.fixture
@@ -66,6 +71,34 @@ def test_kernel_matches_twin(cuda, depth):
     assert torch.equal(sid_k, sid_t) and torch.equal(t1_k, t1_t)
     assert torch.equal(sid_e, sid_k) and torch.equal(t1_e, t1_k)
     assert (sid_k >= 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", DEEP_DEPTHS)
+def test_chained_kernel_matches_twin(cuda, depth):
+    """The passes, with and without the early exit, against one twin call
+    at the whole depth: t1 and ids bitwise."""
+    packed, cand, lb, pix = deep_inputs(cuda)
+    t1_t, sid_t = peel_keys_torch(packed, cand, pix, depth)
+    assert (sid_t[:, depth - 1] >= 0).any()
+    for chunk_lb in (lb, torch.zeros_like(lb)):
+        before = peel_keys_cuda.launches
+        t1_k, sid_k = peel_keys(packed, cand, pix, depth, chunk_lb=chunk_lb)
+        torch.cuda.synchronize()
+        assert peel_keys_cuda.launches == before + len(pass_depths(depth))
+        assert torch.equal(sid_k, sid_t) and torch.equal(t1_k, t1_t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [16, 96])
+def test_kernel_takes_4096_pixel_tiles(cuda, depth):
+    packed, cand, lb, pix = deep_inputs(cuda, "64x64")
+    assert pix.shape[1] == 4096
+    t1_k, sid_k = peel_keys(packed, cand, pix, depth, chunk_lb=lb)
+    t1_t, sid_t = peel_keys_torch(packed, cand, pix, depth)
+    torch.cuda.synchronize()
+    assert (sid_t >= 0).any()
+    assert torch.equal(sid_k, sid_t) and torch.equal(t1_k, t1_t)
 
 
 def _anisotropic_frame(device, gap, fov, n=20_000, res=(64, 48)):

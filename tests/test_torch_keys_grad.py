@@ -53,7 +53,7 @@ def _cams(res, theta=0.3, r=3.0):
     pos, rot, _, _ = orbit_camera_pose(theta, 1.2, r, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     jcam = camera_from_fov(pos, rot, res, 60.0)
-    return jcam, camera_from_numpy(jcam)
+    return jcam, camera_from_numpy(jcam, device="cpu")
 
 
 def _jscene(fields):
@@ -165,7 +165,7 @@ def test_render_matches_jax():
     fields = random_scene_arrays(2000, 1.0, (0.02, 0.1), seed=11)
     jcam, tcam = _cams((64, 48))
     img_j = jtiled.render_tiled_keys(_jscene(fields), jcam, **KW)
-    g = gaussians_from_numpy(fields)
+    g = gaussians_from_numpy(fields, device="cpu")
     g = dataclasses.replace(g, means=g.means.clone().requires_grad_())
     img_t = ttiled.render_tiled_keys(g, tcam, **KW)
     assert img_t.requires_grad and img_t.shape == (64, 48, 3)
@@ -277,7 +277,7 @@ def test_banded_backward_runs_the_keys_stage_again(monkeypatch):
 
     def run(grad, bands):
         calls.clear()
-        g = gaussians_from_numpy(fields)
+        g = gaussians_from_numpy(fields, device="cpu")
         if grad:
             g = dataclasses.replace(g, means=g.means.requires_grad_())
         img = ttiled.render_tiled_keys(g, tcam, tile_bands=bands, **kw)
@@ -310,8 +310,9 @@ def test_train_step_matches_jax():
     fields = random_scene_arrays(80, 0.8, (0.02, 0.1), seed=3)
     jcam, tcam = _cams((16, 16))
     with torch.no_grad():
-        target = ttiled.render_tiled_keys(gaussians_from_numpy(fields), tcam,
-                                          depth=8, **STEP_KW).numpy()
+        target = ttiled.render_tiled_keys(
+            gaussians_from_numpy(fields, device="cpu"), tcam, depth=8,
+            **STEP_KW).numpy()
     rng = np.random.default_rng(9)
     names = jsolver.SceneParams._fields
     p0 = {f: np.asarray(v) for f, v in zip(
@@ -332,7 +333,7 @@ def test_train_step_matches_jax():
     p1 = {f: np.asarray(getattr(pj, f)) for f in names}
 
     pt = tsolver.SceneParams(*(p.clone().requires_grad_()
-                               for p in params_from_numpy(p1)))
+                               for p in params_from_numpy(p1, device="cpu")))
     opt_t = tsolver.make_optimizer(tcfg, pt)
     adam_state_from_optax(st, opt_t, pt)
     step_t = tsolver.make_train_step(tcfg, opt_t, depth=8, renderer="keys",
@@ -369,7 +370,7 @@ def test_train_step_matches_jax():
 def test_solver_trains_through_keys():
     """A few steps of the Solver through ``keys`` lower the loss of a
     perturbed scene against its own renders."""
-    g = random_scene(150, extent=0.5, seed=3)
+    g = random_scene(150, extent=0.5, seed=3, device="cpu")
     _, tcam = _cams((24, 16), r=2.5)
     kw = dict(max_candidates=256, tile_bands=2)
     with torch.no_grad():
@@ -393,7 +394,7 @@ def test_solver_trains_through_keys():
 @pytest.fixture
 def scene_path(tmp_path):
     path = tmp_path / "toy.ply"
-    save_scene(path, random_scene(120, extent=0.5, seed=3))
+    save_scene(path, random_scene(120, extent=0.5, seed=3, device="cpu"))
     return path
 
 

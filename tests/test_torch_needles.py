@@ -47,11 +47,11 @@ def _camera(view, res=(64, 48)):
     pos, rot, _, _ = orbit_camera_pose(
         0.4, 1.2, EXTENT * math.sqrt(3.0) + gap, np.zeros(3),
         np.array([0.0, 0.0, 0.0, 1.0]))
-    return camera_from_fov(pos, rot, res, fov)
+    return camera_from_fov(pos, rot, res, fov, device="cpu")
 
 
 def _needles(n=3000, **kw):
-    return anisotropic_scene(n, extent=EXTENT, seed=4, **kw)
+    return anisotropic_scene(n, extent=EXTENT, seed=4, device="cpu", **kw)
 
 
 def _sym6_minors(m6):
@@ -111,10 +111,11 @@ def test_chunk_lb_bounds_the_tables_entry_depths(view):
 def test_entry_lower_bound_costs_the_bench_scene_little():
     """At the bench scene's scales the proven bound lies a few percent of a
     splat's size in front of depth − √3·s_max, and is a bound."""
-    g = random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0)
+    g = random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+                     device="cpu")
     pos, rot, _, _ = orbit_camera_pose(0.4, 1.2, 5.0, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
-    cam = camera_from_fov(pos, rot, (64, 48), 60.0)
+    cam = camera_from_fov(pos, rot, (64, 48), 60.0, device="cpu")
     packed = pack_features(precompute_features(g, cam))
     lb = entry_lower_bound(g, cam, packed)
     depth = ((g.means - cam.position)
@@ -155,7 +156,8 @@ def test_direct_form_against_float64(scene):
     of terms below 1/s_min², which the largest entry is at least a third of
     (measured: 11·2⁻²⁴). And the diagonal is never negative."""
     g = (_needles() if scene == "needles" else
-         random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0))
+         random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+                      device="cpu"))
     got = torch.stack(TG.inv_covariance_direct6(g.quats, g.scales),
                       dim=-1).numpy().astype(np.float64)
     want = _direct6_numpy(g.quats.numpy(), g.scales.numpy())
@@ -168,7 +170,8 @@ def test_direct_form_against_the_jax_adjugate_on_a_conditioned_scene():
     """Scale ratio ≤ 6 (the bench scene's range): the two forms of Σ⁻¹
     agree to 1e-5 of each splat's largest entry (cond(Σ) ≤ 36 times a few
     2⁻²⁴), and the whole feature table to 1e-5 of each lane's scale."""
-    g = random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0)
+    g = random_scene(3000, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+                     device="cpu")
     arrays = gaussians_to_numpy(g)
     jax_m6 = np.stack([np.asarray(x) for x in JG.inv_covariance_packed6(
         arrays["quats"], arrays["scales"])], axis=-1)

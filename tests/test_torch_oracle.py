@@ -48,14 +48,14 @@ def _np(x):
 def _scenes(n, extent=1.0, seed=0, scale_range=(0.02, 0.1)):
     fields = random_scene_arrays(n, extent, scale_range, seed=seed)
     return (JG.Gaussians(**{k: jnp.asarray(v) for k, v in fields.items()}),
-            gaussians_from_numpy(fields))
+            gaussians_from_numpy(fields, device="cpu"))
 
 
 def _random_rays(n, seed=1, spread=3.0):
     rng = np.random.default_rng(seed)
     origins = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
     dirs = -origins / np.linalg.norm(origins, axis=-1, keepdims=True)
-    return jrays.new_rays(origins, dirs), new_rays(origins, dirs)
+    return jrays.new_rays(origins, dirs), new_rays(origins, dirs, device="cpu")
 
 
 # ----- primitive math -----
@@ -88,11 +88,11 @@ def test_covariance_and_inverses_match_jax():
 
 def test_new_gaussians_defaults_match_jax():
     means = [[0.0, 0.0, -5.0], [1.0, 2.0, 3.0]]
-    tg, jg = G.new_gaussians(means), JG.new_gaussians(means)
+    tg, jg = G.new_gaussians(means, device="cpu"), JG.new_gaussians(means)
     for f in G.FIELDS:
         np.testing.assert_array_equal(getattr(tg, f).numpy(),
                                       np.asarray(getattr(jg, f)), err_msg=f)
-    tg = G.new_gaussians(means, opacities=[0.3, 0.4])
+    tg = G.new_gaussians(means, opacities=[0.3, 0.4], device="cpu")
     np.testing.assert_array_equal(tg.opacities.numpy(),
                                   np.float32([0.3, 0.4]))
 
@@ -173,13 +173,13 @@ def test_generate_ray_grid_matches_jax(offset):
     jcam = jcamera.camera_from_fov([0.3, -0.2, 2.0], [0.1, 0.2, 0.0, 0.97],
                                    (24, 16), 60.0)
     jr = jcamera.generate_ray_grid(jcam, offset)
-    tr = generate_ray_grid(camera_from_numpy(jcam), offset)
+    tr = generate_ray_grid(camera_from_numpy(jcam, device="cpu"), offset)
     assert tr.origins.shape == (24, 16, 3) and tr.starts.shape == (24, 16)
     for f, v in rays_to_numpy(tr).items():
         np.testing.assert_allclose(v, np.asarray(getattr(jr, f)), rtol=RTOL,
                                    atol=1e-6, err_msg=f)
     # The bridge carries a bundle across, and Rays.get/reshape agree.
-    back = rays_from_numpy(jr)
+    back = rays_from_numpy(jr, device="cpu")
     flat = back.reshape(24 * 16)
     t = torch.linspace(0.5, 2.0, 24 * 16)
     np.testing.assert_allclose(
@@ -192,9 +192,9 @@ def test_generate_ray_grid_matches_jax(offset):
 
 def _both_composite(means, rays_o, rays_d, depth, starts=None, **fields):
     jg = JG.new_gaussians(means, **fields)
-    tg = G.new_gaussians(means, **fields)
+    tg = G.new_gaussians(means, **fields, device="cpu")
     jr = jrays.new_rays(rays_o, rays_d, starts)
-    tr = new_rays(rays_o, rays_d, starts)
+    tr = new_rays(rays_o, rays_d, starts, device="cpu")
     rad_j, tr_j = joracle.composite_rays(jg, jr, depth=depth)
     rad_t, tr_t = composite_rays(tg, tr, depth=depth)
     np.testing.assert_allclose(rad_t.numpy(), np.asarray(rad_j), rtol=RTOL,
@@ -241,8 +241,10 @@ def test_depth_truncation_and_padding_to_k():
     rad, _ = _both_composite(means, depth=1, **kw)
     np.testing.assert_allclose(rad[0], [0.5, 0.0, 0.0], atol=1e-6)
     t1, alpha, rgb = topk_hits(G.new_gaussians(means, colors=kw["colors"],
-                                               opacities=kw["opacities"]),
-                               new_rays(AXIS["rays_o"], AXIS["rays_d"]), 4)
+                                               opacities=kw["opacities"],
+                                               device="cpu"),
+                               new_rays(AXIS["rays_o"], AXIS["rays_d"],
+                                        device="cpu"), 4)
     assert t1.shape == (1, 4) and rgb.shape == (1, 4, 3)
     assert torch.isinf(t1[0, 2:]).all() and (alpha[0, 2:] == 0).all()
     assert (rgb[0, 2:] == 0).all() and (t1[0, 0] < t1[0, 1])
@@ -274,9 +276,12 @@ def test_mask_excludes_padding():
     padded["scales"][37:] = 1.0
     padded["quats"][37:, 3] = 1.0
     rays = new_rays(np.tile([0, 0, 3.0], (8, 1)), np.tile([0, 0, -1.0],
-                                                          (8, 1)))
-    r1, t1 = composite_rays(gaussians_from_numpy(fields), rays, depth=8)
-    r2, t2 = composite_rays(gaussians_from_numpy(padded), rays, depth=8)
+                                                          (8, 1)),
+                    device="cpu")
+    r1, t1 = composite_rays(gaussians_from_numpy(fields, device="cpu"), rays,
+                            depth=8)
+    r2, t2 = composite_rays(gaussians_from_numpy(padded, device="cpu"), rays,
+                            depth=8)
     np.testing.assert_allclose(r1.numpy(), r2.numpy(), atol=1e-6)
     np.testing.assert_allclose(t1.numpy(), t2.numpy(), atol=1e-6)
 
@@ -303,8 +308,9 @@ def test_ties_go_to_the_lower_index():
     nearer layer, as lax.top_k orders them."""
     means = [[0.0, 0.0, -5.0], [0.0, 0.0, -5.0]]
     colors = [[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]]
-    g = G.new_gaussians(means, colors=colors, opacities=[0.5, 0.5])
-    rays = new_rays(AXIS["rays_o"], AXIS["rays_d"])
+    g = G.new_gaussians(means, colors=colors, opacities=[0.5, 0.5],
+                        device="cpu")
+    rays = new_rays(AXIS["rays_o"], AXIS["rays_d"], device="cpu")
     _, _, rgb = topk_hits(g, rays, 2)
     np.testing.assert_array_equal(rgb[0].numpy(), colors)
     _both_composite(means, depth=2, colors=colors, opacities=[0.5, 0.5],
@@ -329,7 +335,7 @@ def test_render_oracle_full_frame_matches_jax():
     jg, tg = _scenes(50, extent=0.5, seed=9)
     jcam = jcamera.new_camera([0, 0, 2.0], [0, 0, 0, 1], (16, 12),
                               (10.0, 10.0))
-    tcam = camera_from_numpy(jcam)
+    tcam = camera_from_numpy(jcam, device="cpu")
     img = render_oracle(tg, tcam, depth=8)
     assert img.shape == (16, 12, 3) and torch.isfinite(img).all()
     assert torch.equal(render_oracle(tg, tcam, depth=8, pixel_chunk=7), img)
@@ -353,7 +359,7 @@ def test_gradients_match_jax():
     origins = np.tile([0, 0, 2.0], (16, 1)) + 0.2 * rng.standard_normal(
         (16, 3))
     jr = jrays.new_rays(origins, np.tile([0, 0, -1.0], (16, 1)))
-    tr = rays_from_numpy(jr)
+    tr = rays_from_numpy(jr, device="cpu")
     params = {f: getattr(tg, f).clone().requires_grad_()
               for f in G.FIELDS if f != "mask"}
     rad, _ = composite_rays(G.Gaussians(mask=tg.mask, **params), tr, depth=8)
@@ -407,7 +413,7 @@ def _golden_camera(z, res=None):
                            np.asarray(z["cam_rot"], np.float32),
                            tuple(int(v) for v in (res if res is not None
                                                   else z["res"])),
-                           float(z["fov_deg"]))
+                           float(z["fov_deg"]), device="cpu")
 
 
 def assert_golden_close(actual, golden, tag, q=0.995, qtol=2e-3,
@@ -431,7 +437,8 @@ GOLDEN_CASES = [("golden_fixture.npz", "ref_test.ply"),
 def test_render_oracle_matches_golden(npz, ply, chunk):
     z = np.load(GOLDEN / npz)
     scale = float(z["scale"]) if "scale" in z else 1.0
-    g = load_scene(GOLDEN / ply, scale=scale, sh_layout="reference_flat")
+    g = load_scene(GOLDEN / ply, scale=scale, sh_layout="reference_flat",
+                   device="cpu")
     img = render_oracle(g, _golden_camera(z), depth=int(z["depth"]),
                         pixel_chunk=chunk)
     assert_golden_close(img, z["img"], f"{npz}/oracle/{chunk}")
@@ -442,7 +449,8 @@ def test_oracle_gradients_match_golden_finite_differences():
     differences, at tests/test_parity_golden.py's tolerance
     1e-4 + 2e-2·|fd|."""
     z = np.load(GOLDEN / "golden_grads.npz")
-    g = load_scene(GOLDEN / "synthetic120.ply", sh_layout="reference_flat")
+    g = load_scene(GOLDEN / "synthetic120.ply", sh_layout="reference_flat",
+                   device="cpu")
     cam = _golden_camera(z, res=(32, 24))
     leaves = {f: getattr(g, f).clone().requires_grad_()
               for f in ("means", "scales", "colors", "opacities", "sh",
@@ -471,7 +479,8 @@ def test_oracle_gradients_match_golden_finite_differences():
 
 
 def test_rays_defaults():
-    r = new_rays([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]], [[0.0, 0.0, -1.0]] * 2)
+    r = new_rays([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0]], [[0.0, 0.0, -1.0]] * 2,
+                 device="cpu")
     assert isinstance(r, Rays)
     assert (r.starts == 0).all() and torch.isinf(r.ends).all()
     np.testing.assert_array_equal(

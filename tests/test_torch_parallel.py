@@ -80,13 +80,13 @@ inp = np.load(os.path.join(tmp, "inputs.npz"))
 fields = {f: torch.from_numpy(inp[f]) for f in G.FIELDS}
 cam = camera_from_numpy({k: inp["cam_" + k] for k in
                          ("position", "rotation", "focal_length",
-                          "buf_size")})
+                          "buf_size")}, device="cpu")
 kw = dict(depth=int(inp["depth"]), tile=(16, 16),
           max_candidates=int(inp["max_candidates"]),
           max_global=int(inp["max_global"]))
 out = {}
 rays = new_rays(torch.from_numpy(inp["ray_o"]),
-                torch.from_numpy(inp["ray_d"]))
+                torch.from_numpy(inp["ray_d"]), device="cpu")
 with torch.no_grad():
     for tag, prefix in (("", ""), ("_tie", "tie_")):
         g = G.Gaussians(**{f: torch.from_numpy(inp[prefix + f])
@@ -239,8 +239,9 @@ def test_tiled_sharded_matches_port_keys(rings, shape):
     single-device keys render, atol 1e-5."""
     ranks = rings(shape)
     fields, _, jcam, _, _ = _jax_scene()
-    ref = render_tiled_keys(gaussians_from_numpy(fields),
-                            camera_from_numpy(jcam), depth=DEPTH, **BUDGETS)
+    ref = render_tiled_keys(gaussians_from_numpy(fields, device="cpu"),
+                            camera_from_numpy(jcam, device="cpu"),
+                            depth=DEPTH, **BUDGETS)
     assert ranks[0]["image"].shape == (RES[0], RES[1], 3)
     assert np.abs(ranks[0]["image"]).max() > 0.1
     np.testing.assert_allclose(ranks[0]["image"], ref.numpy(), atol=ATOL)
@@ -271,15 +272,16 @@ def test_cross_shard_tie_matches_single_device(rings, shape):
     prims-ranks disagree here)."""
     ranks = rings(shape)
     fields, _, jcam, origins, dirs = _jax_scene()
-    g = gaussians_from_numpy(_tie_scene(fields))
+    g = gaussians_from_numpy(_tie_scene(fields), device="cpu")
     with torch.no_grad():
-        ref = render_tiled_keys(g, camera_from_numpy(jcam), depth=DEPTH,
-                                **BUDGETS)
-        ref_rad, ref_trans = composite_rays(g, new_rays(origins, dirs),
+        ref = render_tiled_keys(g, camera_from_numpy(jcam, device="cpu"),
+                                depth=DEPTH, **BUDGETS)
+        ref_rad, ref_trans = composite_rays(g, new_rays(origins, dirs,
+                                                        device="cpu"),
                                             depth=DEPTH)
-    alone = render_tiled_keys(gaussians_from_numpy(fields),
-                              camera_from_numpy(jcam), depth=DEPTH,
-                              **BUDGETS)
+    alone = render_tiled_keys(gaussians_from_numpy(fields, device="cpu"),
+                              camera_from_numpy(jcam, device="cpu"),
+                              depth=DEPTH, **BUDGETS)
     assert not torch.equal(ref, alone)          # the pair is in view
     for r in ranks:
         np.testing.assert_array_equal(r["image_tie"], ref.numpy())
@@ -307,7 +309,8 @@ def test_ring_gradients_match_single_device(rings):
               for f, v in fields.items()}
     from rtgs_tpu_torch import gaussians as G
 
-    img = render_tiled_keys(G.Gaussians(**leaves), camera_from_numpy(jcam),
+    img = render_tiled_keys(G.Gaussians(**leaves),
+                            camera_from_numpy(jcam, device="cpu"),
                             depth=DEPTH, **BUDGETS)
     (img ** 2).sum().backward()
     got = _ring_grads(ranks, n_prims)
@@ -427,7 +430,7 @@ def test_cli_render_mesh_under_launcher(tmp_path, capfd):
     from rtgs_tpu_torch.utils.image import load_image
 
     ply = tmp_path / "s.ply"
-    save_scene(ply, random_scene(200, extent=0.5, seed=3))
+    save_scene(ply, random_scene(200, extent=0.5, seed=3, device="cpu"))
     argv = ["render", "-o", str(ply), "-r", "48,32", "-d", "8",
             "--radius", "2.0", "--device", "cpu"]
     one = tmp_path / "one.png"

@@ -105,13 +105,13 @@ def test_sh_basis():
 
 
 def test_bridge_roundtrip(scene):
-    g = gaussians_from_numpy(scene)
+    g = gaussians_from_numpy(scene, device="cpu")
     back = gaussians_to_numpy(g)
     for f in TG.FIELDS:
         np.testing.assert_array_equal(back[f], scene[f])
     jcam = JC.camera_from_fov([0.0, 0.0, 3.0], [0.0, 0.0, 0.0, 1.0],
                               (40, 30), 50.0)
-    cam = camera_to_numpy(camera_from_numpy(jcam))
+    cam = camera_to_numpy(camera_from_numpy(jcam, device="cpu"))
     assert cam["buf_size"] == (40, 30)
     for f in ("position", "rotation", "focal_length"):
         np.testing.assert_array_equal(cam[f], np.asarray(getattr(jcam, f)))
@@ -120,7 +120,7 @@ def test_bridge_roundtrip(scene):
 def _cameras():
     pos, rot, _, _ = JO.orbit_camera_pose(0.4, 1.1, 2.5, np.zeros(3),
                                           np.array([0.0, 0.0, 0.0, 1.0]))
-    return (TC.camera_from_fov(pos, rot, (40, 24), 55.0),
+    return (TC.camera_from_fov(pos, rot, (40, 24), 55.0, device="cpu"),
             JC.camera_from_fov(pos, rot, (40, 24), 55.0))
 
 
@@ -171,7 +171,7 @@ def test_tile_pixel_features(offset):
 
 def test_precompute_and_pack_features(scene):
     t, j = _cameras()
-    tg = gaussians_from_numpy(scene)
+    tg = gaussians_from_numpy(scene, device="cpu")
     jg = JG.Gaussians(**{k: jnp.asarray(v) for k, v in scene.items()})
     tf, jf = TT.precompute_features(tg, t), JT.precompute_features(jg, j)
     for f in ("opacity", "color", "sh"):

@@ -42,9 +42,9 @@ def test_meter_flush_matches_jax():
 
 
 def test_trace_writes_chrome_trace(tmp_path):
-    g = random_scene(200, extent=0.5, seed=1)
+    g = random_scene(200, extent=0.5, seed=1, device="cpu")
     cam = camera_from_fov([0.0, 0.0, 3.0], [0.0, 0.0, 0.0, 1.0], (32, 32),
-                          60.0)
+                          60.0, device="cpu")
     with prof.trace(str(tmp_path / "tr")):
         img = render_tiled_keys(g, cam, depth=4)
     assert torch.isfinite(img).all()

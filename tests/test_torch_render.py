@@ -32,7 +32,8 @@ def _scene_and_camera(n=600, res=(64, 48), seed=11):
     pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, 3.0, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     jcam = camera_from_fov(pos, rot, res, 60.0)
-    return jg, jcam, gaussians_from_numpy(fields), camera_from_numpy(jcam)
+    return (jg, jcam, gaussians_from_numpy(fields, device="cpu"),
+            camera_from_numpy(jcam, device="cpu"))
 
 
 KW = dict(depth=16, tile=(16, 16), max_candidates=640, max_global=64)
@@ -88,7 +89,7 @@ def test_render_dispatch():
 @pytest.fixture
 def scene_path(tmp_path):
     path = tmp_path / "toy.ply"
-    save_scene(path, random_scene(64, extent=0.4, seed=3))
+    save_scene(path, random_scene(64, extent=0.4, seed=3, device="cpu"))
     return path
 
 

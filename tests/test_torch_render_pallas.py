@@ -38,7 +38,8 @@ def _scene_and_camera(n, res, extent=1.0, seed=11):
     pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, 3.0, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     jcam = camera_from_fov(pos, rot, res, 60.0)
-    return jg, jcam, gaussians_from_numpy(fields), camera_from_numpy(jcam)
+    return (jg, jcam, gaussians_from_numpy(fields, device="cpu"),
+            camera_from_numpy(jcam, device="cpu"))
 
 
 KW = dict(depth=8, tile=(16, 8), max_candidates=256, max_global=32)
@@ -120,7 +121,7 @@ def _check_scene_grads(jg, fields):
     jcam = camera_from_fov(*orbit_camera_pose(
         0.3, 1.2, 3.0, np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))[:2],
         (16, 16), 60.0)
-    tcam = camera_from_numpy(jcam)
+    tcam = camera_from_numpy(jcam, device="cpu")
     gj = _jax_scene_grads(jg, jcam, GRAD_KW)
     g32 = _port_scene_grads(fields, tcam, GRAD_KW)
     g64 = _port_scene_grads(fields, tcam, GRAD_KW, dtype=torch.float64)

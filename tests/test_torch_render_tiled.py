@@ -89,9 +89,9 @@ def test_render_tiled_scene_gradients_match_jax():
     grads_j = jax.grad(lambda g: jnp.sum(j_render_tiled(
         g, jcam, **kw) ** 2))(jg)
     got = _scene_grads(lambda g, c: render_tiled(g, c, tile_chunk=1, **kw),
-                       fields, camera_from_numpy(jcam))
+                       fields, camera_from_numpy(jcam, device="cpu"))
     whole = _scene_grads(lambda g, c: render_tiled(g, c, **kw), fields,
-                         camera_from_numpy(jcam))
+                         camera_from_numpy(jcam, device="cpu"))
     for name, a in got.items():
         b = np.asarray(getattr(grads_j, name))
         assert np.isfinite(a).all(), name
@@ -117,7 +117,8 @@ RENDERERS = {
 def test_image_parity_with_golden(npz, ply, renderer):
     z = np.load(GOLDEN / npz)
     scale = float(z["scale"]) if "scale" in z else 1.0
-    g = load_scene(GOLDEN / ply, scale=scale, sh_layout="reference_flat")
+    g = load_scene(GOLDEN / ply, scale=scale, sh_layout="reference_flat",
+                   device="cpu")
     with torch.no_grad():
         img = RENDERERS[renderer](g, _golden_camera(z), int(z["depth"]))
     assert_golden_close(img, z["img"], f"{npz}/{renderer}")
@@ -144,7 +145,7 @@ def test_render_dispatch_drops_knobs():
 @pytest.fixture
 def scene_path(tmp_path):
     path = tmp_path / "toy.ply"
-    save_scene(path, random_scene(64, extent=0.4, seed=3))
+    save_scene(path, random_scene(64, extent=0.4, seed=3, device="cpu"))
     return path
 
 
@@ -168,7 +169,7 @@ def test_cli_fit(scene_path, tmp_path, capsys, renderer):
           "--init-points", "40", "--output", str(out)])
     line = capsys.readouterr().out
     assert "fit 3 steps: loss=" in line and f"live=40 -> {out}" in line
-    assert load_scene(out).num == 40
+    assert load_scene(out, device="cpu").num == 40
 
 
 def test_train_step_through_oracle_matches_jax():
@@ -183,10 +184,10 @@ def test_train_step_through_oracle_matches_jax():
     everywhere max < 2, a noise-sized gradient may flip its step)."""
     fields = random_scene_arrays(48, 0.8, (0.02, 0.1), seed=3)
     jcam = _cam()
-    tcam = camera_from_numpy(jcam)
+    tcam = camera_from_numpy(jcam, device="cpu")
     with torch.no_grad():
-        target = render_oracle(gaussians_from_numpy(fields), tcam,
-                               depth=8).numpy()
+        target = render_oracle(gaussians_from_numpy(fields, device="cpu"),
+                               tcam, depth=8).numpy()
     rng = np.random.default_rng(9)
     p0 = {f: np.asarray(v) for f, v in zip(
         FIELDS, jsolver.init_params(_jscene(fields)))}
@@ -205,7 +206,7 @@ def test_train_step_through_oracle_matches_jax():
     p1 = {f: np.asarray(getattr(pj, f)) for f in FIELDS}
 
     pt = tsolver.SceneParams(*(p.clone().requires_grad_()
-                               for p in params_from_numpy(p1)))
+                               for p in params_from_numpy(p1, device="cpu")))
     opt_t = tsolver.make_optimizer(tcfg, pt)
     adam_state_from_optax(st, opt_t, pt)
     step_t = tsolver.make_train_step(tcfg, opt_t, depth=8, renderer="oracle",

@@ -19,7 +19,7 @@ GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 @pytest.mark.parametrize("layout", ["inria", "reference_flat"])
 @pytest.mark.parametrize("name", ["ref_test.ply", "synthetic120.ply"])
 def test_load_matches_jax_exactly(name, layout):
-    t = load_scene(GOLDEN / name, sh_layout=layout)
+    t = load_scene(GOLDEN / name, sh_layout=layout, device="cpu")
     j = j_load_scene(GOLDEN / name, sh_layout=layout)
     for f in TG.FIELDS:
         a, b = getattr(t, f).numpy(), np.asarray(getattr(j, f))
@@ -29,7 +29,7 @@ def test_load_matches_jax_exactly(name, layout):
 
 def test_unknown_layout_raises():
     with pytest.raises(ValueError, match="sh_layout"):
-        load_scene(GOLDEN / "ref_test.ply", sh_layout="bogus")
+        load_scene(GOLDEN / "ref_test.ply", sh_layout="bogus", device="cpu")
 
 
 @pytest.mark.parametrize("fmt", ["binary_little_endian", "ascii"])
@@ -46,10 +46,10 @@ def test_ply_roundtrip(tmp_path, fmt):
 
 @pytest.mark.parametrize("layout", ["inria", "reference_flat"])
 def test_save_load_roundtrip(tmp_path, layout):
-    g = random_scene(50, extent=0.5, seed=4)
+    g = random_scene(50, extent=0.5, seed=4, device="cpu")
     path = tmp_path / "s.ply"
     save_scene(path, g, sh_layout=layout)
-    g2 = load_scene(path, sh_layout=layout)
+    g2 = load_scene(path, sh_layout=layout, device="cpu")
     # The JAX package reads the port's file the same way.
     j = j_load_scene(path, sh_layout=layout)
     for f in TG.FIELDS:
@@ -66,18 +66,18 @@ def test_save_load_roundtrip(tmp_path, layout):
 
 
 def test_save_drops_masked(tmp_path):
-    g = random_scene(10, seed=5)
+    g = random_scene(10, seed=5, device="cpu")
     g.mask[3:] = 0.0
     save_scene(tmp_path / "m.ply", g)
-    assert load_scene(tmp_path / "m.ply").num == 3
+    assert load_scene(tmp_path / "m.ply", device="cpu").num == 3
 
 
 def test_splt_roundtrip(tmp_path):
-    g = random_scene(40, extent=0.5, seed=6)
+    g = random_scene(40, extent=0.5, seed=6, device="cpu")
     p = tmp_path / "s.splt"
     save_scene(p, g)
     assert p.stat().st_size == 40 * 32
-    g2 = load_scene(p)
+    g2 = load_scene(p, device="cpu")
     j = j_load_scene(p)
     for f in TG.FIELDS:
         np.testing.assert_array_equal(getattr(g2, f).numpy(),
@@ -92,8 +92,9 @@ def test_sigmoid_inverse():
 
 
 def test_random_scene_is_seeded():
-    a, b = random_scene(20, seed=9), random_scene(20, seed=9)
+    a = random_scene(20, seed=9, device="cpu")
+    b = random_scene(20, seed=9, device="cpu")
     assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in TG.FIELDS)
-    c = random_scene(20, seed=10)
+    c = random_scene(20, seed=10, device="cpu")
     assert not torch.equal(a.means, c.means)
     assert a.means.abs().max() <= 1.0 and a.opacities.min() >= 0.2

@@ -40,7 +40,7 @@ CSRC = (pathlib.Path(peel.__file__).resolve().parent / "csrc"
 def _binned(g, radius, fov=60.0, res=(64, 64), budget=1024):
     pos, rot, _, _ = orbit_camera_pose(0.4, 1.2, radius, np.zeros(3),
                                        np.array([0.0, 0.0, 0.0, 1.0]))
-    cam = camera_from_fov(pos, rot, res, fov)
+    cam = camera_from_fov(pos, rot, res, fov, device="cpu")
     b = tile_candidates(g, cam, max_candidates=budget, max_global=256,
                         chunk=CHUNK)
     packed = pack_features(precompute_features(g, cam))
@@ -54,17 +54,20 @@ SCENES = {
     # splats, a camera inside the cloud, and needles and discs (scale ratio
     # ≥ 100 within a splat) from 0.2 and from 50 units away.
     "bench": lambda: _binned(random_scene(
-        4000, extent=2.0, scale_range=(0.005, 0.03), seed=0), 5.0),
+        4000, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+        device="cpu"), 5.0),
     "frame": lambda: _binned(random_scene(
-        3000, extent=0.6, scale_range=(0.01, 0.06), seed=2), 2.0),
+        3000, extent=0.6, scale_range=(0.01, 0.06), seed=2,
+        device="cpu"), 2.0),
     "large": lambda: _binned(random_scene(
-        2000, extent=1.5, scale_range=(0.05, 0.2), seed=1), 5.0),
+        2000, extent=1.5, scale_range=(0.05, 0.2), seed=1, device="cpu"), 5.0),
     "inside": lambda: _binned(random_scene(
-        3000, extent=1.0, scale_range=(0.01, 0.1), seed=3), 0.3),
+        3000, extent=1.0, scale_range=(0.01, 0.1), seed=3, device="cpu"), 0.3),
     "needles_near": lambda: _binned(anisotropic_scene(
-        5000, extent=0.5, seed=4), 0.5 * 3 ** 0.5 + 0.2),
+        5000, extent=0.5, seed=4, device="cpu"), 0.5 * 3 ** 0.5 + 0.2),
     "needles_far": lambda: _binned(anisotropic_scene(
-        5000, extent=0.5, seed=4), 0.5 * 3 ** 0.5 + 50.0, fov=2.0),
+        5000, extent=0.5, seed=4,
+        device="cpu"), 0.5 * 3 ** 0.5 + 50.0, fov=2.0),
 }
 
 

@@ -13,7 +13,10 @@ table (the fused backward's two stages, sums in fixed orders): against the
 twin's per-slot gradients each feature lane must agree to 1e-4 of that
 lane's largest entry, and the sentinel row must be exactly 0. The K-list
 composited by composite_hits equals the fused peel's radiance and
-transmittance to 1e-5 (the same layers, summed in another order)."""
+transmittance to 1e-5 (the same layers, summed in another order). Deeper
+than MAX_DEPTH, peel_topk chains the kernels in passes above each pixel's
+floor and concatenates their layers: t1 bitwise one twin call's at the
+whole depth, α, rgb and the gradient at the same tolerances."""
 
 import numpy as np
 import pytest
@@ -21,7 +24,8 @@ import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
 from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts,
-                                     _scatter_slot_grads, peel_fused,
+                                     _scatter_slot_grads, pass_depths,
+                                     peel_fused,
                                      peel_fused_cuda, peel_topk,
                                      peel_topk_bwd_cuda, peel_topk_bwd_torch,
                                      peel_topk_cuda, peel_topk_torch)
@@ -31,7 +35,8 @@ from rtgs_tpu_torch.render.tiled import (_tile_pixel_features, pack_features,
                                          precompute_features)
 from rtgs_tpu_torch.scene import random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
-from _torch_frames import SWEEP_SHAPES, sweep_inputs
+from _torch_frames import (DEEP_DEPTHS, SWEEP_SHAPES, deep_inputs,
+                           sweep_inputs)
 
 LAYER_ATOL = 1e-5
 BWD_LANE_RTOL = 1e-4
@@ -95,6 +100,34 @@ def test_kernels_match_twins(cuda, depth):
     # The forward is deterministic, bitwise.
     lay_2, sl_2 = peel_topk_cuda(packed, cand, counts, pix, depth)
     assert torch.equal(lay_2, lay_k) and torch.equal(sl_2, sl_k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,depth", [("16x16", d) for d in DEEP_DEPTHS]
+                         + [("64x64", 96)])
+def test_chained_kernels_match_twin(cuda, shape, depth):
+    """peel_topk at a depth of several passes: one launch of each kernel a
+    pass; t1 bitwise one twin call's, α and rgb to LAYER_ATOL, and the
+    table gradient of a weighted sum of the layers against the twin's."""
+    packed, cand, _, pix = deep_inputs(cuda, shape)
+    lay_t, sl_t = peel_topk_torch(packed, cand, pix, depth)
+    x = packed.detach().clone().requires_grad_()
+    fwd0, bwd0 = peel_topk_cuda.launches, peel_topk_bwd_cuda.launches
+    lay_k = torch.stack(peel_topk(x, cand, pix, depth), dim=1)  # (T,5,P,K)
+    gen = torch.Generator(device=cuda).manual_seed(depth)
+    g_lay = torch.randn((cand.shape[0], 4, depth, pix.shape[1]),
+                        generator=gen, device=cuda)
+    (lay_k[:, 1:] * g_lay.transpose(2, 3)).sum().backward()
+    torch.cuda.synchronize()
+    n_pass = len(pass_depths(depth))
+    assert peel_topk_cuda.launches == fwd0 + n_pass
+    assert peel_topk_bwd_cuda.launches == bwd0 + n_pass
+    lay_k = lay_k.detach().transpose(2, 3)
+    assert torch.equal(lay_k[:, 0], lay_t[:, 0])
+    assert (lay_k[:, 1:] - lay_t[:, 1:]).abs().max() <= LAYER_ATOL
+    d_t = _scatter_slot_grads(packed, cand, peel_topk_bwd_torch(
+        packed, cand, pix, sl_t, g_lay))
+    assert_tables_close(x.grad, d_t)
 
 
 @pytest.mark.cuda

@@ -92,7 +92,7 @@ def test_activate_and_init_params_match_jax():
     fields = random_scene_arrays(40, 0.6, (0.02, 0.1), seed=2)
     fields["opacities"][0] = 1.0                  # clipped to 1 − 1e-6
     pj = jsolver.init_params(_jscene(fields))
-    pt = tsolver.init_params(gaussians_from_numpy(fields))
+    pt = tsolver.init_params(gaussians_from_numpy(fields, device="cpu"))
     for f in FIELDS:
         np.testing.assert_allclose(getattr(pt, f).numpy(),
                                    np.asarray(getattr(pj, f)), rtol=1e-6,
@@ -147,7 +147,7 @@ def test_adam_steps_match_optax():
     opt_j = jsolver.make_optimizer(JTrainConfig())
     st = opt_j.init(pj)
     pt = tsolver.SceneParams(*(p.clone().requires_grad_()
-                               for p in params_from_numpy(p0)))
+                               for p in params_from_numpy(p0, device="cpu")))
     opt_t = tsolver.make_optimizer(cfg, pt)
     for k in range(3):
         grads = _random_params(20, 10 + k)
@@ -199,10 +199,11 @@ def test_train_step_matches_jax():
     its step's sign)."""
     fields = random_scene_arrays(80, 0.8, (0.02, 0.1), seed=3)
     jcam = _cam()
-    tcam = camera_from_numpy(jcam)
+    tcam = camera_from_numpy(jcam, device="cpu")
     with torch.no_grad():
-        target = render_tiled_pallas(gaussians_from_numpy(fields), tcam,
-                                     depth=8, **STEP_KW).numpy()
+        target = render_tiled_pallas(
+            gaussians_from_numpy(fields, device="cpu"), tcam, depth=8,
+            **STEP_KW).numpy()
     rng = np.random.default_rng(9)
     p0 = {f: np.asarray(v) for f, v in zip(
         FIELDS, jsolver.init_params(_jscene(fields)))}
@@ -222,7 +223,7 @@ def test_train_step_matches_jax():
     p1 = {f: np.asarray(getattr(pj, f)) for f in FIELDS}
 
     pt = tsolver.SceneParams(*(p.clone().requires_grad_()
-                               for p in params_from_numpy(p1)))
+                               for p in params_from_numpy(p1, device="cpu")))
     opt_t = tsolver.make_optimizer(tcfg, pt)
     adam_state_from_optax(st, opt_t, pt)
     step_t = tsolver.make_train_step(tcfg, opt_t, depth=8,
@@ -296,9 +297,10 @@ def test_densify_and_prune_matches_jax():
         _, js.opt_state = js.optimizer.update(
             jsolver.SceneParams(**{f: jnp.asarray(v) for f, v in gr.items()}),
             js.opt_state, js.params)
-    ts = tsolver.Solver(params=params_from_numpy(p0),
+    ts = tsolver.Solver(params=params_from_numpy(p0, device="cpu"),
                         mask=torch.from_numpy(mask), cfg=TrainConfig(**cfg),
-                        cameras=[camera_from_numpy(jcam)], targets=[blank],
+                        cameras=[camera_from_numpy(jcam, device="cpu")],
+                        targets=[blank],
                         depth=8)
     adam_state_from_optax(js.opt_state, ts.optimizer, ts.params)
     assert ts.scene_extent == js.scene_extent
@@ -343,8 +345,8 @@ def test_split_rotation_matches_jax():
 
 @pytest.fixture
 def toy_solver():
-    g = random_scene(24, extent=0.5, seed=5)
-    cams = [camera_from_numpy(_cam(t, res=(16, 16), r=2.5))
+    g = random_scene(24, extent=0.5, seed=5, device="cpu")
+    cams = [camera_from_numpy(_cam(t, res=(16, 16), r=2.5), device="cpu")
             for t in (0.0, 2.1)]
     with torch.no_grad():
         targets = [render_tiled_pallas(g, c, depth=8, **STEP_KW)
@@ -434,7 +436,8 @@ def test_load_transforms_dataset_matches_jax(tmp_path):
     (tmp_path / "transforms.json").write_text(json.dumps({
         "camera_angle_x": 0.9, "frames": frames}))
     dj = j_load(tmp_path / "transforms.json", downscale=2)
-    dt = load_transforms_dataset(tmp_path / "transforms.json", downscale=2)
+    dt = load_transforms_dataset(tmp_path / "transforms.json", downscale=2,
+                                 device="cpu")
     assert len(dt) == len(dj) == 2
     for cj, ct, ij, it in zip(dj.cameras, dt.cameras, dj.images, dt.images):
         np.testing.assert_array_equal(it, ij)
@@ -449,7 +452,7 @@ def test_load_transforms_dataset_matches_jax(tmp_path):
 @pytest.fixture
 def scene_path(tmp_path):
     path = tmp_path / "toy.ply"
-    save_scene(path, random_scene(120, extent=0.5, seed=3))
+    save_scene(path, random_scene(120, extent=0.5, seed=3, device="cpu"))
     return path
 
 
@@ -468,7 +471,7 @@ def test_cli_fit_writes_ply(scene_path, tmp_path, capsys):
           "--output", str(out)])
     line = capsys.readouterr().out
     assert "fit 3 steps: loss=" in line and f"live=50 -> {out}" in line
-    assert load_scene(out).num == 50
+    assert load_scene(out, device="cpu").num == 50
     assert (ckpt / "step_2.pt").is_file()
 
 
@@ -485,7 +488,7 @@ def test_cli_fit_refuses_untrainable_renderers(scene_path, tmp_path,
           "--tile-bands", "2", "--output", str(out)])
     line = capsys.readouterr().out
     assert "fit 3 steps: loss=" in line and f"-> {out}" in line
-    assert load_scene(out).num == 120
+    assert load_scene(out, device="cpu").num == 120
     assert tsolver.training_renderer(renderer) == renderer
     with pytest.raises(ValueError, match="unknown renderer"):
         tsolver.training_renderer("nope")

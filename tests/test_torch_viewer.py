@@ -122,7 +122,8 @@ def _scene_camera(n=150, res=(32, 32)):
                                        np.array([0.0, 0.0, 0.0, 1.0]))
     jcam = camera_from_fov(pos, rot, res, 60.0)
     jg = JG.Gaussians(**{k: jnp.asarray(v) for k, v in fields.items()})
-    return jg, jcam, gaussians_from_numpy(fields), camera_from_numpy(jcam)
+    return (jg, jcam, gaussians_from_numpy(fields, device="cpu"),
+            camera_from_numpy(jcam, device="cpu"))
 
 
 def test_no_jitter_samples_equal_single_render():
@@ -174,7 +175,7 @@ def test_jittered_sampling_antialiases():
 def test_cli_sample_flag(tmp_path):
     """-s 4 without jitter writes the same PNG as -s 1."""
     ply = tmp_path / "s.ply"
-    save_scene(ply, random_scene(64, extent=0.5, seed=1))
+    save_scene(ply, random_scene(64, extent=0.5, seed=1, device="cpu"))
     outs = []
     for samples in ("1", "4"):
         out = tmp_path / f"s{samples}.png"
@@ -190,7 +191,7 @@ def test_cli_sample_flag(tmp_path):
 def test_pad_scene_matches_jax(multiple):
     fields = random_scene_arrays(10, seed=3)
     jg = JG.Gaussians(**{k: jnp.asarray(v) for k, v in fields.items()})
-    got = pad_scene(gaussians_from_numpy(fields), multiple)
+    got = pad_scene(gaussians_from_numpy(fields, device="cpu"), multiple)
     ref = j_pad_scene(jg, multiple)
     assert got.num == ref.num == -(-10 // multiple) * multiple
     for f in ("means", "quats", "scales", "colors", "opacities", "sh",
@@ -278,7 +279,7 @@ def test_cli_serve_http_roundtrip(tmp_path):
     --device cpu --renderer oracle`` prints the port it took and answers
     ``/``, ``/frame`` and ``/event``, and a pan re-renders the frame."""
     ply = tmp_path / "s.ply"
-    save_scene(ply, random_scene(64, extent=0.5, seed=2))
+    save_scene(ply, random_scene(64, extent=0.5, seed=2, device="cpu"))
     proc = subprocess.Popen(
         [sys.executable, "-m", "rtgs_tpu_torch", "serve", "-o", str(ply),
          "-r", "32,24", "-d", "4", "--radius", "2.0", "--renderer",
