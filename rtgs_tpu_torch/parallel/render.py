@@ -9,14 +9,18 @@ into its running K-list, which after the whole ring is the global K
 nearest, ties broken as the single-device paths break them. Every rank
 returns the whole result, the same on every rank.
 
-Differentiable end to end, by four autograd Functions that do what JAX
-gets from transposing its collectives:
+The keys-path ring (:func:`render_tiled_sharded`) is differentiable in the
+rank's own shard, and its gradient is one card's bit for bit: each rank
+folds its shard into feature rows once, under autograd; what travels the
+ring is detached. The backward (:class:`_RingShade`) sends each live
+winner of the tiles this rank backs up, as one 28-byte record, to the
+ranks that hold the winner's splat, and each of them sums its splats'
+records in the order of one card's winner list
+(:func:`~rtgs_tpu_torch.render.tiled.winner_row_grads`, then
+:func:`~rtgs_tpu_torch.ops.peel.segment_rows`) before one backward
+through its features. Two autograd Functions route the image's
+cotangent, as JAX gets from transposing its collectives:
 
-  * :class:`_RingShift` sends the shard to the next prims-rank and receives
-    the previous one's; its backward sends the cotangent the other way;
-  * :class:`_SumOverRays` is the identity at a shard's entry, whose
-    backward sums the shard's gradient over the rays group (every rays-rank
-    holds the same shard; ``shard_map`` inserts this ``psum`` by itself);
   * :class:`_GatherRays` gathers the rays-ranks' tiles; its backward takes
     this rank's slice of the cotangent. (``torch.distributed.nn``'s
     ``all_gather`` sums every rank's cotangent instead, which multiplies the
@@ -25,6 +29,11 @@ gets from transposing its collectives:
     row holds the same K-lists, and each backs up the same loss through
     every shard; its backward keeps the cotangent of every n_prims-th row
     only (rows ≡ prims-rank), so each row's gradient is counted once.
+
+The oracle ring (:func:`render_sharded`, a parity instrument) keeps plain
+autograd through its collectives: :class:`_RingShift` sends the shard on
+and its cotangent back, :class:`_SumOverRays` sums a shard's gradient over
+the rays group; it sums in another order than one card.
 
 So the gradient assumes what the CLI and the tests do: every rank backs up
 the same loss of the whole result.
@@ -206,7 +215,10 @@ def render_sharded(g_shard: G.Gaussians, rays: Rays, depth: int,
     ``g_shard`` is this rank's shard (:func:`shard_scene`); ``rays`` the
     whole bundle, the same on every rank, P a multiple of the rays axis
     (each rays-rank takes its contiguous slice). Returns the whole
-    (radiance (P, 3), transmittance (P,)) on every rank."""
+    (radiance (P, 3), transmittance (P,)) on every rank. Differentiable
+    through plain autograd of its collectives (:class:`_RingShift`,
+    :class:`_SumOverRays`), which adds a splat's gradient shard by shard:
+    not one card's order, unlike :func:`render_tiled_sharded`."""
     from rtgs_tpu_torch.render.oracle import composite_hits, topk_hits
 
     p = rays.starts.shape[0]
@@ -231,6 +243,97 @@ def render_sharded(g_shard: G.Gaussians, rays: Rays, depth: int,
     return out[:, :3], out[:, 3]
 
 
+def _message(g: G.Gaussians, packed: torch.Tensor) -> torch.Tensor:
+    """A shard for the keys ring as one flat tensor: its raw fields (what
+    the binning and the entry bound read) and its (m + 1, 64) feature
+    table, sentinel row included."""
+    return torch.cat([_pack(g).reshape(-1), packed.reshape(-1)])
+
+
+def _read_message(x: torch.Tensor, m: int):
+    """:func:`_message` → (the shard, its feature table)."""
+    split = m * sum(_WIDTHS)
+    return _unpack(x[:split].reshape(m, -1)), x[split:].reshape(m + 1, -1)
+
+
+# A winner's record in the backward's exchange, as int32 words: its key
+# (t·K + k)·P + p in the whole frame (int64, two words), its splat's row in
+# the owner's shard, and the cotangents of its α, r, g, b (f32 bits).
+_RECORD = 7
+
+
+def _to_owners(key, ids, cot, m: int, mesh: Mesh):
+    """Send each winner's record to the ranks whose shard holds its splat
+    (prims-rank ``id // m`` of every rays-row: each rays-rank of a column
+    holds the same shard) and return the records this rank receives,
+    sorted by key: (key (L,) int64, row (L,) int64, cotangents (L, 4))."""
+    owner = torch.div(ids, m, rounding_mode="floor")
+    rec = torch.cat([key.reshape(-1, 1).view(torch.int32),
+                     (ids - owner * m).to(torch.int32)[:, None],
+                     cot.view(torch.int32)], dim=1)
+    world = mesh.n_rays * mesh.n_prims
+    if world > 1:
+        order = torch.sort(owner, stable=True).indices
+        counts = torch.bincount(owner, minlength=mesh.n_prims)
+        # World rank r·n_prims + q gets prims-rank q's block: the blocks in
+        # owner order, once for every rays-row.
+        send = rec[order].repeat(mesh.n_rays, 1)
+        send_counts = counts.repeat(mesh.n_rays)
+        recv_counts = torch.empty_like(send_counts)
+        dist.all_to_all_single(recv_counts, send_counts)
+        rsplit = recv_counts.tolist()
+        rec = rec.new_empty((sum(rsplit), _RECORD))
+        dist.all_to_all_single(rec, send, rsplit, send_counts.tolist())
+    key = rec[:, :2].contiguous().view(torch.int64).reshape(-1)
+    key, order = torch.sort(key)       # the keys are unique
+    rec = rec[order]
+    return key, rec[:, 2].long(), rec[:, 3:].contiguous().view(torch.float32)
+
+
+class _RingShade(torch.autograd.Function):
+    """The merged K-list's α, r, g, b (computed by the ring without
+    gradient) as a function of this rank's own feature table ``packed``.
+
+    Backward: the live winners of the tiles this rank backs up (every
+    n_prims-th of its rays-slice, as :class:`_ShareOverPrims` keeps them)
+    go to their splats' owners (:func:`_to_owners`); each owner sorts what
+    it receives by (t, k, p) in the whole frame, which is the order of one
+    card's winner list, re-gathers its rows and the pixels' features,
+    builds the row cotangents with
+    :func:`~rtgs_tpu_torch.render.tiled.winner_row_grads` and sums them by
+    splat with :func:`~rtgs_tpu_torch.ops.peel.segment_rows`: bitwise what
+    one card's :func:`~rtgs_tpu_torch.render.tiled.shade_winners_kp` gives
+    those rows. Every gather runs here, outside autograd."""
+
+    @staticmethod
+    def forward(ctx, packed, gid, pix_all, mesh, m, alpha, r, g, b):
+        ctx.save_for_backward(packed, gid, pix_all)
+        ctx.mesh, ctx.m = mesh, m
+        return (alpha.view_as(alpha), r.view_as(r), g.view_as(g),
+                b.view_as(b))
+
+    @staticmethod
+    def backward(ctx, *cots):
+        from rtgs_tpu_torch.ops.peel import segment_rows
+        from rtgs_tpu_torch.render.tiled import winner_row_grads
+
+        packed, gid, pix_all = ctx.saved_tensors
+        mesh, m = ctx.mesh, ctx.m
+        t_local, k, p = gid.shape
+        mine = (torch.arange(t_local, device=gid.device) % mesh.n_prims
+                == mesh.prims_rank)
+        ti, ki, pi = torch.nonzero((gid >= 0) & mine[:, None, None],
+                                   as_tuple=True)
+        key = ((ti + mesh.rays_rank * t_local) * k + ki) * p + pi
+        cot = torch.stack([c[ti, ki, pi] for c in cots], dim=1)
+        key, rows, cot = _to_owners(key, gid[ti, ki, pi], cot, m, mesh)
+        tile = torch.div(key, k * p, rounding_mode="floor")
+        d_rows = winner_row_grads(packed.detach()[rows],
+                                  pix_all[tile, key % p], *cot.unbind(1))
+        d_packed = segment_rows(d_rows, rows, packed.shape[0])
+        return (d_packed,) + (None,) * 8
+
+
 def render_tiled_sharded(
     g_shard: G.Gaussians,
     camera: Camera,
@@ -244,29 +347,37 @@ def render_tiled_sharded(
     """The production ring: the keys path per shard. Returns the whole
     (W, H, 3) radiance on every rank, differentiable in ``g_shard``.
 
-    Per ring step each rank bins the shard it holds
+    Each rank folds its shard into the (m + 1, 64) feature table once
+    (under autograd). Per ring step each rank bins the shard it holds
     (:func:`~rtgs_tpu_torch.render.binning.tile_candidates` with the chunk
     bounds and the proven entry bound
     :func:`~rtgs_tpu_torch.render.tiled.entry_lower_bound`), takes its
     rays-slice of the tiles, selects each pixel's K nearest (t1, splat id)
     with :func:`~rtgs_tpu_torch.ops.peel.peel_keys` (the keys kernel on the
-    card, one launch a step, fed the binning's counts), shades only the
-    winners (:func:`~rtgs_tpu_torch.render.tiled.shade_winners_kp`), merges
-    the (T, K, P) layers t1, splat id, α, r, g, b along K into its running
-    list by (t1, id) (:func:`merge_layers`) and passes the shard on. One composite at the
-    end. The tiles are padded to a multiple of the rays axis (candidates
-    −1, ``chunk_lb`` +inf, counts 0, zero pixel rows). There are no tile
-    bands: the (T/n_rays, K, P, 64) winner-row gather of a step is whole.
+    card, one launch a step and a pass of 64 layers, fed the binning's
+    counts), shades only the winners, merges the (T, K, P) layers t1,
+    splat id, α, r, g, b along K into its running list by (t1, id)
+    (:func:`merge_layers`) and passes the shard on (its raw fields and
+    table rows, detached). One composite at the end. The selection, the
+    shading and the merge run without gradient; :class:`_RingShade`
+    carries the merged list's gradient back to the owners' tables, so the
+    scene gradient on every rank is bitwise the unbanded
+    :func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys` of
+    ``pad_scene(g, n_prims)`` on its rows (with the same budgets and no
+    pair dropped), and the same on every rays-rank. The tiles are padded
+    to a multiple of the rays axis (candidates −1, ``chunk_lb`` +inf,
+    counts 0, zero pixel rows). There are no tile bands: the
+    (T/n_rays, K, P, 64) winner-row gather of a step is whole.
     """
     from rtgs_tpu_torch.ops.peel import CHUNK, peel_keys
     from rtgs_tpu_torch.render.binning import tile_candidates
-    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+    from rtgs_tpu_torch.render.tiled import (_shade_forward,
+                                             _tile_pixel_features,
                                              _tiles_to_image,
                                              composite_layers_kp,
                                              entry_lower_bound,
                                              pack_features,
-                                             precompute_features,
-                                             shade_winners_kp)
+                                             precompute_features)
 
     w, h = camera.buf_size
     tw, th = tile
@@ -282,14 +393,18 @@ def render_tiled_sharded(
             x = F.pad(x, pad, value=fill)
         return x[lo:lo + t_local].contiguous()
 
-    pix = local(_tile_pixel_features(camera, tile), 0.0)
-    cur = _enter(g_shard, mesh)
+    pix_all = _tile_pixel_features(camera, tile)
+    pix = local(pix_all, 0.0)
+    own = pack_features(precompute_features(g_shard, camera))
+    grad = torch.is_grad_enabled() and own.requires_grad
+    if not grad:
+        pix_all = None
     m = g_shard.num
-    best = None
-    for step in range(mesh.n_prims):
-        g = _unpack(cur)
-        packed = pack_features(precompute_features(g, camera))
-        with torch.no_grad():
+    best = msg = None
+    with torch.no_grad():
+        g = G.Gaussians(**{f: getattr(g_shard, f).detach() for f in _FIELDS})
+        packed = own.detach()
+        for step in range(mesh.n_prims):
             binning = tile_candidates(
                 g, camera, tile=tile, max_candidates=max_candidates,
                 max_global=max_global, narrow=bin_narrow, chunk=CHUNK,
@@ -299,10 +414,17 @@ def render_tiled_sharded(
                                 chunk_lb=local(binning.chunk_lb,
                                                float("inf")),
                                 counts=local(binning.counts, 0))
-        new = (t1, _global_ids(sid, mesh, step, m),
-               *shade_winners_kp(packed, sid, pix))
-        best = new if best is None else merge_layers(best, new, depth, dim=1)
-        if step < mesh.n_prims - 1:   # the last shift would be discarded
-            cur = _RingShift.apply(cur, mesh)
-    rad = _gather(composite_layers_kp(*best[2:]), mesh)[:num_tiles]
+            new = (t1, _global_ids(sid, mesh, step, m),
+                   *_shade_forward(packed, sid, pix))
+            best = new if best is None else merge_layers(best, new, depth,
+                                                         dim=1)
+            if step < mesh.n_prims - 1:   # the last shift would be discarded
+                if msg is None:
+                    msg = _message(g, packed)
+                msg = _shift(msg, mesh, 1)
+                g, packed = _read_message(msg, m)
+    layers = best[2:]
+    if grad:
+        layers = _RingShade.apply(own, best[1], pix_all, mesh, m, *layers)
+    rad = _gather(composite_layers_kp(*layers), mesh)[:num_tiles]
     return _tiles_to_image(rad, ntx, nty, tile)[:w, :h]

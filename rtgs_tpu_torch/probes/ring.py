@@ -1,26 +1,42 @@
 """The ring renderer across processes: each mesh shape's frame against
-``render_tiled_keys`` on every rank's own device, and the scene gradients of
-one mesh against the single-device keys path. One process a mesh cell, so
-run it under the launcher with as many processes as the meshes have cells:
+``render_tiled_keys`` on every rank's own device; each mesh's scene
+gradients against the single-device keys path's, bitwise; and with
+``--train`` the sharded training step against the one-device step. One
+process a mesh cell, so run it under the launcher with as many processes
+as the meshes have cells:
 
     python -m rtgs_tpu_torch.parallel.launcher --num-processes 4 \\
-        --coordinator localhost:29555 -- python -m rtgs_tpu_torch.probes.ring
+        --coordinator localhost:29555 -- python -m rtgs_tpu_torch.probes.ring \\
+        --train
 
 The bench scene (``random_scene`` seed 0, extent 2.0, scales 0.005-0.03) and
 pose (θ 0.4, φ 1.2, r 5, FOV 60°). Defaults: the 1M scene at 1920x1088,
 budgets 3584 / 64 / narrow 4 (the reference render in 8 tile bands), meshes
-4x1, 2x2 and 1x4; gradients of Σ image² on the 2x2 mesh at 100k @ 512x384,
-budgets 1536 / 128, twice (bitwise expected: every backward of the port sums
-in a fixed order), against the single-device keys path (a sum over shards
-in another order: not bitwise, held against the JAX package's gate).
-Frame times are the host clock around a call ending in a synchronize, after
-a barrier, median of 5; on the CPU (``--device cpu``, gloo) they time the
-plain versions and are no device metric. Rank 0 prints.
+4x1, 2x2 and 1x4. Gradients of Σ image² at 100k @ 512x384, budgets 1536 /
+128, on every mesh: bitwise a second run and bitwise the single-device keys
+path on each rank's shard rows (the owners sum in one card's order), with
+the forward+backward and backward times, the bytes each rank's backward
+hands to collectives for other ranks (counted at the ``torch.distributed``
+calls; an all-reduce counts 2(n − 1)/n of its tensor, a ring's share) and
+the peak. ``--train``: ``--steps`` sharded steps
+(``train/solver.py:make_sharded_train_step``) on each mesh against as many
+one-device ``make_train_step(renderer="keys")`` steps on the padded scene,
+parameters, Adam moments and losses bitwise, each step's time both ways, at
+the gradient configuration and at the JAX package's dry-run scale (100k @
+256x256, depth 8; ``__graft_entry__.py:98-100``) with a candidate budget
+of 2048, at which one device drops no pair (the dry run's 512 drops
+77,871 there, pairs that a shard's own binning keeps, so its sharded step
+renders another image than one device's).
+Times are the host clock around a call ending in a synchronize, after a
+barrier, median of 5 (3 for gradients); on the CPU (``--device cpu``,
+gloo) they time the plain versions and are no device metric. Rank 0
+prints.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import statistics
 import time
 
@@ -37,6 +53,9 @@ from rtgs_tpu_torch.scene import random_scene
 from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
 
 FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
+# The candidate budget of --train's dry-run configuration: the JAX dry
+# run's 512 drops 77,871 pairs on one device at 100k @ 256x256, 2048 none.
+DRY_CANDIDATES = 2048
 
 
 def _pair(s: str):
@@ -122,53 +141,245 @@ def frames(args, device, say):
             f"keys launches {launches} (rank 0; the card's only)")
 
 
+@contextlib.contextmanager
+def counting_sends():
+    """Count the bytes this rank hands to ``torch.distributed`` for other
+    ranks inside the block, through the calls a ring's backward makes (this
+    tree's and its parent's): a ``batch_isend_irecv``'s sends, an
+    ``all_to_all_single``'s input less this rank's own block and 2(n − 1)/n
+    of an ``all_reduce``'s tensor. Yields a one-entry list holding the
+    count."""
+    sent = [0]
+    real = {f: getattr(dist, f) for f in ("batch_isend_irecv",
+                                          "all_to_all_single", "all_reduce")}
+
+    def nbytes(t):
+        return t.numel() * t.element_size()
+
+    def size(group):
+        return dist.get_world_size(group)
+
+    def batch_isend_irecv(ops):
+        sent[0] += sum(nbytes(op.tensor) for op in ops
+                       if op.op is real_isend)
+        return real["batch_isend_irecv"](ops)
+
+    def all_to_all_single(output, input, output_split_sizes=None,
+                          input_split_sizes=None, group=None, **kw):
+        per_row = nbytes(input) // max(input.shape[0], 1)
+        if input_split_sizes is None:
+            own = input.shape[0] // size(group)
+        else:
+            own = input_split_sizes[dist.get_rank(group)]
+        sent[0] += nbytes(input) - own * per_row
+        return real["all_to_all_single"](output, input, output_split_sizes,
+                                         input_split_sizes, group=group, **kw)
+
+    def all_reduce(tensor, *a, group=None, **kw):
+        n = size(group)
+        sent[0] += nbytes(tensor) * 2 * (n - 1) // n
+        return real["all_reduce"](tensor, *a, group=group, **kw)
+
+    real_isend = dist.isend
+    patched = dict(batch_isend_irecv=batch_isend_irecv,
+                   all_to_all_single=all_to_all_single,
+                   all_reduce=all_reduce)
+    for name, fn in patched.items():
+        setattr(dist, name, fn)
+    try:
+        yield sent
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def _leaves(g):
+    return {f: getattr(g, f).detach().clone().requires_grad_()
+            for f in FIELDS}
+
+
+def ring_gradient(g, cam, mesh, kw, device, reps=3):
+    """Scene gradients of Σ image² through the ring, with the median
+    forward+backward and backward ms, the bytes the backward sends and the
+    peak. Returns (grads, fwd_bwd_ms, bwd_ms, sent, peak_gib)."""
+    def once():
+        leaves = _leaves(g)
+        dist.barrier()
+        _sync(device)
+        t0 = time.perf_counter()
+        img = render_tiled_sharded(
+            shard_scene(type(g)(mask=g.mask, **leaves), mesh), cam, mesh,
+            **kw)
+        loss = (img ** 2).sum()
+        _sync(device)
+        t1 = time.perf_counter()
+        with counting_sends() as sent:
+            loss.backward()
+        _sync(device)
+        t2 = time.perf_counter()
+        return ({f: x.grad for f, x in leaves.items()},
+                (t2 - t0) * 1e3, (t2 - t1) * 1e3, sent[0])
+
+    grads = once()[0]
+    _reset_peak(device)
+    runs = [once() for _ in range(reps)]
+    differ = sum(not torch.equal(grads[f], runs[-1][0][f]) for f in FIELDS)
+    if differ:
+        raise RuntimeError(f"ring gradient: {differ} fields differ between "
+                           "two runs")
+    return (grads, statistics.median(r[1] for r in runs),
+            statistics.median(r[2] for r in runs), runs[-1][3],
+            _peak_gib(device))
+
+
 def gradients(args, device, say):
-    """The scene gradients of Σ image² on one mesh, twice (bitwise on every
-    rank, with torch's deterministic mode off), against the single-device
-    keys path, per rank on its shard's rows."""
-    mesh = make_mesh(*args.grad_mesh, device=device)
+    """Each mesh's scene gradients of Σ image², bitwise the single-device
+    keys path's on every rank's shard rows, with their times and bytes."""
     g = random_scene(args.grad_n, extent=2.0, scale_range=(0.005, 0.03),
                      seed=0, device=device)
     cam = _camera(args.grad_res, device)
     kw = dict(depth=args.depth, max_candidates=args.grad_cand,
               max_global=128)
-
-    def ring_grads():
-        leaves = {f: getattr(g, f).detach().clone().requires_grad_()
-                  for f in FIELDS}
-        img = render_tiled_sharded(
-            shard_scene(type(g)(mask=g.mask, **leaves), mesh), cam, mesh,
-            **kw)
-        (img ** 2).sum().backward()
-        return {f: x.grad for f, x in leaves.items()}
-
-    ring, again = ring_grads(), ring_grads()
-    differ = sum(not torch.equal(ring[f], again[f]) for f in FIELDS)
-    ref_leaves = {f: getattr(g, f).detach().clone().requires_grad_()
-                  for f in FIELDS}
+    ref_leaves = _leaves(g)
     ref = render_tiled_keys(type(g)(mask=g.mask, **ref_leaves), cam, **kw)
     (ref ** 2).sum().backward()
-    m = -(-g.num // mesh.n_prims)
-    lo = mesh.prims_rank * m
-    parts = []
-    for f in FIELDS:
-        got = ring[f][lo:lo + m]
-        want = ref_leaves[f].grad[lo:lo + m]
-        rel = ((got - want).abs() / ref_leaves[f].grad.abs().max()).flatten()
-        q99 = float(rel.kthvalue(max(1, round(0.99 * rel.numel()))).values)
-        bad = int((~torch.isfinite(got)).sum())
-        parts.append(f"{f} q99 {_max_over_ranks(q99, device):.1e} max "
-                     f"{_max_over_ranks(rel.max(), device):.1e}"
-                     + (" NaN" if _max_over_ranks(bad, device) else ""))
-    differ = int(_max_over_ranks(differ, device))
     w, h = args.grad_res
-    say(f"ring {args.grad_mesh[0]}x{args.grad_mesh[1]} scene gradients of "
-        f"Σ image² at {g.num} @ {w}x{h}: a second run "
-        + ("bitwise the first on every rank" if differ == 0 else
-           f"differs in {differ} fields on some rank")
-        + "; against render_tiled_keys on one device, on each rank's "
-        "shard rows, relative to the field's largest, worst rank (the "
-        "JAX package's gate: q99 5e-3, max 5e-2): " + "; ".join(parts))
+    for shape in args.grad_meshes:
+        mesh = make_mesh(*shape, device=device)
+        grads, ms, bwd_ms, sent, peak = ring_gradient(g, cam, mesh, kw,
+                                                      device)
+        m = -(-g.num // mesh.n_prims)
+        lo = mesh.prims_rank * m
+        parts, differ = [], 0
+        for f in FIELDS:
+            got = grads[f][lo:lo + m]
+            want = ref_leaves[f].grad[lo:lo + m]
+            differ += int(_max_over_ranks(not torch.equal(got, want),
+                                          device))
+            rel = ((got - want).abs()
+                   / ref_leaves[f].grad.abs().max()).flatten()
+            parts.append(f"{f} {_max_over_ranks(rel.max(), device):.1e}")
+        say(f"ring {shape[0]}x{shape[1]} scene gradients of Σ image² at "
+            f"{g.num} @ {w}x{h}: a second run bitwise the first on every "
+            "rank; against render_tiled_keys on one device, on each rank's "
+            "shard rows: "
+            + ("bitwise equal in every field on every rank" if differ == 0
+               else f"{differ} fields differ; max relative to the field's "
+                    "largest, worst rank: " + "; ".join(parts))
+            + f"; forward+backward {ms:.2f} ms, backward {bwd_ms:.2f} ms "
+              f"(rank 0), slowest rank "
+              f"{_max_over_ranks(ms, device):.2f} / "
+              f"{_max_over_ranks(bwd_ms, device):.2f} ms; the backward "
+              f"sends {sent} bytes (rank 0), at most "
+              f"{int(_max_over_ranks(sent, device))} bytes a rank; peak "
+              f"{_max_over_ranks(peak, device):.2f} GiB")
+
+
+def step_comparison(g, cam, target, mesh, steps, depth, kw):
+    """``steps`` sharded steps on this rank's shard of ``pad_scene(g,
+    n_prims)`` against as many one-device keys steps on the whole padded
+    scene, on this rank's device. Returns a dict: ``differ`` (the names
+    of what is not bitwise equal: parameters, Adam moments, losses),
+    ``ring_ms`` and ``one_ms`` (each step's host time with a synchronize),
+    ``loss`` (the sharded losses) and ``ring_launches`` (the launches of
+    the keys kernel and of ``segment_rows.cu`` in the sharded steps)."""
+    from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.ops import peel
+    from rtgs_tpu_torch.scene import pad_scene
+    from rtgs_tpu_torch.train.solver import (SceneParams, _leaf,
+                                             init_params, make_optimizer,
+                                             make_sharded_train_step,
+                                             make_train_step, shard_params)
+
+    cfg = TrainConfig()
+    g = pad_scene(g, mesh.n_prims)
+    raw = init_params(g)
+
+    def run(params, mask, step):
+        losses, ms = [], []
+        for _ in range(steps):
+            if dist.is_initialized():
+                dist.barrier()
+            _sync(cam.device)
+            t0 = time.perf_counter()
+            losses.append(step(params, mask, cam, target)["loss"])
+            _sync(cam.device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    kernels = ("peel_keys_cuda", "segment_rows_cuda")
+    before = {k: getattr(peel, k).launches for k in kernels}
+    shard, mask = shard_params(raw, g.mask, mesh)
+    opt = make_optimizer(cfg, shard)
+    ring_losses, ring_ms = run(shard, mask, make_sharded_train_step(
+        cfg, opt, mesh, depth=depth, **kw))
+    launches = {k: getattr(peel, k).launches - before[k] for k in kernels}
+    whole = SceneParams(*(_leaf(p) for p in raw))
+    one_opt = make_optimizer(cfg, whole)
+    one_losses, one_ms = run(whole, g.mask, make_train_step(
+        cfg, one_opt, depth=depth, renderer="keys", **kw))
+    m = g.num // mesh.n_prims
+    lo = mesh.prims_rank * m
+    differ = [f"loss {i}" for i, (a, b) in enumerate(zip(ring_losses,
+                                                         one_losses))
+              if not torch.equal(a, b)]
+    for f, p, q in zip(SceneParams._fields, shard, whole):
+        pairs = (("", p.detach(), q.detach()),
+                 (" m", opt.state[p]["exp_avg"], one_opt.state[q]["exp_avg"]),
+                 (" v", opt.state[p]["exp_avg_sq"],
+                  one_opt.state[q]["exp_avg_sq"]))
+        differ += [f + tag for tag, a, b in pairs
+                   if not torch.equal(a, b[lo:lo + m])]
+    return {"differ": differ, "ring_ms": ring_ms, "one_ms": one_ms,
+            "loss": [float(x) for x in ring_losses],
+            "ring_launches": launches}
+
+
+def train(args, device, say):
+    """``--steps`` sharded steps on every mesh against the one-device
+    step, at the gradient configuration and at the dry-run scale. The
+    contract holds where one device drops no pair: where it drops some, a
+    shard's own binning keeps pairs the whole scene's drops, and the
+    sharded step renders another image (reported, not held)."""
+    configs = (
+        (f"{args.grad_n} @ {args.grad_res[0]}x{args.grad_res[1]}, depth "
+         f"{args.depth}", args.grad_n, args.grad_res, args.depth,
+         dict(max_candidates=args.grad_cand, max_global=128)),
+        (f"the dry run's scale, {args.dry_n} @ {args.dry_res[0]}x"
+         f"{args.dry_res[1]}, depth 8", args.dry_n, args.dry_res, 8,
+         dict(max_candidates=DRY_CANDIDATES, max_global=64)),
+    )
+    for label, n, res, depth, kw in configs:
+        g = random_scene(n, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+                         device=device)
+        cam = _camera(res, device)
+        with torch.no_grad():
+            _, stats = render_tiled_keys(g, cam, depth=depth,
+                                         with_stats=True, **kw)
+        dropped = int(stats["local_overflow"] + stats["global_overflow"])
+        gen = torch.Generator(device="cpu").manual_seed(1)
+        target = torch.rand(res + (3,), generator=gen).to(device)
+        for shape in args.meshes:
+            mesh = make_mesh(*shape, device=device)
+            out = step_comparison(g, cam, target, mesh, args.steps, depth,
+                                  kw)
+            bad = int(_max_over_ranks(len(out["differ"]), device))
+            ring_ms = [_max_over_ranks(x, device) for x in out["ring_ms"]]
+            say(f"sharded step {shape[0]}x{shape[1]} at {label}, budgets "
+                f"{kw['max_candidates']} / {kw['max_global']} (one device "
+                f"drops {dropped} pairs): {args.steps} steps "
+                + ("bitwise the one-device keys steps on every rank "
+                   "(parameters, Adam moments, losses)" if bad == 0 else
+                   f"differ from the one-device steps in {bad} items on "
+                   f"some rank (rank 0: {', '.join(out['differ'][:8])})")
+                + "; ms a step, sharded (slowest rank) / one device: "
+                + ", ".join(f"{a:.2f} / {b:.2f}"
+                            for a, b in zip(ring_ms, out["one_ms"]))
+                + (f" (median after the first: "
+                   f"{statistics.median(ring_ms[1:]):.2f} / "
+                   f"{statistics.median(out['one_ms'][1:]):.2f})"
+                   if args.steps > 1 else "")
+                + "; loss " + ", ".join(f"{x:.6f}" for x in out["loss"]))
 
 
 def main(argv=None):
@@ -189,10 +400,20 @@ def main(argv=None):
                                                 s.split(",")],
                     default=[(4, 1), (2, 2), (1, 4)],
                     help="Mesh shapes rays x prims, e.g. 4x1,2x2,1x4.")
-    ap.add_argument("--grad-mesh", type=_pair, default=(2, 2))
+    ap.add_argument("--grad-meshes", type=lambda s: [_pair(m) for m in
+                                                     s.split(",")],
+                    default=[(4, 1), (2, 2), (1, 4)],
+                    help="Mesh shapes whose gradients are held.")
     ap.add_argument("--grad-n", type=int, default=100_000)
     ap.add_argument("--grad-res", type=_pair, default=(512, 384))
     ap.add_argument("--grad-cand", type=int, default=1536)
+    ap.add_argument("--train", action="store_true",
+                    help="Also hold the sharded training step against the "
+                         "one-device step on every mesh.")
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--dry-n", type=int, default=100_000,
+                    help="Splats of the dry-run configuration (--train).")
+    ap.add_argument("--dry-res", type=_pair, default=(256, 256))
     args = ap.parse_args(argv)
 
     initialize_distributed(args.init, device=args.device)
@@ -225,6 +446,8 @@ def main(argv=None):
             dist.barrier()
         frames(args, device, say)
         gradients(args, device, say)
+        if args.train:
+            train(args, device, say)
     finally:
         dist.destroy_process_group()
     return 0

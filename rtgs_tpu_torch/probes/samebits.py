@@ -17,6 +17,10 @@ the file holds:
 * ``peel_keys`` (t1, ids); ``peel_fused`` (radiance, transmittance) and the
   table gradient of seeded cotangents through autograd; ``peel_topk`` (its
   five outputs) and its table gradient;
+* ``render_tiled_keys`` (unbanded) of the scene, and its scene gradients
+  of Σ image² (the keys path's shade backward); three keys training steps
+  (``make_train_step(renderer="keys")``, ``make_optimizer``) towards a
+  seeded target: parameters, Adam moments and losses;
 * the launches each call made of every kernel wrapper (a kernel's
   ``.launches`` count; 0 on the CPU, where the plain twins run);
 * the median ms of each call, forward and forward with backward (CUDA
@@ -124,6 +128,66 @@ def dump_config(cfg, depths, device, iters: int) -> dict:
                 launches=launches, times=times)
 
 
+STEPS = 3
+SCENE_FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
+
+
+def dump_paths(cfg, depths, device) -> dict:
+    """The keys render, its scene gradients and three keys training steps
+    at one configuration (see the module's docstring)."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.camera import camera_from_fov
+    from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.ops import peel
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+    from rtgs_tpu_torch.scene import random_scene
+    from rtgs_tpu_torch.train import solver
+    from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
+
+    label, n, w, h, cand, glob, narrow = cfg
+    g = random_scene(n, extent=2.0, scale_range=(0.005, 0.03), seed=0,
+                     device=device)
+    pos, rot, _, _ = orbit_camera_pose(0.4, 1.2, 5.0, np.zeros(3),
+                                       np.array([0.0, 0.0, 0.0, 1.0]))
+    cam = camera_from_fov(pos, rot, (w, h), 60.0, device=device)
+    kw = dict(max_candidates=cand, max_global=glob, bin_narrow=narrow)
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    target = torch.rand((w, h, 3), generator=gen).to(device)
+    out, launches = {}, {}
+    for depth in depths:
+        key = f"{label}/d{depth}"
+        before = _launches(peel)
+        leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+                  for f in SCENE_FIELDS}
+        img = render_tiled_keys(type(g)(mask=g.mask, **leaves), cam,
+                                depth=depth, **kw)
+        (img ** 2).sum().backward()
+        launches[f"{key}/render"] = _made(peel, before)
+        out[f"{key}/render/image"] = img.detach()
+        for f, x in leaves.items():
+            out[f"{key}/render/grad_{f}"] = x.grad
+
+        before = _launches(peel)
+        params = solver.SceneParams(*(
+            p.detach().clone().requires_grad_()
+            for p in solver.init_params(g)))
+        opt = solver.make_optimizer(TrainConfig(), params)
+        step = solver.make_train_step(TrainConfig(), opt, depth=depth,
+                                      renderer="keys", **kw)
+        for i in range(STEPS):
+            out[f"{key}/steps/loss{i}"] = step(params, g.mask, cam,
+                                               target)["loss"]
+        launches[f"{key}/steps"] = _made(peel, before)
+        for f, p in zip(solver.SceneParams._fields, params):
+            out[f"{key}/steps/{f}"] = p.detach()
+            out[f"{key}/steps/m_{f}"] = opt.state[p]["exp_avg"]
+            out[f"{key}/steps/v_{f}"] = opt.state[p]["exp_avg_sq"]
+    return dict(tensors={k: v.detach().cpu() for k, v in out.items()},
+                launches=launches, times={})
+
+
 def card_line(device) -> str:
     """The card's name and power limit as ``nvidia-smi`` gives them."""
     if device.type != "cuda":
@@ -140,9 +204,10 @@ def dump(path, device, configs=CONFIGS, depths=DEPTHS, iters=9) -> dict:
 
     res = dict(tensors={}, launches={}, times={}, card=card_line(device))
     for cfg in configs:
-        part = dump_config(cfg, depths, device, iters)
-        for k in ("tensors", "launches", "times"):
-            res[k].update(part[k])
+        for part in (dump_config(cfg, depths, device, iters),
+                     dump_paths(cfg, depths, device)):
+            for k in ("tensors", "launches", "times"):
+                res[k].update(part[k])
     torch.save(res, path)
     return res
 

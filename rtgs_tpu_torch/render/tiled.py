@@ -277,6 +277,41 @@ def _shade_forward(packed, sid_kp, pix):
     return alpha, chans[0], chans[1], chans[2]
 
 
+def winner_row_grads(rows, pixl, d_alpha, d_r, d_g, d_bl):
+    """The cotangents (L, 64) of L live winners' feature rows, from their
+    rows (L, 64), pixel features (L, 24) and the cotangents (L,) of their
+    α, r, g, b: the quadratic chain recomputed, then each lane one chain
+    factor times one pixel feature (or 1), in the lane map of
+    :mod:`rtgs_tpu_torch.ops.peel`. Elementwise in L, so a winner's row
+    has the same bits wherever it stands in the list; summed by splat with
+    :func:`~rtgs_tpu_torch.ops.peel.segment_rows` by
+    :func:`shade_winners_kp`'s backward and by the ring's owners
+    (:mod:`rtgs_tpu_torch.parallel.render`)."""
+    a, b, cq, op, delta, valid, rho = _shade_chain(
+        rows, lambda j: pixl[:, j])
+    validf = valid.to(rho.dtype)
+    pos = (delta > 0.0).to(rho.dtype)
+    d_op = validf * rho * d_alpha
+    d_rho = validf * op * d_alpha
+    d_q = pos * rho * d_rho      # rho = exp(q) where delta > 0, else 0
+    d_b = (b / (2.0 * a)) * d_q
+    d_a = -(b * b) / (4.0 * a * a) * d_q
+    d_c0 = torch.where(cq < 1e30, -d_q, 0.0)
+
+    d_rows = torch.empty_like(rows)
+    d_rows[:, 0:6] = d_a[:, None] * pixl[:, 3:9]
+    d_rows[:, 6:9] = (2.0 * d_b)[:, None] * pixl[:, 0:3]
+    d_rows[:, 9] = d_c0
+    d_rows[:, 10] = d_op
+    y = pixl[:, 9:24]
+    for ch, d_ch in enumerate((d_r, d_g, d_bl)):
+        d_rows[:, 11 + ch] = d_ch
+        lo = 14 + 15 * ch
+        d_rows[:, lo:lo + 15] = d_ch[:, None] * y
+    d_rows[:, 59:] = 0.0
+    return d_rows
+
+
 class _ShadeWinnersKP(torch.autograd.Function):
     """Winner shading with a hand-written backward: the counterpart of the
     JAX ``shade_winners_kp`` custom VJP (``_shade_kp_fwd``/``_shade_kp_bwd``).
@@ -299,35 +334,9 @@ class _ShadeWinnersKP(torch.autograd.Function):
         # order, and segment_rows adds each splat's in that order.
         ti, ki, pi = torch.nonzero(sid_kp >= 0, as_tuple=True)
         ids = sid_kp[ti, ki, pi].long()                # (L,)
-        rows = packed[ids]                             # (L, F)
-        pixl = pix[ti, pi]                             # (L, 24)
-        d_alpha, d_r, d_g, d_bl = (x[ti, ki, pi]
-                                   for x in (d_alpha, d_r, d_g, d_bl))
-
-        a, b, cq, op, delta, valid, rho = _shade_chain(
-            rows, lambda j: pixl[:, j])
-        validf = valid.to(rho.dtype)
-        pos = (delta > 0.0).to(rho.dtype)
-        d_op = validf * rho * d_alpha
-        d_rho = validf * op * d_alpha
-        d_q = pos * rho * d_rho      # rho = exp(q) where delta > 0, else 0
-        d_b = (b / (2.0 * a)) * d_q
-        d_a = -(b * b) / (4.0 * a * a) * d_q
-        d_c0 = torch.where(cq < 1e30, -d_q, 0.0)
-
-        # Row cotangent, lane by lane (the lane map of ops/peel.py): each
-        # lane is one chain factor times one pixel feature (or 1).
-        d_rows = torch.empty_like(rows)
-        d_rows[:, 0:6] = d_a[:, None] * pixl[:, 3:9]
-        d_rows[:, 6:9] = (2.0 * d_b)[:, None] * pixl[:, 0:3]
-        d_rows[:, 9] = d_c0
-        d_rows[:, 10] = d_op
-        y = pixl[:, 9:24]
-        for ch, d_ch in enumerate((d_r, d_g, d_bl)):
-            d_rows[:, 11 + ch] = d_ch
-            lo = 14 + 15 * ch
-            d_rows[:, lo:lo + 15] = d_ch[:, None] * y
-        d_rows[:, 59:] = 0.0
+        d_rows = winner_row_grads(
+            packed[ids], pix[ti, pi],
+            *(x[ti, ki, pi] for x in (d_alpha, d_r, d_g, d_bl)))
         return segment_rows(d_rows, ids, packed.shape[0]), None, None
 
 

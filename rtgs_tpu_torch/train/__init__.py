@@ -9,7 +9,9 @@ from rtgs_tpu_torch.train.solver import (
     init_params,
     init_params_from_points,
     make_optimizer,
+    make_sharded_train_step,
     make_train_step,
+    shard_params,
 )
 
 __all__ = [
@@ -23,5 +25,7 @@ __all__ = [
     "init_params",
     "init_params_from_points",
     "make_optimizer",
+    "make_sharded_train_step",
     "make_train_step",
+    "shard_params",
 ]

@@ -133,34 +133,30 @@ def init_params_from_points(points: torch.Tensor,
 def make_optimizer(cfg: TrainConfig,
                    params: SceneParams) -> torch.optim.Adam:
     """Per-parameter-group Adam (3DGS standard recipe, eps 1e-15): one
-    group per :class:`SceneParams` field, in field order."""
+    group per :class:`SceneParams` field, in field order. The
+    implementation is pinned to what torch picks by default today (the
+    multi-tensor ``foreach`` one for CUDA parameters, the single-tensor
+    one elsewhere; never ``fused``), so a step on one card and a step on a
+    mesh's shard (:func:`make_sharded_train_step`) update each row with
+    the same operations whatever torch's default becomes."""
     lrs = dict(means=cfg.lr_means, quats=cfg.lr_quats,
                log_scales=cfg.lr_scales, color_logits=cfg.lr_colors,
                opacity_logits=cfg.lr_opacities, sh=cfg.lr_sh)
     return torch.optim.Adam(
         [{"params": [p], "lr": lrs[name], "name": name}
-         for name, p in zip(SceneParams._fields, params)], eps=1e-15)
+         for name, p in zip(SceneParams._fields, params)], eps=1e-15,
+        foreach=params.means.device.type == "cuda", fused=False)
 
 
-def make_train_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
-                    depth: int = 16, renderer: str = "auto",
-                    **render_kwargs):
-    """Build the training step.
-
-    Returns ``step(params, mask, camera, target) → metrics``: it renders,
-    back-propagates the loss through the renderer and updates ``params`` in
-    place with ``optimizer``. ``metrics`` holds the loss and PSNR (0-d
-    tensors) and the per-Gaussian positional gradient norms the density
-    controller consumes."""
-    from rtgs_tpu_torch.render.api import render
-
-    renderer = training_renderer(renderer)
+def _make_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
+               render_fn):
+    """The step of :func:`make_train_step` around ``render_fn(scene,
+    camera) → image``."""
 
     def step(params: SceneParams, mask: torch.Tensor, camera: Camera,
              target: torch.Tensor) -> dict:
         optimizer.zero_grad(set_to_none=True)
-        img = render(activate(params, mask), camera, depth=depth,
-                     renderer=renderer, **render_kwargs)
+        img = render_fn(activate(params, mask), camera)
         loss = render_loss(img, target, cfg.lambda_dssim)
         loss.backward()
         for p in params:
@@ -176,6 +172,68 @@ def make_train_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
         return metrics
 
     return step
+
+
+def make_train_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
+                    depth: int = 16, renderer: str = "auto",
+                    **render_kwargs):
+    """Build the training step.
+
+    Returns ``step(params, mask, camera, target) → metrics``: it renders,
+    back-propagates the loss through the renderer and updates ``params`` in
+    place with ``optimizer``. ``metrics`` holds the loss and PSNR (0-d
+    tensors) and the per-Gaussian positional gradient norms the density
+    controller consumes."""
+    from rtgs_tpu_torch.render.api import render
+
+    renderer = training_renderer(renderer)
+    return _make_step(cfg, optimizer, lambda g, cam: render(
+        g, cam, depth=depth, renderer=renderer, **render_kwargs))
+
+
+def shard_params(params: SceneParams, mask: torch.Tensor, mesh):
+    """This rank's shard of a scene's raw parameters and mask: rows
+    ``[p·m, (p+1)·m)`` for prims-rank p (the rows
+    :func:`~rtgs_tpu_torch.parallel.render.shard_scene` gives it), as
+    fresh leaves on the mesh's device. Every rank passes the same whole
+    scene, whose N must divide by the prims axis: build it from
+    ``pad_scene(g, mesh.n_prims)``, as the one-card step of the same scene
+    would. Returns (SceneParams, mask)."""
+    n = mask.shape[0]
+    if n % mesh.n_prims:
+        raise ValueError(f"{n} splats do not divide over {mesh.n_prims} "
+                         "prims-ranks: pad the scene first (pad_scene)")
+    m = n // mesh.n_prims
+    lo = mesh.prims_rank * m
+    return (SceneParams(*(_leaf(p[lo:lo + m].to(mesh.device))
+                          for p in params)),
+            mask[lo:lo + m].to(mesh.device).detach().clone())
+
+
+def make_sharded_train_step(cfg: TrainConfig,
+                            optimizer: torch.optim.Optimizer, mesh,
+                            depth: int = 16, **render_kwargs):
+    """The training step on a (rays, prims) mesh (port of the step of the
+    JAX package's ``__graft_entry__.dryrun_multichip``): each rank holds
+    its shard's raw parameters (:func:`shard_params`) and ``optimizer``
+    over them (:func:`make_optimizer`). ``step(params, mask, camera,
+    target) → metrics`` activates the shard, renders the whole image on
+    every rank with
+    :func:`~rtgs_tpu_torch.parallel.render.render_tiled_sharded`
+    (``render_kwargs``: its budgets), takes :func:`render_loss` against
+    the whole target, back-propagates and takes one Adam step on the
+    shard. ``metrics``: the loss and PSNR (the same on every rank) and the
+    shard's per-Gaussian positional gradient norms.
+
+    The ring's gradient is one card's bit for bit, so after k steps each
+    shard's parameters and Adam moments are those rows of k one-card steps
+    of :func:`make_train_step` ``(renderer="keys")`` on the padded scene
+    with the same budgets. No density control runs on the mesh (nor in
+    the JAX package)."""
+    from rtgs_tpu_torch.parallel.render import render_tiled_sharded
+
+    return _make_step(cfg, optimizer, lambda g, cam: render_tiled_sharded(
+        g, cam, mesh, depth=depth, **render_kwargs))
 
 
 def _leaf(x: torch.Tensor) -> torch.Tensor:

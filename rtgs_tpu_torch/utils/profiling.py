@@ -1,17 +1,21 @@
 """Profiling and observability (port of :mod:`rtgs_tpu.utils.profiling`).
 
-* :func:`timed` — median wall time of a call, synchronizing the card when
-  its result lies there, with rays/s where given;
+* :func:`timed` — median wall time of a call, waiting for every card that
+  holds a tensor of its result (as ``jax.block_until_ready`` waits on
+  every leaf), with rays/s where given;
 * :func:`trace` — a ``torch.profiler`` trace (CPU and, where there is a
-  card, CUDA activity) exported as a Chrome trace;
+  card, CUDA activity) exported as a Chrome trace into a log directory,
+  which it yields;
 * :class:`Meter` — rolling per-step metrics for structured log lines.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import logging
 import os
+import tempfile
 import time
 from typing import Callable, Dict, Optional
 
@@ -20,20 +24,29 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-def _sync(out) -> None:
-    """Wait for the card if any tensor in ``out`` (a tensor, or a tuple,
-    list or dict of them) lies on it."""
+def _cuda_devices(out, found: set) -> set:
+    """The CUDA devices of every tensor in ``out``: a tensor, or a
+    dataclass, tuple (NamedTuples too), list or dict holding them, nested
+    to any depth."""
     if isinstance(out, torch.Tensor):
-        tensors = [out]
+        if out.device.type == "cuda":
+            found.add(out.device)
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        for f in dataclasses.fields(out):
+            _cuda_devices(getattr(out, f.name), found)
     elif isinstance(out, dict):
-        tensors = list(out.values())
+        for x in out.values():
+            _cuda_devices(x, found)
     elif isinstance(out, (tuple, list)):
-        tensors = list(out)
-    else:
-        tensors = []
-    for x in tensors:
-        if isinstance(x, torch.Tensor) and x.device.type == "cuda":
-            torch.cuda.synchronize(x.device)
+        for x in out:
+            _cuda_devices(x, found)
+    return found
+
+
+def _sync(out) -> None:
+    """Wait for each card that holds a tensor of ``out``, once."""
+    for dev in sorted(_cuda_devices(out, set()), key=str):
+        torch.cuda.synchronize(dev)
 
 
 def timed(fn: Callable, *args, iters: int = 5, warmup: int = 1,
@@ -62,20 +75,25 @@ def timed(fn: Callable, *args, iters: int = 5, warmup: int = 1,
 
 
 @contextlib.contextmanager
-def trace(logdir: str = "rtgs_torch_trace"):
+def trace(logdir: str | None = None):
     """``torch.profiler`` over the block, CPU activity and, where a card is
     present, CUDA activity; the Chrome trace (view it in Perfetto or
-    ``chrome://tracing``) goes to ``logdir/trace.json``. Yields the
-    profiler."""
+    ``chrome://tracing``) goes to ``logdir/trace.json``. ``logdir``
+    defaults to ``rtgs_torch_trace`` in the temporary directory (``/tmp``
+    unless ``TMPDIR`` says otherwise), as the JAX package's defaults to
+    ``/tmp/rtgs_tpu_trace``. Yields ``logdir``, as the JAX package's
+    does."""
     from torch.profiler import ProfilerActivity, profile
 
+    if logdir is None:
+        logdir = os.path.join(tempfile.gettempdir(), "rtgs_torch_trace")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json")
     with profile(activities=activities) as prof:
-        yield prof
+        yield logdir
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)

@@ -305,13 +305,17 @@ g = G.Gaussians(**{f: torch.from_numpy(inp[f]) for f in G.FIELDS})
 cam = camera_from_numpy({k: inp["cam_" + k] for k in
                          ("position", "rotation", "focal_length",
                           "buf_size")}, device="cpu")
-with torch.no_grad():
-    img = render_tiled_sharded(shard_scene(g, mesh), cam, mesh,
-                               depth=int(inp["depth"]), tile=(16, 16),
-                               max_candidates=int(inp["max_candidates"]),
-                               max_global=int(inp["max_global"]))
+leaves = {f: getattr(g, f).clone().requires_grad_(f != "mask")
+          for f in G.FIELDS}
+img = render_tiled_sharded(shard_scene(G.Gaussians(**leaves), mesh), cam,
+                           mesh, depth=int(inp["depth"]), tile=(16, 16),
+                           max_candidates=int(inp["max_candidates"]),
+                           max_global=int(inp["max_global"]))
+(img ** 2).sum().backward()
 assert "jax" not in sys.modules and "rtgs_tpu" not in sys.modules
-np.save(os.path.join(tmp, f"rank{rank}.npy"), img.numpy())
+np.save(os.path.join(tmp, f"rank{rank}.npy"), img.detach().numpy())
+np.savez(os.path.join(tmp, f"grad{rank}.npz"),
+         **{f: v.grad.numpy() for f, v in leaves.items() if f != "mask"})
 torch.distributed.destroy_process_group()
 """
 
@@ -320,7 +324,10 @@ def test_deep_ring_matches_single_device(tmp_path):
     """The keys-path ring on a 1×2 mesh of gloo processes at depth 80: each
     shard's keys stage chains its passes, the ring merges the shards'
     lists along K; the image against the port's single-device render to
-    1e-5 (tests/test_torch_parallel.py's tolerance)."""
+    1e-5 (tests/test_torch_parallel.py's tolerance), and each rank's scene
+    gradients of Σ image² on its shard's rows bitwise the single-device
+    render's (the owners sum the 80-layer lists' winners in one device's
+    order)."""
     fields = _fields()
     jcam, tcam = _cams()
     np.savez(tmp_path / "inputs.npz", **fields,
@@ -343,9 +350,18 @@ def test_deep_ring_matches_single_device(tmp_path):
                 p.communicate()
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, f"rank {rank} failed:\n{out}"
-    with torch.no_grad():
-        ref = render_tiled_keys(gaussians_from_numpy(fields, device="cpu"),
-                                tcam, depth=DEPTH, **KW).numpy()
+    leaves = {f: torch.from_numpy(v).requires_grad_(f in FIELDS)
+              for f, v in fields.items()}
+    ref = render_tiled_keys(G.Gaussians(**leaves), tcam, depth=DEPTH, **KW)
+    (ref ** 2).sum().backward()
+    ref = ref.detach().numpy()
+    m = N // 2
     for rank in range(2):
         img = np.load(tmp_path / f"rank{rank}.npy")
         np.testing.assert_allclose(img, ref, atol=1e-5)
+        grads = np.load(tmp_path / f"grad{rank}.npz")
+        rows = slice(rank * m, (rank + 1) * m)
+        for f in FIELDS:
+            want = leaves[f].grad.numpy()[rows]
+            assert np.abs(want).max() > 0, f
+            np.testing.assert_array_equal(grads[f][rows], want, err_msg=f)

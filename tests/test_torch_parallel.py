@@ -3,9 +3,12 @@ JAX package's: the mesh's errors, then the oracle ring and the keys-path
 ring on meshes of 2×1, 1×2 and 2×2 as gloo processes on the CPU, against
 the JAX functions (the JAX ring on the same mesh shape over the virtual
 CPU devices of tests/conftest.py) and against the port's single-device
-keys render; the ring's scene gradients at 2×2; the merge's tie order; the
-port's launcher (the cases of tests/test_launcher.py), and ``render
---mesh 2,1`` through the CLI under it.
+keys render; the ring's scene gradients, bitwise one device's; the sharded
+training step (train/solver.py:make_sharded_train_step), bitwise the
+one-device keys step and against the JAX package's sharded step; the
+merge's tie order; the port's launcher (the cases of
+tests/test_launcher.py), and ``render --mesh 2,1`` through the CLI under
+it.
 
 The worker processes import no JAX: each is a ``python -c`` script that
 joins a ``torch.distributed`` world through a ``file://`` store in the
@@ -49,11 +52,24 @@ MESHES = [(2, 1), (1, 2), (2, 2)]
 N, RES, DEPTH, N_RAYS = 160, (64, 32), 8, 64
 BUDGETS = dict(tile=(16, 16), max_candidates=128, max_global=64)
 FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
+PARAMS = ("means", "quats", "log_scales", "color_logits", "opacity_logits",
+          "sh")
 ATOL = 1e-5
-# Scene gradients through the ring against the single-device keys path
-# (tests/test_parallel.py:178-184): each field's error relative to its
-# largest entry, at the 0.99 quantile and at most.
+# The port's sharded step against the JAX package's
+# (tests/test_parallel.py:178-184): each raw parameter's gradient error
+# relative to its largest entry, at the 0.99 quantile and at most.
 GRAD_Q99, GRAD_MAX = 5e-3, 5e-2
+LOSS_RTOL = 1e-5
+# The sharded step's scene: N_STEP splats, so that every shard's rows are
+# whole AVX-512 vectors (a multiple of 32). ATen's CPU sigmoid (in
+# ``activate``) rounds the scalar tail of a tensor differently from its
+# vector body in ~4% of inputs, so a shard of 80 splats activates one color
+# of the 160-splat scene an ulp away from the whole scene's: a CPU artefact
+# of torch, not of the port (on the card every element is rounded alike,
+# and chip_smoke.py phase 16 holds the step bitwise at 50,000 splats a
+# shard). The ring gradient has no sigmoid: it is held on N − 1 splats,
+# padded (one dead row at n_prims 2).
+N_STEP, STEPS, LR_SEED = 192, 3, 1
 TIMEOUT = 240
 
 _WORKER = r"""
@@ -66,11 +82,16 @@ import torch
 torch.set_num_threads(1)
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.bridge import camera_from_numpy
+from rtgs_tpu_torch.config import TrainConfig
 from rtgs_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
 from rtgs_tpu_torch.parallel.render import (render_sharded,
                                             render_tiled_sharded,
                                             shard_scene)
 from rtgs_tpu_torch.rays import new_rays
+from rtgs_tpu_torch.scene import pad_scene
+from rtgs_tpu_torch.train.solver import (init_params, make_optimizer,
+                                         make_sharded_train_step,
+                                         shard_params)
 
 world = n_rays * n_prims
 initialize_distributed(f"file://{tmp}/store", world, rank, device="cpu")
@@ -97,15 +118,36 @@ with torch.no_grad():
                                               mesh))
         out["image" + tag] = render_tiled_sharded(shard, cam, mesh,
                                                   **kw).numpy()
-if inp["grads"]:
-    leaves = {f: v.clone().requires_grad_(f != "mask")
-              for f, v in fields.items()}
-    img = render_tiled_sharded(shard_scene(G.Gaussians(**leaves), mesh),
-                               cam, mesh, **kw)
-    (img ** 2).sum().backward()
-    for f, v in leaves.items():
-        if f != "mask":
-            out["grad_" + f] = v.grad.numpy()
+
+# The ring's scene gradients: the scene less its last splat, padded.
+padded = pad_scene(G.Gaussians(**{f: v[:-1] for f, v in fields.items()}),
+                   n_prims)
+leaves = {f: getattr(padded, f).clone().requires_grad_(f != "mask")
+          for f in G.FIELDS}
+img = render_tiled_sharded(shard_scene(G.Gaussians(**leaves), mesh), cam,
+                           mesh, **kw)
+(img ** 2).sum().backward()
+for f, v in leaves.items():
+    if f != "mask":
+        out["grad_" + f] = v.grad.numpy()
+
+# The sharded training step.
+g = pad_scene(G.Gaussians(**{f: torch.from_numpy(inp["step_" + f])
+                             for f in G.FIELDS}), n_prims)
+params, mask = shard_params(init_params(g), g.mask, mesh)
+cfg = TrainConfig()
+opt = make_optimizer(cfg, params)
+step = make_sharded_train_step(cfg, opt, mesh, **kw)
+target = torch.from_numpy(inp["target"])
+for i in range(int(inp["steps"])):
+    out[f"step_loss{i}"] = step(params, mask, cam, target)["loss"].numpy()
+    if i == 0:
+        for f, p in zip(params._fields, params):
+            out["step_grad_" + f] = p.grad.numpy().copy()
+for f, p in zip(params._fields, params):
+    out["step_" + f] = p.detach().numpy()
+    out["step_m_" + f] = opt.state[p]["exp_avg"].numpy()
+    out["step_v_" + f] = opt.state[p]["exp_avg_sq"].numpy()
 assert "jax" not in sys.modules and "rtgs_tpu" not in sys.modules
 np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
 torch.distributed.destroy_process_group()
@@ -139,15 +181,25 @@ def _tie_scene(fields):
     return tie
 
 
-def _run_workers(tmp: pathlib.Path, n_rays: int, n_prims: int,
-                 grads: bool):
+def _step_inputs():
+    """The sharded step's scene and target."""
+    fields = random_scene_arrays(N_STEP, 1.0, (0.02, 0.1), seed=5)
+    target = np.random.default_rng(LR_SEED).uniform(
+        size=RES + (3,)).astype(np.float32)
+    return fields, target
+
+
+def _run_workers(tmp: pathlib.Path, n_rays: int, n_prims: int):
     fields, jcam, origins, dirs = _inputs()
     tie = {"tie_" + k: v for k, v in _tie_scene(fields).items()}
+    step_fields, target = _step_inputs()
     np.savez(tmp / "inputs.npz", **fields, **tie,
+             **{"step_" + k: v for k, v in step_fields.items()},
+             target=target, steps=STEPS,
              **{"cam_" + k: np.asarray(getattr(jcam, k))
                 for k in ("position", "rotation", "focal_length",
                           "buf_size")},
-             ray_o=origins, ray_d=dirs, depth=DEPTH, grads=grads,
+             ray_o=origins, ray_d=dirs, depth=DEPTH,
              max_candidates=BUDGETS["max_candidates"],
              max_global=BUDGETS["max_global"])
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -174,13 +226,13 @@ def _run_workers(tmp: pathlib.Path, n_rays: int, n_prims: int,
 @pytest.fixture(scope="module")
 def rings(tmp_path_factory):
     """``rings((n_rays, n_prims))`` → the ranks' results, one launch a mesh
-    shape for the whole module (gradients on the 2×2 mesh)."""
+    shape for the whole module."""
     done = {}
 
     def get(shape):
         if shape not in done:
             tmp = tmp_path_factory.mktemp(f"ring{shape[0]}x{shape[1]}")
-            done[shape] = _run_workers(tmp, *shape, grads=shape == (2, 2))
+            done[shape] = _run_workers(tmp, *shape)
         return done[shape]
     return get
 
@@ -291,47 +343,137 @@ def test_cross_shard_tie_matches_single_device(rings, shape):
                                    atol=ATOL)
 
 
-def _ring_grads(ranks, n_prims):
-    """The whole scene's gradient from the rays-row 0 ranks' shards."""
-    return {f: sum(ranks[p]["grad_" + f] for p in range(n_prims))
-            for f in FIELDS}
+def _shard_rows(rank: int, n_prims: int, n: int) -> slice:
+    m = n // n_prims
+    lo = (rank % n_prims) * m
+    return slice(lo, lo + m)
 
 
-def test_ring_gradients_match_single_device(rings):
-    """tests/test_parallel.py:148 at 2×2: scene gradients of Σ image²
-    through the ring against the port's single-device keys path, at the
-    gates of tests/test_parallel.py:178-184. A gradient n_rays times too
-    large (a gather whose backward sums every rank's cotangent) or one
-    missing the other rays-rank's tiles (no all-reduce) fails them."""
-    ranks, n_prims = rings((2, 2)), 2
-    fields, _, jcam, _, _ = _jax_scene()
-    leaves = {f: torch.from_numpy(v).requires_grad_(f in FIELDS)
-              for f, v in fields.items()}
+@mesh_shapes
+def test_ring_gradients_match_single_device(rings, shape):
+    """Scene gradients of Σ image² through the ring: every rank's rows of
+    every field, dead pad rows included, bitwise the unbanded
+    single-device keys path's on the padded scene (the owners sum each
+    splat's winner rows in one device's order), and zero outside its
+    shard. A gradient n_rays times too large, one missing the other
+    rays-rank's tiles, or one summed shard by shard fails it."""
     from rtgs_tpu_torch import gaussians as G
+    from rtgs_tpu_torch.scene import pad_scene
 
+    ranks, n_prims = rings(shape), shape[1]
+    fields, _, jcam, _, _ = _jax_scene()
+    padded = pad_scene(G.Gaussians(**{f: torch.from_numpy(v[:-1])
+                                      for f, v in fields.items()}), n_prims)
+    leaves = {f: getattr(padded, f).clone().requires_grad_(f in FIELDS)
+              for f in G.FIELDS}
     img = render_tiled_keys(G.Gaussians(**leaves),
                             camera_from_numpy(jcam, device="cpu"),
                             depth=DEPTH, **BUDGETS)
     (img ** 2).sum().backward()
-    got = _ring_grads(ranks, n_prims)
-    for f in FIELDS:
-        a, b = got[f], leaves[f].grad.numpy()
-        assert np.isfinite(a).all(), f
-        rel = np.abs(a - b) / (np.abs(b).max() + 1e-8)
-        assert np.quantile(rel, 0.99) < GRAD_Q99, f
-        assert rel.max() < GRAD_MAX, f
-        assert np.abs(b).max() > 0, f
+    n = padded.num
+    for rank, r in enumerate(ranks):
+        rows = _shard_rows(rank, n_prims, n)
+        for f in FIELDS:
+            got, want = r["grad_" + f], leaves[f].grad.numpy()
+            assert np.abs(want[rows]).max() > 0, f
+            np.testing.assert_array_equal(got[rows], want[rows],
+                                          err_msg=f"rank {rank} {f}")
+            rest = np.ones(n, bool)
+            rest[rows] = False
+            assert not got[rest].any(), f
+        if n_prims > 1:       # the dead pad row of the last shard
+            assert not r["grad_scales"][N - 1:].any()
 
 
-def test_ring_gradients_replicated_over_rays(rings):
-    """Both rays-ranks of a prims-column hold the same shard, so after the
-    all-reduce they hold the same (summed) gradient."""
-    ranks, n_prims = rings((2, 2)), 2
+@pytest.mark.parametrize("shape", [(2, 1), (2, 2)],
+                         ids=lambda m: f"{m[0]}x{m[1]}")
+def test_ring_gradients_replicated_over_rays(rings, shape):
+    """Both rays-ranks of a prims-column hold the same shard, and each sums
+    every tile's records for it, so they hold the same gradient."""
+    ranks, n_prims = rings(shape), shape[1]
     for p in range(n_prims):
         for f in FIELDS:
             np.testing.assert_array_equal(ranks[p]["grad_" + f],
                                           ranks[n_prims + p]["grad_" + f],
                                           err_msg=f)
+
+
+@mesh_shapes
+def test_sharded_step_matches_single_device(rings, shape):
+    """STEPS sharded training steps: every rank's shard parameters and
+    Adam moments, and the loss of every step on every rank, bitwise those
+    rows of the one-device ``make_train_step(renderer="keys")`` on
+    ``pad_scene(g, n_prims)``."""
+    from rtgs_tpu_torch import gaussians as G
+    from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.scene import pad_scene
+    from rtgs_tpu_torch.train import solver as tsolver
+
+    ranks, n_prims = rings(shape), shape[1]
+    step_fields, target = _step_inputs()
+    _, _, jcam, _, _ = _jax_scene()
+    g = pad_scene(G.Gaussians(**{f: torch.from_numpy(v)
+                                 for f, v in step_fields.items()}), n_prims)
+    params = tsolver.SceneParams(*(tsolver._leaf(p)
+                                   for p in tsolver.init_params(g)))
+    cfg = TrainConfig()
+    opt = tsolver.make_optimizer(cfg, params)
+    step = tsolver.make_train_step(cfg, opt, depth=DEPTH, renderer="keys",
+                                   **BUDGETS)
+    cam = camera_from_numpy(jcam, device="cpu")
+    losses = [step(params, g.mask, cam, torch.from_numpy(target))["loss"]
+              for _ in range(STEPS)]
+    for rank, r in enumerate(ranks):
+        rows = _shard_rows(rank, n_prims, g.num)
+        for i, loss in enumerate(losses):
+            np.testing.assert_array_equal(r[f"step_loss{i}"], loss.numpy())
+        for f, p in zip(PARAMS, params):
+            state = opt.state[p]
+            for tag, want in (("", p.detach()), ("m_", state["exp_avg"]),
+                              ("v_", state["exp_avg_sq"])):
+                np.testing.assert_array_equal(
+                    r[f"step_{tag}{f}"], want.numpy()[rows],
+                    err_msg=f"rank {rank} {tag}{f}")
+
+
+@mesh_shapes
+def test_sharded_step_matches_jax(rings, shape):
+    """The first sharded step's loss and raw-parameter gradients against
+    the JAX package's sharded step (``activate`` → ``render_tiled_sharded``
+    → ``render_loss``, the step of ``__graft_entry__.dryrun_multichip``)
+    on the same mesh shape over the virtual CPU devices: the loss to
+    LOSS_RTOL, each gradient at the gates of tests/test_parallel.py:178-184
+    (the JAX keys stage's f32 t1 and adjugate Σ⁻¹ against the port's)."""
+    from rtgs_tpu.train import loss as jloss
+    from rtgs_tpu.train import solver as jsolver
+
+    ranks, n_prims = rings(shape), shape[1]
+    step_fields, target = _step_inputs()
+    _, _, jcam, _, _ = _jax_scene()
+    jg = j_pad_scene(JG.Gaussians(**{k: jnp.asarray(v)
+                                     for k, v in step_fields.items()}),
+                     n_prims)
+    mesh = j_make_mesh(*shape)
+
+    def loss_fn(p):
+        img = j_ring(jsolver.activate(p, jg.mask), jcam, mesh, depth=DEPTH,
+                     **BUDGETS)
+        return jloss.render_loss(img, jnp.asarray(target))
+
+    loss, grads = jax.value_and_grad(loss_fn)(jsolver.init_params(jg))
+    n = jg.means.shape[0]
+    for rank, r in enumerate(ranks):
+        np.testing.assert_allclose(r["step_loss0"], float(loss),
+                                   rtol=LOSS_RTOL)
+        rows = _shard_rows(rank, n_prims, n)
+        for f in PARAMS:
+            a = r["step_grad_" + f]
+            b = np.asarray(getattr(grads, f))
+            assert np.isfinite(a).all(), f
+            rel = np.abs(a - b[rows]) / (np.abs(b).max() + 1e-8)
+            assert np.quantile(rel, 0.99) < GRAD_Q99, f
+            assert rel.max() < GRAD_MAX, f
+            assert np.abs(b[rows]).max() > 0, f
 
 
 def test_merge_matches_jax_without_ties():

@@ -3,8 +3,11 @@ render_tiled) against the JAX package's render_tiled, image and scene
 gradients; all three port tile-or-brute-force renderers (oracle, tiled,
 pallas) against the float64 goldens of tests/golden/; the renderer choices
 of render and fit through the CLI; one training step through the oracle
-against the JAX make_train_step; and a CLI render through the oracle with
-JAX made unimportable.
+against the JAX make_train_step; a CLI render through the oracle with
+JAX made unimportable; and the port's three tile renderers (keys, pallas,
+tiled) against the JAX oracle and the same JAX renderer on the cases of
+tests/test_tiled.py:69 (a camera inside the cloud: the global list) and
+:82 (37×23 with 16×8 tiles).
 
 Tolerances: images with tests/_utils.assert_images_close (the port's t1 is
 a float64 chain and the JAX package's an f32 one, so grazing pixels may
@@ -30,9 +33,15 @@ import numpy as np
 import pytest
 import torch
 
+from rtgs_tpu.camera import camera_from_fov as j_camera_from_fov
 from rtgs_tpu.config import TrainConfig as JTrainConfig
+from rtgs_tpu.render.oracle import render_oracle as j_render_oracle
 from rtgs_tpu.render.tiled import render_tiled as j_render_tiled
+from rtgs_tpu.render.tiled import render_tiled_keys as j_render_tiled_keys
+from rtgs_tpu.render.tiled import render_tiled_pallas as j_render_pallas
+from rtgs_tpu.scene import random_scene as j_random_scene
 from rtgs_tpu.train import solver as jsolver
+from rtgs_tpu.viewer.orbit import orbit_camera_pose
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.__main__ import main
 from rtgs_tpu_torch.bridge import (adam_state_from_optax, adam_state_to_numpy,
@@ -68,6 +77,50 @@ def test_render_tiled_matches_jax_and_pallas():
     # Chunking the tile axis changes nothing but the batch shapes.
     chunked = render_tiled(tg, tcam, tile_chunk=5, **KW)
     assert (chunked - img).abs().max() <= 1e-6
+
+
+# The port's tile renderers and their JAX counterparts.
+TILE_PATHS = {"keys": (render_tiled_keys, j_render_tiled_keys),
+              "pallas": (render_tiled_pallas, j_render_pallas),
+              "tiled": (render_tiled, j_render_tiled)}
+
+
+def _against_jax(renderer, jg, jcam, depth, **kw):
+    """The port's ``renderer`` on the JAX scene and camera, held against
+    the JAX oracle and the same JAX renderer; returns the port's image."""
+    port, ref = TILE_PATHS[renderer]
+    img = port(gaussians_from_numpy(jg, device="cpu"),
+               camera_from_numpy(jcam, device="cpu"), depth=depth,
+               **kw).numpy()
+    assert np.isfinite(img).all() and np.abs(img).max() > 0.05
+    assert_images_close(img, np.asarray(j_render_oracle(jg, jcam,
+                                                        depth=depth)))
+    assert_images_close(img, np.asarray(ref(jg, jcam, depth=depth, **kw)))
+    return img
+
+
+@pytest.mark.parametrize("renderer", sorted(TILE_PATHS))
+def test_camera_inside_scene_matches_jax(renderer):
+    """tests/test_tiled.py:69: the camera inside the cloud, where many
+    splats straddle or lie behind the camera plane: the binning's global
+    list carries them (max_global 200 of 200 splats)."""
+    jg = j_random_scene(jax.random.PRNGKey(42), 200, extent=1.0)
+    jcam = j_camera_from_fov([0.1, 0.0, 0.1], [0, 0, 0, 1], (32, 24), 70.0)
+    _against_jax(renderer, jg, jcam, 16, tile=(16, 8), max_candidates=256,
+                 max_global=200)
+
+
+@pytest.mark.parametrize("renderer", sorted(TILE_PATHS))
+def test_odd_resolution_matches_jax(renderer):
+    """tests/test_tiled.py:82: 37×23 with 16×8 tiles, padded to whole
+    tiles and cropped back."""
+    jg = j_random_scene(jax.random.PRNGKey(42), 100, extent=0.8)
+    pos, rot, _, _ = orbit_camera_pose(0.3, 1.2, 3.0, np.zeros(3),
+                                       np.array([0.0, 0.0, 0.0, 1.0]))
+    jcam = j_camera_from_fov(pos, rot, (37, 23), 60.0)
+    img = _against_jax(renderer, jg, jcam, 8, tile=(16, 8),
+                       max_candidates=128, max_global=64)
+    assert img.shape == (37, 23, 3)
 
 
 def _scene_grads(fn, fields, cam):

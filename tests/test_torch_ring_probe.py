@@ -1,8 +1,10 @@
-"""``python -m rtgs_tpu_torch.probes.ring`` at a toy size: two gloo ranks
-under the port's launcher, meshes 2×1 and 1×2, each frame equal to the
-single-device keys render and the 1×2 ring's gradients equal to the
-single-device path's (both with deterministic algorithms, on the CPU the
-same sums in the same order)."""
+"""``python -m rtgs_tpu_torch.probes.ring --train`` at a toy size: two gloo
+ranks under the port's launcher, meshes 2×1 and 1×2, each frame equal to
+the single-device keys render, each mesh's gradients bitwise the
+single-device path's, and two sharded training steps on each mesh bitwise
+the one-device steps, at both of ``--train``'s configurations (scenes of
+256 splats, whose shards of 128 rows end in no vector tail of the CPU's
+sigmoid; see tests/test_torch_parallel.py)."""
 
 import os
 import pathlib
@@ -17,8 +19,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 def test_ring_probe_two_ranks(tmp_path, capfd):
     cmd = [sys.executable, "-m", "rtgs_tpu_torch.probes.ring", "--device",
            "cpu", "--n", "400", "--res", "32,32", "--cand", "512",
-           "--bands", "2", "--meshes", "2x1,1x2", "--grad-mesh", "1x2",
-           "--grad-n", "300", "--grad-res", "32,32", "--grad-cand", "512"]
+           "--bands", "2", "--meshes", "2x1,1x2", "--grad-meshes", "2x1,1x2",
+           "--grad-n", "256", "--grad-res", "32,32", "--grad-cand", "512",
+           "--train", "--steps", "2", "--dry-n", "256", "--dry-res", "32,32"]
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [str(ROOT), os.environ.get("PYTHONPATH", "")]))
@@ -31,5 +34,14 @@ def test_ring_probe_two_ranks(tmp_path, capfd):
     for shape in ("2x1", "1x2"):
         m = re.search(rf"ring {shape}: max \|ring − keys\| (\S+) ", out)
         assert m and float(m.group(1)) == 0.0, out
-    grads = re.search(r"ring 1x2 scene gradients.*", out).group(0)
-    assert grads.count("q99 0.0e+00 max 0.0e+00") == 6, grads
+    for shape in ("2x1", "1x2"):
+        grads = re.search(rf"ring {shape} scene gradients.*", out).group(0)
+        assert "bitwise equal in every field on every rank" in grads, grads
+        sent = re.search(r"the backward sends (\d+) bytes", grads)
+        # 2×1: each rays-rank sends its tiles' records to the other, which
+        # holds the same shard; 1×2: each sends the other shard's records.
+        assert sent and int(sent.group(1)) > 0, grads
+    steps = re.findall(r"sharded step (\S+) at .*", out)
+    assert steps == ["2x1", "1x2"] * 2, out
+    assert out.count("(one device drops 0 pairs): 2 steps bitwise the "
+                     "one-device keys steps") == 4, out

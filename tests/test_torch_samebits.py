@@ -44,6 +44,20 @@ def test_dump_holds_every_output_and_no_launch_on_the_cpu(dumped):
         assert float(grad.abs().max()) > 0
         sid = res["tensors"][f"{label}/d{depth}/keys/sid"]
         assert sid.shape[1] == depth and bool((sid >= 0).any())
+        for name, fields in (
+                ("render", ["image"] + [f"grad_{f}" for f in
+                                        samebits.SCENE_FIELDS]),
+                ("steps", [f"loss{i}" for i in range(samebits.STEPS)]
+                 + [f"{t}{f}" for t in ("", "m_", "v_")
+                    for f in ("means", "log_scales", "sh")])):
+            for f in fields:
+                x = res["tensors"][f"{label}/d{depth}/{name}/{f}"]
+                assert x.device.type == "cpu"
+                assert bool(torch.isfinite(x).all()), (name, f)
+            assert not any(res["launches"][f"{label}/d{depth}/{name}"]
+                           .values())
+        grad = res["tensors"][f"{label}/d{depth}/render/grad_scales"]
+        assert float(grad.abs().max()) > 0
     assert res["card"] == "cpu"
 
 

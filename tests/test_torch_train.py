@@ -330,6 +330,41 @@ def test_densify_and_prune_matches_jax():
     np.testing.assert_array_equal(ts._grad_accum, js._grad_accum)
 
 
+def test_world_size_prune_matches_jax():
+    """tests/test_train.py:282: a splat whose scale inflates past
+    prune_max_scale × scene_extent is removed at the next densify step
+    (the 3DGS world-size prune), by both packages on the same inputs: the
+    same mask after the step, 16 → 15 live."""
+    from rtgs_tpu.render.oracle import render_oracle as j_render_oracle
+    from rtgs_tpu.scene import random_scene as j_random_scene
+
+    gt = j_random_scene(jax.random.PRNGKey(42), 16, extent=0.6,
+                        scale_range=(0.002, 0.005))
+    jcam = _cam(0.0, res=(16, 16), r=2.5)
+    target = j_render_oracle(gt, jcam, depth=8)
+    params = jsolver.init_params(gt)
+    params = params._replace(
+        log_scales=params.log_scales.at[0].set(np.log(100.0)))
+    cfg = dict(densify_from=1, densify_every=1,
+               densify_grad_threshold=1e9,       # no clones or splits
+               opacity_reset_every=0, checkpoint_every=0)
+    js = jsolver.Solver(params=params, mask=gt.mask, cfg=JTrainConfig(**cfg),
+                        cameras=[jcam], targets=[target], depth=8,
+                        renderer="oracle")
+    ts = tsolver.Solver(params=params_from_numpy(params, device="cpu"),
+                        mask=torch.from_numpy(np.array(gt.mask)),
+                        cfg=TrainConfig(**cfg),
+                        cameras=[camera_from_numpy(jcam, device="cpu")],
+                        targets=[np.array(target)], depth=8,
+                        renderer="oracle")
+    assert ts.num_live == js.num_live == 16
+    js.train_step()
+    ts.train_step()
+    assert ts.num_live == js.num_live == 15
+    assert float(ts.mask[0]) == 0.0
+    np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+
+
 def test_split_rotation_matches_jax():
     """The one framework-computed piece of a split: the f32 rotation."""
     q = np.random.default_rng(4).standard_normal((16, 4)).astype(np.float32)
