@@ -160,7 +160,26 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      memory and the residual transmittance (mean, p99); 20 fit steps at
      depth 128 through ``pallas`` and ``keys`` twice (PSNR must rise, every
      parameter bitwise); one ``serve`` frame at depth 128, bitwise the
-     in-process render. Its kernels' launches join the kernels line.
+     in-process render. Its kernels' launches join the kernels line;
+ 20. the default path, with no renderer named (``auto``: the fused kernel
+     on the card above 4096 splats) at 1M@1920x1088 with phase 19's
+     budgets: ``render`` and a 3-frame ``orbit`` at depth 16, ``render`` at
+     64 and 128 and ``bench`` through the CLI, ``peel_fwd`` once a band and
+     pass and the keys kernel never; in process at depth 16, 64 and 128 the
+     frame time and rays/s, its stages (features, binning, ``peel_fwd`` by
+     pass and band; CUDA events), peak memory and dropped pairs (0) beside
+     the keys path's frame in the same call, the images to the image
+     statistic, the device's busy share at 16; the frame at 16 against the
+     fused twin's; the busiest band's ``peel_fwd`` bitwise its twin, its
+     time beside its bound (these are the kernels line's ms, plain_ms and
+     bound_ms for peel_fwd); ``serve`` over HTTP (a first frame bitwise the
+     in-process render, a cached one launching nothing, pan, zoom,
+     rotation; no pose drops a pair); ``ProgressiveSampler`` x4 jittered
+     at the smallest budget whose padded binning drops nothing, bitwise
+     ``render_progressive``; the oracle against the fused path at 4096 and
+     4097 splats at 1920x1088 and 640x384 (``auto`` takes each side of the
+     threshold); ``peel_fwd.cu``'s registers at K = 16 and 64 from the
+     build's report. Its launches join the kernels line.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -2451,23 +2470,26 @@ def phase15_serve(g, dev):
     cam = camera(FULL_RES, dev)
     peel_keys_cuda.launches = 0
     with torch.inference_mode():
-        s = ProgressiveSampler(g, cam, depth=DEPTH, jitter=True,
+        s = ProgressiveSampler(g, cam, depth=DEPTH, renderer="keys",
+                               jitter=True,
                                generator=torch.Generator().manual_seed(3),
                                **SERVE_KW)
         for _ in range(PROGRESSIVE_SAMPLES):
             s.sample()
         launches += peel_keys_cuda.launches
         ref = render_progressive(g, cam, depth=DEPTH,
-                                 samples=PROGRESSIVE_SAMPLES, jitter=True,
+                                 samples=PROGRESSIVE_SAMPLES, renderer="keys",
+                                 jitter=True,
                                  generator=torch.Generator().manual_seed(3),
                                  **SERVE_KW)
         jitter_equal = torch.equal(s.display(), ref)
         peel_keys_cuda.launches = 0
-        s = ProgressiveSampler(g, cam, depth=DEPTH, **SERVE_KW)
+        s = ProgressiveSampler(g, cam, depth=DEPTH, renderer="keys",
+                               **SERVE_KW)
         for _ in range(PROGRESSIVE_SAMPLES):
             s.sample()
         launches += peel_keys_cuda.launches
-        one = render(g, cam, depth=DEPTH, **SERVE_KW)
+        one = render(g, cam, depth=DEPTH, renderer="keys", **SERVE_KW)
         plain_equal = torch.equal(s.display(), one)
     check(jitter_equal, "ProgressiveSampler with jitter differs from "
           "render_progressive with a generator of the same seed")
@@ -3627,6 +3649,573 @@ def phase19_deep(g100k, g1m, dev):
     return launches, errs
 
 
+def fused_frame(g, cam, depth, kw):
+    """One banded frame of the default path as ``render_tiled_pallas`` runs
+    it, its stages launched here and timed with CUDA events: features (the
+    packed table and the pixel table), binning (candidates padded to a
+    multiple of CHUNK), then each band's ``peel_fwd`` passes, each above
+    the last winner of the pass before, chained as ``peel_fused`` chains
+    them. Returns the image, ms by stage, each pass's ms summed over the
+    bands, each band's ms, and the inputs of the band with the most live
+    pairs."""
+    import torch
+    import torch.nn.functional as F
+
+    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, pass_depths,
+                                         peel_fused_cuda)
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             _tiles_to_image, pack_features,
+                                             precompute_features)
+
+    def mark():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    w, h = cam.buf_size
+    e0 = mark()
+    packed = pack_features(precompute_features(g, cam))
+    pix = _tile_pixel_features(cam, TILE)
+    e1 = mark()
+    b = tile_candidates(g, cam, tile=TILE,
+                        max_candidates=kw["max_candidates"],
+                        max_global=kw["max_global"],
+                        narrow=kw["bin_narrow"])
+    cand = F.pad(b.candidates, (0, (-b.candidates.shape[1]) % CHUNK),
+                 value=-1)
+    e2 = mark()
+    t, p = cand.shape[0], pix.shape[1]
+    nb = -(-t // kw["tile_bands"])
+    depths = pass_depths(depth)
+    rads, passes = [], []
+    for s in range(0, t, nb):
+        cb, qb = cand[s:s + nb], pix[s:s + nb]
+        rad = trans = floor = None
+        evs = []
+        for j, k in enumerate(depths):
+            a = mark()
+            last = (torch.empty((cb.shape[0], p), dtype=torch.float32,
+                                device=cand.device)
+                    if j + 1 < len(depths) else None)
+            r, tr, sl = peel_fused_cuda(packed, cb, _counts(cb), qb, k,
+                                        floor=floor, out_last_t1=last)
+            if rad is None:
+                rad, trans = r, tr
+            else:
+                rad = rad + trans[:, None] * r
+                trans = trans * tr
+            floor = None if last is None else (last, sl[:, -1].contiguous())
+            evs.append((a, mark()))
+        rads.append(rad)
+        passes.append(evs)
+    img = _tiles_to_image(torch.cat(rads).transpose(1, 2), b.n_tiles_x,
+                          b.n_tiles_y, TILE)[:w, :h]
+    end = mark()
+    end.synchronize()
+    per_pass = [sum(evs[i][0].elapsed_time(evs[i][1]) for evs in passes)
+                for i in range(len(depths))]
+    per_band = [sum(a.elapsed_time(e) for a, e in evs) for evs in passes]
+    stages = {"features": e0.elapsed_time(e1), "binning": e1.elapsed_time(e2),
+              "peel_fwd": sum(per_pass), "total": e0.elapsed_time(end)}
+    live = [int((cand[s:s + nb] >= 0).sum()) for s in range(0, t, nb)]
+    s = nb * live.index(max(live))
+    return img, stages, per_pass, per_band, dict(
+        packed=packed, cand=cand[s:s + nb], pix=pix[s:s + nb],
+        dropped=int(b.local_overflow) + int(b.global_overflow))
+
+
+def dropped_pairs(g, cam, depth, kw, pixel_offset=None):
+    """The binning counters of a default-path frame (``render(...,
+    with_stats=True)``): (pairs dropped from full tiles, splats dropped
+    from the full global list)."""
+    import torch
+
+    from rtgs_tpu_torch.render.api import render
+
+    with torch.inference_mode():
+        _, stats = render(g, cam, depth=depth, with_stats=True,
+                          pixel_offset=pixel_offset, **kw)
+    return int(stats["local_overflow"]), int(stats["global_overflow"])
+
+
+def jitter_budgets(g, cam):
+    """The smallest budgets, from SERVE_KW's up (the candidate budget in
+    steps of CHUNK, the global list's in steps of 64), at which the
+    jittered binning (boxes padded by 0.5 px) drops nothing; returns them
+    and the counters of each budget tried."""
+    from rtgs_tpu_torch.ops.peel import CHUNK
+
+    kw, tried = dict(SERVE_KW), []
+    for _ in range(8):
+        local, glob = dropped_pairs(g, cam, DEPTH, kw, pixel_offset=(0, 0))
+        tried.append(f"{kw['max_candidates']} / {kw['max_global']}: "
+                     f"{local} local, {glob} global")
+        if local + glob == 0:
+            return kw, tried
+        kw = dict(kw, max_candidates=kw["max_candidates"] + CHUNK * (local > 0),
+                  max_global=kw["max_global"] + 64 * (glob > 0))
+    raise SmokeFailure(f"the jittered binning drops pairs at every budget "
+                       f"tried: {tried}")
+
+
+def phase20_cli(g1m, tmp):
+    """``render`` and a 3-frame ``orbit`` at depth 16, ``render`` at 64 and
+    128, and ``bench`` at 16, through the CLI with no ``--renderer``:
+    ``peel_fwd`` once a band and pass, the keys kernel never. Returns
+    ``peel_fwd``'s launches and bench's printed line."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+    from rtgs_tpu_torch.ops.peel import (pass_depths, peel_fused_cuda,
+                                         peel_keys_cuda)
+    from rtgs_tpu_torch.scene import save_scene
+
+    ply = tmp / "scene_1m.ply"
+    save_scene(ply, g1m)
+    w, h = FULL_RES
+
+    def argv(depth):
+        return ["-o", str(ply), "-r", f"{w},{h}", "-d", str(depth),
+                "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+                "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+                "--max-candidates", "3584", "--tile-bands", str(BANDS),
+                "--bin-narrow", "4", "--device", "cuda"]
+
+    bench_iters = 5
+    runs = [("render", DEPTH, 1, ["--output", str(tmp / "f16.npy")]),
+            ("orbit", DEPTH, ORBIT_FRAMES,
+             ["--frames", str(ORBIT_FRAMES), "--output", str(tmp / "orb")])]
+    runs += [("render", d, 1, ["--output", str(tmp / f"f{d}.npy")])
+             for d in FRAME_DEPTHS if d != DEPTH]
+    runs.append(("bench", DEPTH, 1 + bench_iters + max(bench_iters // 2, 3),
+                 ["--iters", str(bench_iters)]))
+    launches, bench_line = 0, ""
+    for cmd, depth, frames, extra in runs:
+        peel_fused_cuda.launches = peel_keys_cuda.launches = 0
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli([cmd, *argv(depth), *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
+        launches += n
+        want = BANDS * len(pass_depths(depth)) * frames
+        line = printed.getvalue().strip().splitlines()[-1]
+        say(20, f"CLI {cmd} -d {depth} (no --renderer), 1M@{w}x{h}, {BANDS} "
+                f"bands: {wall:.2f} s wall (scene load included); peel_fwd "
+                f"launches {n} (expected {want}: {frames} frames x {BANDS} "
+                f"bands x {len(pass_depths(depth))} passes), keys launches "
+                f"{keys}; printed '{line}'")
+        check(n == want and keys == 0, f"CLI {cmd} -d {depth}: peel_fwd "
+              f"launched {n} times (expected {want}), keys {keys} (expected "
+              f"0)")
+        if cmd == "bench":
+            m = BENCH_LINE.search(line)
+            check(m is not None and float(m.group(1)) > 0,
+                  f"bench printed {line!r}")
+            bench_line = line
+    saved = [tmp / f"f{d}.npy" for d in FRAME_DEPTHS]
+    saved += sorted((tmp / "orb").glob("frame_*"))
+    check(len(saved) == len(FRAME_DEPTHS) + ORBIT_FRAMES,
+          f"phase 20 CLI: saved {[p.name for p in saved]}")
+    for p in saved:
+        if p.suffix == ".npy":
+            img8 = np.load(p)
+            check(img8.shape == (h, w, 3) and img8.max() > 0,
+                  f"phase 20 CLI {p.name}: shape {img8.shape}, max "
+                  f"{img8.max()}")
+    return launches, bench_line
+
+
+def phase20_frames(g1m, dev):
+    """The default frame in process at FRAME_DEPTHS against the keys path's
+    in the same call: frame ms and rays/s, the stage split, peak memory,
+    dropped pairs, the device's busy share at depth 16; at 16 the frame
+    against the keys frame and the fused twin's banded frame; and one
+    band's peel_fwd kernel against its twin (winners, radiance and
+    transmittance bitwise), timed, with its bound. Returns the band's
+    numbers for the kernels line."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (_counts, peel_fused_cuda,
+                                         peel_fused_torch)
+    from rtgs_tpu_torch.render.api import render, resolve_renderer
+    from rtgs_tpu_torch.render.tiled import render_tiled_pallas
+
+    w, h = FULL_RES
+    cam = camera(FULL_RES, dev)
+    kw = SERVE_KW
+    check(resolve_renderer("auto", g1m.num, g1m.device) == "pallas",
+          "auto does not resolve to pallas for the 1M scene on the card")
+    band = None
+    for depth in FRAME_DEPTHS:
+        with torch.inference_mode():
+            def default():
+                return render(g1m, cam, depth=depth, **kw)
+
+            def keys():
+                return render(g1m, cam, depth=depth, renderer="keys", **kw)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            img = default()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ms = host_ms(default)
+            torch.cuda.reset_peak_memory_stats()
+            ref = keys()
+            torch.cuda.synchronize()
+            peak_k = torch.cuda.max_memory_allocated() / 2**30
+            ms_k = host_ms(keys)
+            runs = [fused_frame(g1m, cam, depth, kw) for _ in range(3)]
+            check(all(torch.equal(r[0], img) for r in runs),
+                  f"depth {depth}: the frame with its passes launched here "
+                  f"differs from render(auto)")
+            dropped = runs[0][4]["dropped"]
+            check(dropped == 0 and sum(dropped_pairs(g1m, cam, depth,
+                                                     kw)) == 0,
+                  f"depth {depth}: the default frame dropped {dropped} pairs")
+            check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.05,
+                  f"depth {depth}: the default frame is not finite or black")
+            q, worst = compare_images(f"depth {depth}: default vs keys", img,
+                                      ref)
+            med = {k: statistics.median(r[1][k] for r in runs)
+                   for k in runs[0][1]}
+            per_pass = [statistics.median(r[2][i] for r in runs)
+                        for i in range(len(runs[0][2]))]
+            per_band = [statistics.median(r[3][i] for r in runs)
+                        for i in range(len(runs[0][3]))]
+            busy = ""
+            if depth == DEPTH:
+                dev_ms, kernels = device_busy(default)
+                busy = (f"; device busy {dev_ms:.2f} ms of {ms:.2f} = "
+                        f"{dev_ms / ms:.1%} ({kernels} device kernels a "
+                        f"frame, torch.profiler)")
+                band = runs[0][4]
+        say(20, f"default frame 1M@{w}x{h} at depth {depth} (pallas, "
+                f"{BANDS} bands): {ms:.2f} ms (host clock with sync, median "
+                f"of 5) = {w * h / ms * 1e3 / 1e6:.2f} M rays/s, peak "
+                f"{peak:.2f} GiB, dropped pairs {dropped}; stages (CUDA "
+                f"events, median of 3): "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+                + "; peel_fwd by pass (summed over bands) "
+                + ", ".join(f"{m:.2f}" for m in per_pass)
+                + " ms, by band (passes summed) "
+                + ", ".join(f"{m:.2f}" for m in per_band)
+                + f" ms{busy}. Keys path, same frame: {ms_k:.2f} ms = "
+                f"{w * h / ms_k * 1e3 / 1e6:.2f} M rays/s, peak "
+                f"{peak_k:.2f} GiB; {ms_k / ms:.2f}x the default frame's "
+                f"time; images {IMG_Q}-quantile |diff| {q:.2e}, max "
+                f"{worst:.2e} (limits {IMG_QTOL:g}, {IMG_MAXTOL:g})")
+        del img, ref, runs
+
+    # The whole frame at depth 16 through the fused twin, in bands of
+    # PLAIN_BAND tiles (its float64 fields would not fit at once).
+    t = band["packed"].shape[0]
+    with torch.inference_mode():
+        img = render(g1m, cam, depth=DEPTH, **kw)
+        ntiles = -(-w // TILE[0]) * -(-h // TILE[1])
+        twin = render_tiled_pallas(
+            g1m, cam, depth=DEPTH, tile=TILE, peel_impl="torch",
+            **dict(kw, tile_bands=-(-ntiles // PLAIN_BAND)))
+    q, worst = compare_images("depth 16: default vs the fused twin", img,
+                              twin)
+    same = torch.equal(img, twin)
+    del img, twin
+
+    # One band (the busiest) through the kernel and its twin at depth 16.
+    packed, cand, pix = band["packed"], band["cand"], band["pix"]
+    counts = _counts(cand)
+
+    def kernel():
+        return peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+
+    def plain():
+        return plain_in_bands(
+            lambda c, x: peel_fused_torch(packed, c, x, DEPTH),
+            cand.shape[0], cand, pix)
+
+    with torch.inference_mode():
+        rad_k, tr_k, sl_k = kernel()
+        rad_p, tr_p, sl_p = plain()
+        torch.cuda.synchronize()
+        check(torch.equal(sl_k, sl_p), f"peel_fwd at a full-width band: "
+              f"winners differ from the twin's at "
+              f"{int((sl_k != sl_p).sum())} entries")
+        err = max(float((rad_k - rad_p).abs().max()),
+                  float((tr_k - tr_p).abs().max()))
+        check(err == 0.0, f"peel_fwd at a full-width band: radiance or "
+              f"transmittance differs from the twin's by {err}")
+        shape = launch_shape(packed, cand, pix, sl_k)
+        ms, ms_plain, ms_busy = (time_ms(kernel), time_ms(plain, reps=3),
+                                 busy_ms(kernel))
+        k64 = busy_ms(lambda: peel_fused_cuda(packed, cand, counts, pix, 64))
+    bound_ms, bound_by = peel_bound("peel_fwd", shape)
+    say(20, f"depth 16 frame against the fused twin's (in "
+            f"{-(-ntiles // PLAIN_BAND)} bands of {PLAIN_BAND} tiles): "
+            f"{'bitwise equal' if same else 'not bitwise'}, {IMG_Q}-quantile "
+            f"|diff| {q:.2e}, max {worst:.2e}")
+    say(20, f"peel_fwd at the busiest full-width band (T={shape['t']} "
+            f"C={shape['c']} P={shape['p']} K={DEPTH}, {shape['live']} live "
+            f"pairs, {shape['winners']} winners): winners, radiance and "
+            f"transmittance bitwise the twin's; kernel {ms:.3f} ms around "
+            f"the wrapper, {ms_busy:.3f} ms busy (device), twin "
+            f"{ms_plain:.1f} ms (CUDA events); bound {bound_ms:.4f} ms "
+            f"({bound_by}) = {bound_ms / ms_busy:.1%} of the busy time; at "
+            f"K=64 {k64:.3f} ms busy; of {t} table rows")
+    return dict(err=err, ms=ms, plain_ms=ms_plain, shape=shape)
+
+
+def phase20_serve(g1m, dev):
+    """``serve`` over HTTP with its default renderer: a first frame (one
+    peel_fwd launch a band, none of the keys kernel, bitwise the in-process
+    ``render``), a cached one (no launch at all), pan, zoom and rotation,
+    each pose's binning dropping nothing; then ``ProgressiveSampler`` x4
+    with jitter at the smallest budgets whose padded binning drops nothing
+    (:func:`jitter_budgets`). Returns peel_fwd's launches."""
+    import argparse
+    import threading
+
+    import torch
+
+    from rtgs_tpu_torch.camera import image_to_display
+    from rtgs_tpu_torch.ops.peel import peel_fused_cuda, peel_keys_cuda
+    from rtgs_tpu_torch.render.api import (ProgressiveSampler, render,
+                                           render_progressive)
+    from rtgs_tpu_torch.utils.image import decode_png, to_uint8
+    from rtgs_tpu_torch.viewer.server import make_server
+
+    w, h = FULL_RES
+    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEPTH,
+                              renderer="auto", radius=POSE["r"], port=0)
+    server, session = make_server(g1m, args, render_kwargs=SERVE_KW)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    launches = 0
+    try:
+        def frame(label):
+            nonlocal launches
+            peel_fused_cuda.launches = peel_keys_cuda.launches = 0
+            session.timings = {}
+            t0 = time.perf_counter()
+            png = http_get(port, "/frame")
+            total = (time.perf_counter() - t0) * 1e3
+            n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
+            launches += n
+            t = {k: v * 1e3 for k, v in session.timings.items()}
+            parts = (f"render {t['render']:.1f} + PNG {t['encode']:.1f} + "
+                     f"transfer and HTTP "
+                     f"{total - t['render'] - t['encode']:.1f} ms"
+                     if t else "no render (cached)")
+            dropped = sum(dropped_pairs(g1m, session.camera(), DEPTH,
+                                        SERVE_KW))
+            say(20, f"serve GET /frame ({label}): {total:.1f} ms = {parts}; "
+                    f"peel_fwd launches {n}, keys {keys}; the pose's "
+                    f"binning drops {dropped} pairs")
+            check(keys == 0 and dropped == 0, f"serve ({label}): {keys} keys "
+                  f"launches, {dropped} dropped pairs")
+            return png, n
+
+        png, n = frame("first pose")
+        check(n == BANDS, f"serve: a fresh frame launched peel_fwd {n} "
+              f"times, expected {BANDS}")
+        with torch.inference_mode():
+            ref = render(g1m, session.camera(), depth=DEPTH, **SERVE_KW)
+            ref8 = to_uint8(image_to_display(ref).cpu().numpy())
+        got = decode_png(png)
+        check(got.shape == (h, w, 3) and bool((got == ref8).all()),
+              "serve: the PNG frame is not bitwise the in-process render")
+        again, n = frame("same pose, cached")
+        check(n == 0 and again == png, f"serve: a cached frame launched "
+              f"peel_fwd {n} times or changed")
+        seen = png
+        for ev in SERVE_EVENTS:
+            check(http_post(port, ev) == 204, f"serve: /event {ev} refused")
+            nxt, n = frame(f"after {ev['type']}")
+            check(n == BANDS and nxt != seen, f"serve: {ev['type']} gave an "
+                  f"unchanged frame or {n} peel_fwd launches")
+            seen = nxt
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "serve: the server thread did not stop")
+
+    # Jitter pads every box by 0.5 px, so its tiles hold more pairs than
+    # the centred frame's: the sampler runs at the smallest budgets that
+    # drop nothing (a sample that drops pairs is another image).
+    cam = camera(FULL_RES, dev)
+    kw, tried = jitter_budgets(g1m, cam)
+    peel_fused_cuda.launches = peel_keys_cuda.launches = 0
+    with torch.inference_mode():
+        s = ProgressiveSampler(g1m, cam, depth=DEPTH, jitter=True,
+                               generator=torch.Generator().manual_seed(3),
+                               **kw)
+        t0 = time.perf_counter()
+        for _ in range(PROGRESSIVE_SAMPLES):
+            s.sample()
+        shown = s.display()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
+        launches += n
+        ref = render_progressive(g1m, cam, depth=DEPTH,
+                                 samples=PROGRESSIVE_SAMPLES, jitter=True,
+                                 generator=torch.Generator().manual_seed(3),
+                                 **kw)
+        same = torch.equal(shown, ref)
+    check(n == BANDS * PROGRESSIVE_SAMPLES and keys == 0,
+          f"ProgressiveSampler: peel_fwd launched {n} times (expected "
+          f"{BANDS * PROGRESSIVE_SAMPLES}), keys {keys}")
+    check(same, "ProgressiveSampler with jitter differs from "
+          "render_progressive with a generator of the same seed")
+    say(20, f"ProgressiveSampler x{PROGRESSIVE_SAMPLES} jittered at 1M@"
+            f"{w}x{h}: the padded binning's drops by budget (candidates / "
+            f"global list) {'; '.join(tried)}, so it runs at "
+            f"{kw['max_candidates']} / {kw['max_global']}: {wall:.1f} ms for "
+            f"the samples and the display; peel_fwd launches {n}, keys "
+            f"{keys}; bitwise render_progressive of the same seed")
+    return launches
+
+
+def oracle_pixel_lists(g, cam, kw, img_o, img_f):
+    """The pixel where the oracle's and the fused path's images differ
+    most, and the first DEPTH + 1 hits of its ray as each lists them: the
+    oracle's (id, f32 t1, α) from ``topk_hits``, the tile path's (id, slot,
+    t1 rounded once from float64, α) from ``intersect_candidates``.
+    Returns that text and whether both composite the same DEPTH splats."""
+    import torch
+
+    from rtgs_tpu_torch.camera import generate_ray_grid
+    from rtgs_tpu_torch.rays import Rays
+    from rtgs_tpu_torch.render.binning import tile_candidates
+    from rtgs_tpu_torch.render.oracle import topk_hits
+    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
+                                             intersect_candidates,
+                                             precompute_features)
+
+    diff = (img_o - img_f).abs().amax(-1)                  # (W, H)
+    x, y = divmod(int(diff.argmax()), diff.shape[1])
+    rays = generate_ray_grid(cam)
+    ray = Rays(*(f[x, y][None] for f in rays))
+    t1_o, id_o, a_o, _ = topk_hits(g, ray, DEPTH + 1, with_index=True)
+    tw, th = TILE
+    nty = -(-cam.buf_size[1] // th)
+    t, p = (x // tw) * nty + y // th, (x % tw) * th + y % th
+    b = tile_candidates(g, cam, tile=TILE,
+                        max_candidates=kw["max_candidates"],
+                        max_global=kw["max_global"])
+    cand = b.candidates[t:t + 1]
+    pix = _tile_pixel_features(cam, TILE)[t:t + 1]
+    t1, alpha, _ = intersect_candidates(precompute_features(g, cam), cand,
+                                        pix[..., :3])
+    t1_s, order = torch.sort(t1[0, p], stable=True)
+    rows = []
+    for k in range(DEPTH + 1):
+        rows.append(
+            f"{k}: oracle ({int(id_o[0, k])}, {float(t1_o[0, k]):.9g}, "
+            f"{float(a_o[0, k]):.6g}) fused ({int(cand[0, order[k]])} in "
+            f"slot {int(order[k])}, {float(t1_s[k]):.9g}, "
+            f"{float(alpha[0, p, order[k]]):.6g})")
+    hit_o = torch.isfinite(t1_o[0, :DEPTH])
+    hit_f = torch.isfinite(t1_s[:DEPTH])
+    same = (set(id_o[0, :DEPTH][hit_o].tolist())
+            == set(cand[0, order[:DEPTH]][hit_f].tolist()))
+    return (f"pixel ({x}, {y}), |diff| {float(diff[x, y]):.3e}: "
+            + "; ".join(rows)), same
+
+
+def phase20_threshold(dev):
+    """The oracle against the fused path at the JAX threshold
+    (_ORACLE_MAX_N): the 4096-splat scene of phase 10 and the same scene
+    with a 4097th splat far outside the view, at 1920x1088 and 640x384.
+    ``auto`` must take the oracle at 4096 and ``peel_fwd`` at 4097; both
+    renderers are timed on both scenes, and the images held to each other
+    by the image statistic (the worst pixel may exceed its max only where
+    both composite the same splats in another order)."""
+    import torch
+
+    from rtgs_tpu_torch import gaussians as G
+    from rtgs_tpu_torch.ops.peel import peel_fused_cuda
+    from rtgs_tpu_torch.render.api import _ORACLE_MAX_N, render
+    from rtgs_tpu_torch.scene import random_scene
+
+    g4k = random_scene(ORACLE_N, device=dev, **SCENE_4K)
+    check(g4k.num == _ORACLE_MAX_N, "the oracle scene is not at the "
+          "threshold")
+    far = {f: getattr(g4k, f) for f in G.FIELDS}
+    far = G.Gaussians(**{f: torch.cat([v, v[:1]]) for f, v in far.items()})
+    far.means[-1] += 100.0
+    # Budgets of the whole scene, as phase 10's: its wide splats overflow
+    # the default global list, and the comparison needs nothing dropped.
+    kw = dict(max_candidates=ORACLE_N + 1, max_global=ORACLE_N + 1)
+    for res in (FULL_RES, ORACLE_RES):
+        cam = camera(res, dev)
+        out = {}
+        with torch.inference_mode():
+            for label, g in (("4096", g4k), ("4097", far)):
+                peel_fused_cuda.launches = 0
+                img = render(g, cam, depth=DEPTH, **kw)
+                out[label, "auto"] = (img, peel_fused_cuda.launches)
+                for name in ("oracle", "pallas"):
+                    out[label, name] = host_ms(
+                        lambda: render(g, cam, depth=DEPTH, renderer=name,
+                                       **kw), reps=3)
+            check(out["4096", "auto"][1] == 0 and out["4097", "auto"][1] == 1,
+                  f"auto at {res}: peel_fwd launched "
+                  f"{out['4096', 'auto'][1]} / {out['4097', 'auto'][1]} "
+                  f"times at 4096 / 4097 splats (expected 0 / 1)")
+            dropped = sum(dropped_pairs(far, cam, DEPTH, kw))
+            check(dropped == 0, f"threshold {res}: {dropped} dropped")
+            img_o, img_f = out["4096", "auto"][0], out["4097", "auto"][0]
+            diff = (img_o - img_f).abs()
+            q, worst = quantile(diff, IMG_Q), float(diff.max())
+            lists, same = oracle_pixel_lists(g4k, cam, kw, img_o, img_f)
+            # The oracle's t1 is the reference's f32 chain, the fused
+            # path's float64 rounded once: two hits within the f32 chain's
+            # error may composite in either order (ROADMAP.md §3). So the
+            # worst pixel must hold the same splats when it exceeds the
+            # image statistic's max.
+            check(q < IMG_QTOL and (worst < IMG_MAXTOL or same),
+                  f"oracle at 4096 vs peel_fwd at 4097, {res}: {IMG_Q}-"
+                  f"quantile |diff| {q:.2e} (limit {IMG_QTOL:g}), max "
+                  f"{worst:.2e} (limit {IMG_MAXTOL:g} unless the worst "
+                  f"pixel composites the same splats: {same}); {lists}")
+        say(20, f"threshold at {res[0]}x{res[1]} (host clock with sync, "
+                f"median of 3): oracle {out['4096', 'oracle']:.2f} ms at "
+                f"4096 splats, {out['4097', 'oracle']:.2f} at 4097; fused "
+                f"(pallas) {out['4096', 'pallas']:.2f} at 4096, "
+                f"{out['4097', 'pallas']:.2f} at 4097; auto took the oracle "
+                f"at 4096 and peel_fwd at 4097; their images {IMG_Q}-"
+                f"quantile |diff| {q:.2e}, max {worst:.2e}; the worst "
+                f"pixel's hits (id, t1, alpha) a layer, the same splats on "
+                f"both sides: {same}: {lists}")
+        del out
+
+
+def phase20_default(g1m, dev):
+    """Phase 20: the default path, with no renderer named. Returns
+    peel_fwd's launches on it and its full-width band's numbers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, bench = phase20_cli(g1m, pathlib.Path(tmp))
+    band = phase20_frames(g1m, dev)
+    launches += phase20_serve(g1m, dev)
+    phase20_threshold(dev)
+    from rtgs_tpu_torch.ops import _build
+
+    log = _build.library_path().with_suffix(".log")
+    regs = [e for e in ptxas_summary(log.read_text()).split(" | ")
+            if e.startswith(("peel_fwd_kernel K=16:", "peel_fwd_kernel K=64:"))]
+    say(20, f"peel_fwd.cu registers from the build: {' | '.join(regs)}")
+    say(20, f"the default path launched peel_fwd {launches} times and the "
+            f"keys kernel never; bench printed '{bench}'")
+    return launches, band
+
+
 def run():
     if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
         raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
@@ -3715,6 +4304,8 @@ def run():
     fwd_launches += deep["peel_fused_cuda"]
     bwd_launches += deep["peel_fused_bwd_cuda"]
     seg_launches += deep["segment_rows_cuda"]
+    default_launches, band = phase20_default(g1m, dev)
+    fwd_launches += default_launches
     del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
@@ -3756,8 +4347,8 @@ def run():
              case_100k["ms"], case_100k["ms_twin"], case_100k["shape"]),
         peel("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
              max(fused_fit["fwd_err"], fused_1m["fwd_err"],
-                 deep_err["peel_fwd"]),
-             fused_fit["ms"], fused_fit["ms_plain"], fused_fit["shape"]),
+                 deep_err["peel_fwd"], band["err"]),
+             band["ms"], band["plain_ms"], band["shape"]),
         peel("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
              max(fused_fit["bwd_err"], fused_1m["bwd_err"],
                  deep_err["peel_bwd"]),
@@ -3807,15 +4398,17 @@ def run():
                 f"{k['bound_ms'] / k['ms']:.1%} of the card's peak; "
                 f"launches on its main path {k['launches']}{lib}")
     say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
-           f"{fit['step_ms']:.2f} ms; peel_fwd/peel_bwd and "
-           f"peel_topk_fwd/peel_topk_bwd ms, plain_ms and bound_ms below "
+           f"{fit['step_ms']:.2f} ms; peel_fwd's ms, plain_ms and "
+           f"bound_ms below are the busiest band of phase 20's default "
+           f"1M@1920x1088 frame; peel_bwd and peel_topk_fwd/peel_topk_bwd's "
            f"are 100k@{w}x{h} (the backwards' their stage 1 alone), "
            f"segment_rows' the fused backward's pair rows there (launches: "
            f"the fused fit's, the keys fit's and phase 16's ring gradient and "
            f"sharded steps; {seg_bench} more in phase "
            f"18's 1M forward+backward), keys_sid's 100k@640x384; the probe "
            f"families' are sums over their variants; launches include "
-           f"phase 19's deep main path ({deep})")
+           f"phase 19's deep main path ({deep}) and phase 20's default "
+           f"path ({default_launches} of peel_fwd)")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ Flags mirror ``python -m rtgs_tpu`` (``-o/--open``, ``-r/--res W,H``,
 ``-f/--fov``, ``-s/--sample``, ``-d/--depth``, ``--scale``, ``--mesh``,
 ...), plus ``--device`` (default ``cuda``): with no CUDA device the command
 fails instead of running on the CPU; pass ``--device cpu`` for that.
-``render`` and ``orbit`` run under ``torch.inference_mode()``; ``fit``
-trains through the fused-payload renderer (``--renderer keys|oracle|tiled``
-through those). With ``--mesh rays,prims`` other than ``1,1``, ``render``,
-``orbit`` and ``bench`` render through the ring
+``render`` and ``orbit`` run under ``torch.inference_mode()``. The default
+``--renderer auto`` is the JAX package's rule, for rendering and ``fit``
+alike: the oracle for scenes of at most 4096 splats, else the fused-payload
+renderer (``pallas``) on a CUDA device and ``tiled`` on the CPU. With
+``--mesh rays,prims`` other than ``1,1``, ``render``, ``orbit`` and
+``bench`` render through the ring
 (:func:`rtgs_tpu_torch.parallel.render.render_tiled_sharded`) in one
 process per cell, started by the port's launcher or with
 ``--coordinator``/``--num-processes``/``--process-id``; rank 0 alone
@@ -81,12 +83,14 @@ def _add_common_flags(p: argparse.ArgumentParser):
     p.add_argument("--renderer",
                    choices=["auto", "oracle", "tiled", "pallas", "keys"],
                    default="auto",
-                   help="render/orbit: auto and keys render the keys path, "
-                        "pallas the fused-payload path, oracle brute force, "
-                        "tiled the per-tile argmin peel. fit: auto and "
-                        "pallas train through the fused-payload path, keys "
-                        "through the keys path, oracle and tiled through "
-                        "autograd.")
+                   help="auto: the oracle for scenes of at most 4096 "
+                        "splats, else pallas on a CUDA device and tiled on "
+                        "the CPU (the JAX package's rule). pallas: the "
+                        "fused-payload path; keys: the keys path; oracle: "
+                        "brute force; tiled: the per-tile argmin peel. fit "
+                        "trains through the same choice (pallas and keys "
+                        "through their hand-written backwards, oracle and "
+                        "tiled through autograd).")
     p.add_argument("--max-candidates", type=int, default=None,
                    help="Per-tile candidate budget (default 512; raise "
                         "until the overflow counters read 0).")
@@ -276,10 +280,8 @@ def cmd_fit(args):
     from rtgs_tpu_torch.train.datasets import (load_transforms_dataset,
                                                synthetic_orbit_dataset)
     from rtgs_tpu_torch.train.solver import (Solver, init_params,
-                                             init_params_from_points,
-                                             training_renderer)
+                                             init_params_from_points)
 
-    renderer = training_renderer(args.renderer)
     device = _device(args)
     g = _load(args, device)
     kw = _render_kwargs(args)
@@ -289,7 +291,7 @@ def cmd_fit(args):
     else:
         ds = synthetic_orbit_dataset(
             g, args.views, args.res, fov=args.fov, radius=args.radius,
-            depth=args.depth, renderer=renderer, **kw)
+            depth=args.depth, renderer=args.renderer, **kw)
 
     if args.from_scratch:
         # Random subsample of the input means as the seed point cloud.
@@ -307,7 +309,8 @@ def cmd_fit(args):
                       checkpoint_every=args.checkpoint_every)
     solver = Solver(params=params, mask=mask, cfg=cfg,
                     cameras=list(ds.cameras), targets=list(ds.images),
-                    depth=args.depth, renderer=renderer, render_kwargs=kw)
+                    depth=args.depth, renderer=args.renderer,
+                    render_kwargs=kw)
     metrics = solver.train(num_steps=args.steps)
     out = args.output or (args.open.stem + "_fit.ply")
     save_scene(out, solver.scene())

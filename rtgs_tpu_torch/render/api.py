@@ -11,9 +11,11 @@
     hand-written backward (what training uses by default).
   * ``keys`` — the keys path
     (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`).
-  * ``auto`` — the keys path, on every device and scene size. (The JAX
-    ``auto`` renders scenes of at most 4096 splats through the oracle, and
-    larger ones through ``pallas`` on its chip and ``tiled`` elsewhere.)
+  * ``auto`` — the JAX package's rule (:func:`resolve_renderer`): the
+    oracle for scenes of at most ``_ORACLE_MAX_N`` (4096) splats; larger
+    ones through ``pallas`` when the scene lies on a CUDA device (the
+    fused kernel, ``ops/csrc/peel_fwd.cu``) and through ``tiled``
+    elsewhere. Training resolves ``auto`` by the same rule.
 
 The tiled-only knobs (candidate budgets, banding, binning) mean nothing to
 the oracle, and ``render_tiled`` has no banding: they are dropped rather
@@ -29,12 +31,33 @@ from rtgs_tpu_torch.camera import Camera
 
 _TILED_ONLY = ("max_candidates", "max_global", "tile_bands",
                "max_tiles_local", "tile", "bin_narrow")
+# Below this many Gaussians brute force is both exact and faster than
+# binning overhead (the JAX package's threshold, under its name).
+_ORACLE_MAX_N = 4096
+RENDERERS = ("oracle", "tiled", "pallas", "keys")
+
+
+def resolve_renderer(renderer: str, num: int, device) -> str:
+    """The renderer that ``renderer`` names for a scene of ``num`` splats
+    on ``device`` (the scene's own device, never what the machine has):
+    ``auto`` is ``oracle`` at ``num <= _ORACLE_MAX_N``, else ``pallas`` on
+    a CUDA device and ``tiled`` elsewhere, as the JAX ``render`` resolves
+    it on its chip and off it; the names in ``RENDERERS`` stand for
+    themselves; anything else raises ``ValueError``."""
+    if renderer == "auto":
+        if num <= _ORACLE_MAX_N:
+            return "oracle"
+        return "pallas" if torch.device(device).type == "cuda" else "tiled"
+    if renderer in RENDERERS:
+        return renderer
+    raise ValueError(f"unknown renderer {renderer!r}")
 
 
 def render(g: G.Gaussians, camera: Camera, depth: int = 16,
            renderer: str = "auto", **kwargs) -> torch.Tensor:
     """Render a full frame. Returns (W, H, 3) radiance."""
-    if renderer in ("auto", "keys"):
+    renderer = resolve_renderer(renderer, g.num, g.device)
+    if renderer == "keys":
         from rtgs_tpu_torch.render.tiled import render_tiled_keys
 
         return render_tiled_keys(g, camera, depth=depth, **kwargs)
@@ -47,12 +70,10 @@ def render(g: G.Gaussians, camera: Camera, depth: int = 16,
 
         kwargs = {k: v for k, v in kwargs.items() if k not in _TILED_ONLY}
         return render_oracle(g, camera, depth=depth, **kwargs)
-    if renderer == "tiled":
-        from rtgs_tpu_torch.render.tiled import render_tiled
+    from rtgs_tpu_torch.render.tiled import render_tiled   # "tiled"
 
-        kwargs.pop("tile_bands", None)
-        return render_tiled(g, camera, depth=depth, **kwargs)
-    raise ValueError(f"unknown renderer {renderer!r}")
+    kwargs.pop("tile_bands", None)
+    return render_tiled(g, camera, depth=depth, **kwargs)
 
 
 def render_progressive(g: G.Gaussians, camera: Camera, depth: int = 16,

@@ -3,11 +3,12 @@
   * raw (pre-activation) parameters in a :class:`SceneParams` tuple, the
     exact inverse of the loader's activations, so an optimized scene
     round-trips through ``save_scene``;
-  * a differentiable forward through the fused-payload renderer
-    (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`, whose
-    backward is the hand-written Hopper kernel on the card), through the
+  * a differentiable forward through the renderer ``auto`` resolves to
+    (:func:`training_renderer`, the rule of ``render``): the fused-payload
+    renderer (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_pallas`,
+    whose backward is the hand-written Hopper kernel on the card), the
     keys path (:func:`~rtgs_tpu_torch.render.tiled.render_tiled_keys`), or
-    through the oracle or the ``tiled`` renderer (torch autograd); Adam with the
+    the oracle or the ``tiled`` renderer (torch autograd); Adam with the
     standard per-parameter-group 3DGS learning rates as ``torch.optim.Adam``
     parameter groups;
   * adaptive density control with static capacity: clone/split/prune
@@ -39,17 +40,19 @@ from rtgs_tpu_torch.utils import quaternion as quat
 
 logger = logging.getLogger(__name__)
 
-def training_renderer(renderer: str) -> str:
-    """The renderer a training step uses: ``auto`` and ``pallas`` train
-    through the fused-payload path (what the JAX ``auto`` picks on its
-    chip); ``keys`` trains through the keys path and the hand-written
-    backward of its shading; ``oracle`` and ``tiled`` train through torch
-    autograd of their plain code, as they train through JAX autodiff."""
-    if renderer in ("auto", "pallas"):
-        return "pallas"
-    if renderer in ("keys", "oracle", "tiled"):
-        return renderer
-    raise ValueError(f"unknown renderer {renderer!r}")
+def training_renderer(renderer: str, num: int, device) -> str:
+    """The renderer a training step on a scene of ``num`` splats on
+    ``device`` uses: the one :func:`render` renders
+    (:func:`~rtgs_tpu_torch.render.api.resolve_renderer`), so ``auto`` is
+    the oracle at 4096 splats or fewer, else the fused-payload path
+    (``pallas``, its backward the hand-written kernel) on a CUDA device and
+    ``tiled`` elsewhere, as in the JAX package. ``pallas`` and ``keys``
+    train through their hand-written backwards; ``oracle`` and ``tiled``
+    through torch autograd of their plain code, as they train through JAX
+    autodiff."""
+    from rtgs_tpu_torch.render.api import resolve_renderer
+
+    return resolve_renderer(renderer, num, device)
 
 
 class SceneParams(NamedTuple):
@@ -181,14 +184,16 @@ def make_train_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
 
     Returns ``step(params, mask, camera, target) → metrics``: it renders,
     back-propagates the loss through the renderer and updates ``params`` in
-    place with ``optimizer``. ``metrics`` holds the loss and PSNR (0-d
+    place with ``optimizer``. ``renderer`` is resolved on each step's scene
+    (:func:`training_renderer`). ``metrics`` holds the loss and PSNR (0-d
     tensors) and the per-Gaussian positional gradient norms the density
     controller consumes."""
     from rtgs_tpu_torch.render.api import render
 
-    renderer = training_renderer(renderer)
     return _make_step(cfg, optimizer, lambda g, cam: render(
-        g, cam, depth=depth, renderer=renderer, **render_kwargs))
+        g, cam, depth=depth,
+        renderer=training_renderer(renderer, g.num, g.device),
+        **render_kwargs))
 
 
 def shard_params(params: SceneParams, mask: torch.Tensor, mesh):

@@ -6,7 +6,9 @@ zoom, three sliders = global scene rotation) to ``/event``; the server runs
 them through :class:`~rtgs_tpu_torch.viewer.orbit.OrbitState`, renders a
 frame through :func:`rtgs_tpu_torch.render.api.render` on the scene's
 device, and answers ``/frame`` with a PNG. A frame is rendered once per
-pose: without jitter every sample of a pose is the same image.
+pose: without jitter every sample of a pose is the same image. The default
+renderer, ``auto``, resolves as ``render`` resolves it: above 4096 splats
+on a CUDA device that is the fused kernel (``pallas``).
 
 Unlike the JAX ``serve``, the CLI's tile-path knobs (``--max-candidates``,
 ``--tile-bands``, ``--bin-narrow``) reach the renderer (``render_kwargs``),

@@ -256,3 +256,25 @@ def test_kernels_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         peel_fused(packed, cand, pix, 8, impl="cuda")
     assert peel_fused_cuda.launches == before
+
+
+@pytest.mark.cuda
+def test_render_auto_launches_the_fused_kernel(cuda):
+    """On a CUDA scene above 4096 splats ``render(renderer="auto")`` (the
+    JAX rule) launches ``peel_fwd.cu`` once a band and never the keys
+    kernel; its frame is the keys path's to the image statistic (a t1 tie
+    at the last layer may fall the other way)."""
+    from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.render.api import render
+    from rtgs_tpu_torch.render.tiled import render_tiled_keys
+
+    g, cam, _, _, _ = _frame(cuda, n=5000)
+    kw = dict(depth=16, max_candidates=1024, max_global=64)
+    fused0, keys0 = peel_fused_cuda.launches, peel_keys_cuda.launches
+    with torch.inference_mode():
+        img = render(g, cam, tile_bands=2, **kw)
+        ref = render_tiled_keys(g, cam, **kw)
+    assert peel_fused_cuda.launches == fused0 + 2
+    assert peel_keys_cuda.launches == keys0 + 1
+    diff = (img - ref).abs().cpu().numpy()
+    assert float(np.quantile(diff, 0.99)) < 5e-4 and diff.max() < 0.12

@@ -19,6 +19,7 @@ from rtgs_tpu.viewer.orbit import orbit_camera_pose
 from rtgs_tpu_torch.__main__ import main
 from rtgs_tpu_torch.bridge import camera_from_numpy, gaussians_from_numpy
 from rtgs_tpu_torch.render.api import render, render_progressive
+from rtgs_tpu_torch.render.oracle import render_oracle
 from rtgs_tpu_torch.render.tiled import render_tiled_keys
 from rtgs_tpu_torch.scene import random_scene, random_scene_arrays, save_scene
 from tests._utils import assert_images_close
@@ -70,15 +71,18 @@ def test_stats_match_jax():
 
 
 def test_render_dispatch():
+    """At 200 splats ``auto`` is the oracle (the JAX rule: at most 4096
+    splats); ``keys`` is the keys path at every size."""
     _, _, tg, tcam = _scene_and_camera(n=200, res=(32, 32))
     ref = render_tiled_keys(tg, tcam, **KW)
-    assert torch.equal(render(tg, tcam, renderer="auto", **KW), ref)
+    oracle = render_oracle(tg, tcam, depth=KW["depth"])
+    assert torch.equal(render(tg, tcam, renderer="auto", **KW), oracle)
     assert torch.equal(render(tg, tcam, renderer="keys", **KW), ref)
     # Without jitter every sample is the pixel-center render.
-    assert torch.equal(render_progressive(tg, tcam, samples=3, **KW), ref)
+    assert torch.equal(render_progressive(tg, tcam, samples=3, **KW), oracle)
     jit = render_progressive(tg, tcam, samples=2, jitter=True,
                              generator=torch.Generator().manual_seed(1), **KW)
-    assert torch.isfinite(jit).all() and not torch.equal(jit, ref)
+    assert torch.isfinite(jit).all() and not torch.equal(jit, oracle)
     for name in ("oracle", "tiled"):
         other = render(tg, tcam, renderer=name, **KW)
         assert other.shape == ref.shape and torch.isfinite(other).all()

@@ -178,7 +178,7 @@ def test_image_parity_with_golden(npz, ply, renderer):
 
 
 def test_render_dispatch_drops_knobs():
-    """render(renderer=oracle|tiled) matches the functions, with the
+    """render(renderer=oracle|tiled|auto) matches the functions, with the
     tiled-only knobs dropped for the oracle and tile_bands for tiled."""
     _, _, tg, tcam = _scene_and_camera(n=200, res=(32, 32))
     knobs = dict(max_candidates=640, max_global=64, tile_bands=2,
@@ -188,9 +188,10 @@ def test_render_dispatch_drops_knobs():
     kw = {k: v for k, v in knobs.items() if k != "tile_bands"}
     assert torch.equal(render(tg, tcam, renderer="tiled", **knobs),
                        render_tiled(tg, tcam, **kw))
-    # auto keeps the port's choice, the keys path, at every size.
-    assert torch.equal(render(tg, tcam, renderer="auto", **kw),
-                       render_tiled_keys(tg, tcam, **kw))
+    # auto is the JAX rule: the oracle at 4096 splats or fewer, so the
+    # knobs are dropped as for the oracle.
+    assert torch.equal(render(tg, tcam, renderer="auto", **knobs),
+                       render_oracle(tg, tcam))
     with pytest.raises(ValueError, match="unknown renderer"):
         render(tg, tcam, renderer="bvh")
 

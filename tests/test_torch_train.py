@@ -524,9 +524,9 @@ def test_cli_fit_refuses_untrainable_renderers(scene_path, tmp_path,
     line = capsys.readouterr().out
     assert "fit 3 steps: loss=" in line and f"-> {out}" in line
     assert load_scene(out, device="cpu").num == 120
-    assert tsolver.training_renderer(renderer) == renderer
+    assert tsolver.training_renderer(renderer, 120, "cpu") == renderer
     with pytest.raises(ValueError, match="unknown renderer"):
-        tsolver.training_renderer("nope")
+        tsolver.training_renderer("nope", 120, "cpu")
 
 
 def test_fit_never_imports_jax(scene_path, tmp_path):
