@@ -49,9 +49,10 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      launched once per band for every target render and every step, the
      backward kernel and segment_rows.cu once per band for every step;
   8. the fitbench protocol in process: the 100k ground truth perturbed
-     (means σ 0.01, log-scales 0.3, color logits 0.5; numpy seed 7), 50
-     ``Solver`` steps with one density-control pass and one opacity reset;
-     PSNR must rise; step time, the kernels' time in one step, the dropped
+     by ``probes.fitbench.perturb`` (means σ 0.01, log-scales 0.3, color
+     logits 0.5; a ``torch.Generator`` seeded with 7), 50 ``Solver``
+     steps with one density-control pass and one opacity reset; PSNR must
+     rise; step time, the kernels' time in one step, the dropped
      share and peak device memory are printed;
   9. the K-list path (the top-K peel, uncomposited) at the fit
      configuration and at 1M splats at 256x192: both top-K kernels against
@@ -179,7 +180,32 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      ``render_progressive``; the oracle against the fused path at 4096 and
      4097 splats at 1920x1088 and 640x384 (``auto`` takes each side of the
      threshold); ``peel_fwd.cu``'s registers at K = 16 and 64 from the
-     build's report. Its launches join the kernels line.
+     build's report. Its launches join the kernels line;
+ 21. the JAX package's production-scale tools through the port's probes
+     (``probes.make_scene``, ``fitbench``, ``fitscratch``, ``imquality``,
+     ``trace_step``, ``stages``), each through its function at the
+     scripts' sizes: the structured scene (a ground plane, three clusters
+     and a shell) written by the probe's CLI at 1M and 250k and reloaded;
+     its per-tile candidate counts from the bench pose and seen whole
+     (radius 10) beside the uniform scene's; ``render`` of it through the
+     CLI at 1920x1088 (default and keys, 8 bands) and the JAX package's
+     250k command (``--renderer pallas --max-candidates 2048 --tile-bands
+     4`` at 1280x720) at its own budget and at the least clean one, 0
+     dropped pairs wherever asserted; its busiest band through
+     ``peel_fwd`` bitwise the twin; fitbench (300 steps, 12 views)
+     through ``pallas`` and ``keys``, PSNR rising; fitscratch on the
+     uniform box its script fits (150 steps: fault F11, reported) and on
+     the structured scene (1,200 steps through ``auto``: growths, live
+     count and PSNR rise asserted by step 800, where the f32 exponent (F2)
+     starts to blow up steps, the tail reported; Adam's state after every
+     step, the ``.ply`` round trip, 0 dropped pairs, its first 300 steps
+     again bitwise, 300 through ``keys``); imquality's
+     keys and auto rows at the three bench configurations, bitwise their
+     twins and >= 40 dB / 0.999 SSIM against the oracle where it runs,
+     beside the JAX package's TPU quality record; a profiler trace of 3
+     training steps naming peel_fwd, peel_bwd and segment_rows; the stage
+     tables of both renderers at 100k@640x384 and 1M@1920x1088. Its
+     launches join the kernels line.
 
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
@@ -205,12 +231,17 @@ import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
+if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
+    sys.exit(f"chip_smoke: FAILED: no rtgs_tpu_torch package beside "
+             f"{__file__}")
+sys.path.insert(0, str(ROOT))
+# The bench scene (bench.py: splats in a cube of half-size 2) and pose
+# (orbit θ 0.4, φ 1.2, r 5, 60° vertical FOV), and its camera.
+from rtgs_tpu_torch.probes._common import (  # noqa: E402
+    BENCH_POSE, BENCH_SCENE, bench_camera)
+
 DEPTH = 16
 TILE = (16, 16)
-# Pose and scene of the repository's benchmark (bench.py): orbit θ 0.4,
-# φ 1.2, r 5, 60° vertical FOV; splats in a cube of half-size 2.
-POSE = dict(theta=0.4, phi=1.2, r=5.0, fov=60.0)
-SCENE = dict(extent=2.0, scale_range=(0.005, 0.03), seed=0)
 CFG_100K = dict(n=100_000, res=(640, 384), max_candidates=1536,
                 max_global=128, bin_narrow=3)
 CFG_1M_GATE = dict(n=1_000_000, res=(256, 192), max_candidates=3584,
@@ -297,17 +328,6 @@ BVH_TIE_RTOL, BVH_T1_RTOL = 1e-6, 1e-5
 BVH_BRUTE_CHUNK = 32
 
 
-# The benchmark configurations of the repository (bench.py CONFIGS with its
-# RENDER_KW; tile bands for the third).
-BENCH_CONFIGS = (
-    dict(label="100k@640x384", n=100_000, res=(640, 384),
-         max_candidates=1536, bin_narrow=3, tile_bands=None),
-    dict(label="250k@1280x720", n=250_000, res=(1280, 720),
-         max_candidates=1536, bin_narrow=3, tile_bands=None),
-    dict(label="1M@1920x1088", n=1_000_000, res=FULL_RES,
-         max_candidates=3584, bin_narrow=4, tile_bands=BANDS),
-)
-BENCH_MAX_GLOBAL = 128
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory
 # 3.35 TB/s, float32 67 TFLOP/s and float64 34 TFLOP/s outside the tensor
 # cores (the kernels use none).
@@ -484,18 +504,6 @@ def launch_shape(packed, cand, pix, slots=None):
     return shape
 
 
-def camera(res, dev):
-    import numpy as np
-
-    from rtgs_tpu_torch.camera import camera_from_fov
-    from rtgs_tpu_torch.viewer.orbit import orbit_camera_pose
-
-    pos, rot, _, _ = orbit_camera_pose(
-        POSE["theta"], POSE["phi"], POSE["r"], np.zeros(3),
-        np.array([0.0, 0.0, 0.0, 1.0]))
-    return camera_from_fov(pos, rot, res, POSE["fov"], device=dev)
-
-
 def keys_inputs(g, cfg, dev, cam=None):
     from rtgs_tpu_torch.ops.peel import CHUNK, _counts
     from rtgs_tpu_torch.render.binning import tile_candidates
@@ -504,7 +512,7 @@ def keys_inputs(g, cfg, dev, cam=None):
                                              pack_features,
                                              precompute_features)
 
-    cam = camera(cfg["res"], dev) if cam is None else cam
+    cam = bench_camera(cfg["res"], dev) if cam is None else cam
     packed = pack_features(precompute_features(g, cam))
     b = tile_candidates(g, cam, tile=TILE,
                         max_candidates=cfg["max_candidates"],
@@ -632,7 +640,8 @@ def phase3_anisotropic(dev):
     ratio = g.scales.amax(-1) / g.scales.amin(-1)
     for gap, fov in ANISO_VIEWS:
         pos, rot, _, _ = orbit_camera_pose(
-            POSE["theta"], POSE["phi"], cfg["extent"] * math.sqrt(3.0) + gap,
+            BENCH_POSE["theta"], BENCH_POSE["phi"],
+            cfg["extent"] * math.sqrt(3.0) + gap,
             np.zeros(3), np.array([0.0, 0.0, 0.0, 1.0]))
         cam = camera_from_fov(pos, rot, cfg["res"], fov, device=dev)
         packed = pack_features(precompute_features(g, cam))
@@ -734,82 +743,28 @@ def phase4_precision(case):
           f"{MAX_T1_REL_P999}")
 
 
-def frame_parity(g, cfg, dev):
+def frame_parity(g, cfg, dev, cam=None, phase=3, label="the 1M scene"):
     """One frame through the kernel and one through the twin: the same
-    selection feeds the same shading, so the images must be equal."""
+    selection feeds the same shading, so the images must be equal. The
+    twin runs in bands of at most PLAIN_BAND tiles (its float64 (tiles,
+    256, C) fields are built whole per band), which selects the same."""
     import torch
 
     from rtgs_tpu_torch.render.tiled import render_tiled_keys
 
-    cam = camera(cfg["res"], dev)
+    cam = bench_camera(cfg["res"], dev) if cam is None else cam
     kw = dict(depth=DEPTH, tile=TILE, max_candidates=cfg["max_candidates"],
               max_global=cfg["max_global"], bin_narrow=cfg["bin_narrow"])
+    tiles = -(-cfg["res"][0] // TILE[0]) * -(-cfg["res"][1] // TILE[1])
     with torch.inference_mode():
         img_k = render_tiled_keys(g, cam, keys_impl="cuda", **kw)
-        img_t = render_tiled_keys(g, cam, keys_impl="torch", **kw)
+        img_t = render_tiled_keys(g, cam, keys_impl="torch",
+                                  tile_bands=-(-tiles // PLAIN_BAND), **kw)
     diff = float((img_k - img_t).abs().max())
     check(bool(torch.isfinite(img_k).all()), "frame parity: non-finite")
     check(diff == 0.0, f"frame parity: max |kernel − twin| = {diff}")
-    say(3, f"frame {cfg['res'][0]}x{cfg['res'][1]} of the 1M scene: kernel "
-           f"path equals twin path (max |diff| {diff})")
-
-
-def stage_times(g, cam, kw):
-    """Per-stage device times of one banded frame (CUDA events), in ms."""
-    import torch
-
-    from rtgs_tpu_torch.ops.peel import CHUNK, peel_keys
-    from rtgs_tpu_torch.render.binning import tile_candidates
-    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
-                                             composite_layers_kp,
-                                             entry_lower_bound,
-                                             pack_features,
-                                             precompute_features,
-                                             shade_winners_kp)
-
-    def mark():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
-    marks = {"features": [], "entry bound": [], "binning": [], "keys": [],
-             "shade": [], "composite": []}
-    e0 = mark()
-    packed = pack_features(precompute_features(g, cam))
-    pix = _tile_pixel_features(cam, TILE)
-    e1 = mark()
-    entry_lb = entry_lower_bound(g, cam, packed)
-    e_lb = mark()
-    b = tile_candidates(g, cam, tile=TILE,
-                        max_candidates=kw["max_candidates"],
-                        max_global=kw["max_global"],
-                        narrow=kw["bin_narrow"], chunk=CHUNK,
-                        entry_lb=entry_lb)
-    e2 = mark()
-    marks["features"].append((e0, e1))
-    marks["entry bound"].append((e1, e_lb))
-    marks["binning"].append((e_lb, e2))
-    t = b.candidates.shape[0]
-    nb = -(-t // kw["tile_bands"])
-    for s in range(0, t, nb):
-        a = mark()
-        _, sid = peel_keys(packed, b.candidates[s:s + nb], pix[s:s + nb],
-                           DEPTH, chunk_lb=b.chunk_lb[s:s + nb],
-                           counts=b.counts[s:s + nb])
-        k = mark()
-        layers = shade_winners_kp(packed, sid, pix[s:s + nb])
-        sh = mark()
-        composite_layers_kp(*layers)
-        c = mark()
-        marks["keys"].append((a, k))
-        marks["shade"].append((k, sh))
-        marks["composite"].append((sh, c))
-    end = mark()
-    end.synchronize()
-    out = {name: sum(s.elapsed_time(e) for s, e in pairs)
-           for name, pairs in marks.items()}
-    out["total"] = e0.elapsed_time(end)
-    return out
+    say(phase, f"frame {cfg['res'][0]}x{cfg['res'][1]} of {label}: kernel "
+               f"path equals twin path (max |diff| {diff})")
 
 
 def phase5_main_path(g, dev, tmp):
@@ -818,6 +773,7 @@ def phase5_main_path(g, dev, tmp):
 
     from rtgs_tpu_torch.__main__ import main as cli
     from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.probes.stages import stage_times
     from rtgs_tpu_torch.render.tiled import render_tiled_keys
     from rtgs_tpu_torch.scene import save_scene
 
@@ -828,8 +784,9 @@ def phase5_main_path(g, dev, tmp):
            f"{time.perf_counter() - t0:.1f} s")
     w, h = FULL_RES
     argv = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
-            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
-            "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+            "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
+            "--theta", str(BENCH_POSE["theta"]),
+            "--phi", str(BENCH_POSE["phi"]),
             "--max-candidates", "3584", "--tile-bands", str(BANDS),
             "--bin-narrow", "4", "--renderer", "keys", "--device", "cuda"]
 
@@ -860,7 +817,7 @@ def phase5_main_path(g, dev, tmp):
                   f"{p.name}: shape {img8.shape}, max {img8.max()}")
 
     # The same frame in process: values, binning counters and times.
-    cam = camera(FULL_RES, g.device)
+    cam = bench_camera(FULL_RES, g.device)
     kw = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
               bin_narrow=4)
     torch.cuda.reset_peak_memory_stats()
@@ -893,7 +850,7 @@ def phase5_main_path(g, dev, tmp):
             frame()
             host.append((time.perf_counter() - t0) * 1e3)
         frame_ms = statistics.median(host)
-        stages = [stage_times(g, cam, kw) for _ in range(3)]
+        stages = [stage_times(g, cam, kw, DEPTH, TILE) for _ in range(3)]
     med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
     say(5, f"frame time {frame_ms:.2f} ms (host clock with sync, median of "
            f"5) = {w * h / frame_ms * 1e3 / 1e6:.2f} M rays/s; device "
@@ -1119,7 +1076,7 @@ def phase7_fit_cli(g, tmp):
     save_scene(ply, g)
     w, h = CFG_FIT["res"]
     argv = ["fit", "-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
-            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+            "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
             "--views", str(FIT_VIEWS), "--steps", str(FIT_CLI_STEPS),
             "--from-scratch", "--renderer", "pallas", "--max-candidates",
             str(CFG_FIT["max_candidates"]), "--device", g.device.type,
@@ -1161,82 +1118,20 @@ def phase7_fit_cli(g, tmp):
     return fwd, bwd, seg
 
 
-def step_stages(solver, kw):
-    """Device times (CUDA events, ms) of the stages of one training step
-    at view 0, as ``render_tiled_pallas`` and ``make_train_step`` run
-    them; the step updates the solver's parameters like any other."""
-    import torch
-    import torch.nn.functional as F
-
-    from rtgs_tpu_torch.ops.peel import CHUNK, peel_fused
-    from rtgs_tpu_torch.render.binning import tile_candidates
-    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
-                                             _tiles_to_image, pack_features,
-                                             precompute_features)
-    from rtgs_tpu_torch.train.loss import render_loss
-    from rtgs_tpu_torch.train.solver import activate
-
-    cam, target = solver.cameras[0], solver.targets[0]
-    w, h = cam.buf_size
-    events = []
-
-    def mark(name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        events.append((name, e))
-
-    solver.optimizer.zero_grad(set_to_none=True)
-    mark("start")
-    g = activate(solver.params, solver.mask)
-    with torch.no_grad():
-        b = tile_candidates(g, cam, tile=TILE, **kw)
-    cand = F.pad(b.candidates, (0, (-b.candidates.shape[1]) % CHUNK),
-                 value=-1)
-    mark("binning")
-    packed = pack_features(precompute_features(g, cam))
-    pix = _tile_pixel_features(cam, TILE)
-    mark("features")
-    rad, _ = peel_fused(packed, cand, pix, DEPTH)
-    mark("peel forward")
-    img = _tiles_to_image(rad.transpose(1, 2), b.n_tiles_x, b.n_tiles_y,
-                          TILE)[:w, :h]
-    loss = render_loss(img, target, solver.cfg.lambda_dssim)
-    mark("loss")
-    loss.backward()
-    mark("backward")
-    solver.optimizer.step()
-    mark("adam")
-    events[-1][1].synchronize()
-    out = {name: events[i - 1][1].elapsed_time(e)
-           for i, (name, e) in enumerate(events) if i}
-    out["total"] = events[0][1].elapsed_time(events[-1][1])
-    return out
-
-
 def refit_solver(g, ds, renderer, steps, depth=DEPTH, budgets=CFG_FIT,
                  densify=True):
     """The fitbench protocol's solver on the views ``ds``: the ground truth
-    ``g`` perturbed (means σ 0.01, log-scales 0.3, color logits 0.5; numpy
-    seed 7), one density-control pass half way through ``steps`` (none
+    ``g`` perturbed as ``probes.fitbench.perturb`` perturbs it (means
+    σ 0.01, log-scales 0.3, color logits 0.5; a ``torch.Generator`` seeded
+    with 7), one density-control pass half way through ``steps`` (none
     without ``densify``) and one opacity reset after the last step (a
     reset inside them would leave no steps to recover); the binning's
     budgets from ``budgets``."""
-    import numpy as np
-    import torch
-
     from rtgs_tpu_torch.config import TrainConfig
+    from rtgs_tpu_torch.probes.fitbench import perturb
     from rtgs_tpu_torch.train.solver import Solver, init_params
 
-    params = init_params(g)
-    rng = np.random.default_rng(7)
-
-    def noisy(x, sigma):
-        n = rng.standard_normal(tuple(x.shape)).astype(np.float32)
-        return x + sigma * torch.from_numpy(n).to(x.device)
-
-    params = params._replace(means=noisy(params.means, 0.01),
-                             log_scales=noisy(params.log_scales, 0.3),
-                             color_logits=noisy(params.color_logits, 0.5))
+    params = perturb(init_params(g))
     mid = steps // 2 if densify else steps + 1
     cfg = TrainConfig(iterations=steps, densify_from=mid, densify_until=mid,
                       densify_every=mid, opacity_reset_every=steps,
@@ -1266,13 +1161,14 @@ def phase8_fitbench(g, dev, renderer="pallas", phase=8):
                                              pack_features,
                                              precompute_features,
                                              render_tiled_pallas)
+    from rtgs_tpu_torch.probes.stages import step_stages
     from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
 
     kw = dict(max_candidates=CFG_FIT["max_candidates"],
               max_global=CFG_FIT["max_global"])
     t0 = time.perf_counter()
     ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
-                                 fov=POSE["fov"], radius=POSE["r"],
+                                 fov=BENCH_POSE["fov"], radius=BENCH_POSE["r"],
                                  depth=DEPTH, renderer=renderer, **kw)
     t_data = time.perf_counter() - t0
     solver = refit_solver(g, ds, renderer, FIT_STEPS)
@@ -1315,7 +1211,7 @@ def phase8_fitbench(g, dev, renderer="pallas", phase=8):
                    f"{min(times[2:]):.2f}, max {max(times[2:]):.2f}); peak "
                    f"device memory {peak:.2f} GiB")
         return dict(step_ms=step_ms, first=first, last=last)
-    stages = [step_stages(solver, kw) for _ in range(3)]
+    stages = [step_stages(solver, kw, TILE) for _ in range(3)]
     stages = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
 
     # The kernels' share of one step, at view 0 and the final state.
@@ -1596,8 +1492,9 @@ def frame_stats(render_fn):
 
 def cli_argv(ply, res):
     return ["-o", str(ply), "-r", f"{res[0]},{res[1]}", "-d", str(DEPTH),
-            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
-            "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+            "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
+            "--theta", str(BENCH_POSE["theta"]),
+            "--phi", str(BENCH_POSE["phi"]),
             "--device", "cuda"]
 
 
@@ -1653,7 +1550,7 @@ def phase10_oracle(dev, tmp):
     wall = time.perf_counter() - t0
 
     g = load_scene(ply, device=dev)
-    cam = camera(ORACLE_RES, dev)
+    cam = bench_camera(ORACLE_RES, dev)
     # Budgets of the whole scene: its wide splats overflow the default
     # global list, and no pair may be dropped from the reference.
     kw = dict(depth=DEPTH, tile=TILE, max_candidates=ORACLE_N,
@@ -1745,7 +1642,7 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
     wall = time.perf_counter() - t0
 
     g = load_scene(ply, device=dev)
-    cam = camera(res, dev)
+    cam = bench_camera(res, dev)
     kw = dict(depth=DEPTH, tile=TILE, max_candidates=CFG_100K[
         "max_candidates"], max_global=CFG_100K["max_global"],
         bin_narrow=CFG_100K["bin_narrow"])
@@ -1899,9 +1796,10 @@ def phase12_bench(cfg, g, dev):
     import torch
 
     from rtgs_tpu_torch.ops.peel import peel_keys_cuda
+    from rtgs_tpu_torch.probes._common import BENCH_MAX_GLOBAL
     from rtgs_tpu_torch.render.tiled import render_tiled_keys
 
-    cam = camera(cfg["res"], dev)
+    cam = bench_camera(cfg["res"], dev)
     kw = dict(depth=DEPTH, tile=TILE, max_candidates=cfg["max_candidates"],
               max_global=BENCH_MAX_GLOBAL, bin_narrow=cfg["bin_narrow"],
               tile_bands=cfg["tile_bands"])
@@ -1985,7 +1883,8 @@ def phase13_keys_cli(g, tmp):
     save_scene(ply, g)
     w, h = CFG_FIT["res"]
     common = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
-              "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
+              "--fov", str(BENCH_POSE["fov"]),
+              "--radius", str(BENCH_POSE["r"]),
               "--renderer", "keys", "--max-candidates",
               str(CFG_FIT["max_candidates"]), "--device", g.device.type]
     argv = ["fit", *common, "--views", str(FIT_VIEWS), "--steps",
@@ -2027,8 +1926,8 @@ def phase13_keys_cli(g, tmp):
     peel_keys_cuda.launches = 0
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
-        cli(["bench", *common, "--theta", str(POSE["theta"]), "--phi",
-             str(POSE["phi"]), "--iters", str(iters)])
+        cli(["bench", *common, "--theta", str(BENCH_POSE["theta"]), "--phi",
+             str(BENCH_POSE["phi"]), "--iters", str(iters)])
     bench_launches = peel_keys_cuda.launches
     line = printed.getvalue().strip()
     frames = 1 + iters + max(iters // 2, 3)
@@ -2402,8 +2301,8 @@ def phase15_serve(g, dev):
     from rtgs_tpu_torch.viewer.server import make_server
 
     w, h = FULL_RES
-    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEPTH,
-                              renderer="keys", radius=POSE["r"], port=0)
+    args = argparse.Namespace(res=FULL_RES, fov=BENCH_POSE["fov"], depth=DEPTH,
+                              renderer="keys", radius=BENCH_POSE["r"], port=0)
     # What ``serve`` runs: make_server, then serve_forever (here in a
     # daemon thread, shut down at the end).
     server, session = make_server(g, args, render_kwargs=SERVE_KW)
@@ -2467,7 +2366,7 @@ def phase15_serve(g, dev):
         thread.join(timeout=60)
     check(not thread.is_alive(), "serve: the server thread did not stop")
 
-    cam = camera(FULL_RES, dev)
+    cam = bench_camera(FULL_RES, dev)
     peel_keys_cuda.launches = 0
     with torch.inference_mode():
         s = ProgressiveSampler(g, cam, depth=DEPTH, renderer="keys",
@@ -2528,7 +2427,7 @@ def phase16_ring(g1m, g100k, g4k, dev):
         try:
             mesh = make_mesh(1, 1, device="cuda")
             shard = shard_scene(g1m, mesh)
-            cam = camera(FULL_RES, dev)
+            cam = bench_camera(FULL_RES, dev)
             with torch.inference_mode():
                 peel_keys_cuda.launches = 0
                 img = render_tiled_sharded(shard, cam, mesh, depth=DEPTH,
@@ -2558,7 +2457,7 @@ def phase16_ring(g1m, g100k, g4k, dev):
                     f"a ring step)")
 
             wf, hf = CFG_FIT["res"]
-            cam = camera(CFG_FIT["res"], dev)
+            cam = bench_camera(CFG_FIT["res"], dev)
             fkw = dict(max_candidates=CFG_FIT["max_candidates"],
                        max_global=CFG_FIT["max_global"])
 
@@ -2614,8 +2513,8 @@ def phase16_ring(g1m, g100k, g4k, dev):
                      f"{DRY_RES[0]}x{DRY_RES[1]}", DRY_N, DRY_RES, DRY_DEPTH,
                      DRY_BUDGETS)):
                 g = g100k if n == g100k.num else random_scene(
-                    n, device=dev, **SCENE)
-                cam = camera(res, dev)
+                    n, device=dev, **BENCH_SCENE)
+                cam = bench_camera(res, dev)
                 with torch.inference_mode():
                     _, stats = render_tiled_keys(g, cam, depth=depth,
                                                  with_stats=True, **budgets)
@@ -2652,7 +2551,7 @@ def phase16_ring(g1m, g100k, g4k, dev):
                           f"{out['ring_launches']['segment_rows_cuda']}")
                 del g
 
-            cam = camera(RING_ORACLE_RES, dev)
+            cam = bench_camera(RING_ORACLE_RES, dev)
             rays = generate_ray_grid(cam).reshape(-1)
             with torch.inference_mode():
                 rad, trans = render_sharded(shard_scene(g4k, mesh), rays,
@@ -2766,7 +2665,7 @@ def phase17_bvh_profiling(g1m, g100k, dev):
             f"{float(rel.max()) if rel.numel() else 0.0:.1e}); no cut ray "
             f"reports a nearer t1")
 
-    cam = camera(CFG_100K["res"], dev)
+    cam = bench_camera(CFG_100K["res"], dev)
     kw = dict(depth=DEPTH, tile=TILE, max_candidates=CFG_100K["max_candidates"],
               max_global=CFG_100K["max_global"],
               bin_narrow=CFG_100K["bin_narrow"])
@@ -2926,8 +2825,9 @@ def fit_views(g, renderer, depth, cfg):
     rendered through ``renderer`` at ``depth``."""
     from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
 
-    return synthetic_orbit_dataset(g, FIT_VIEWS, cfg["res"], fov=POSE["fov"],
-                                   radius=POSE["r"], depth=depth,
+    return synthetic_orbit_dataset(g, FIT_VIEWS, cfg["res"],
+                                   fov=BENCH_POSE["fov"],
+                                   radius=BENCH_POSE["r"], depth=depth,
                                    renderer=renderer,
                                    **fit_render_kwargs(cfg))
 
@@ -3020,6 +2920,7 @@ def phase18_determinism(g100k, g1m, g4k, dev):
     import torch
 
     from rtgs_tpu_torch.ops.peel import segment_rows_cuda
+    from rtgs_tpu_torch.probes._common import BENCH_MAX_GLOBAL
     from rtgs_tpu_torch.render.oracle import render_oracle
     from rtgs_tpu_torch.render.tiled import render_tiled, render_tiled_keys
 
@@ -3033,7 +2934,7 @@ def phase18_determinism(g100k, g1m, g4k, dev):
     wf, hf = FULL_RES
     kw = dict(max_candidates=3584, max_global=BENCH_MAX_GLOBAL, bin_narrow=4,
               tile_bands=BANDS)
-    cam = camera(FULL_RES, dev)
+    cam = bench_camera(FULL_RES, dev)
     segment_rows_cuda.launches = 0
     img_a, ga = scene_grads(g1m, cam, render_tiled_keys, **kw)
     torch.cuda.synchronize()
@@ -3061,8 +2962,8 @@ def phase18_determinism(g100k, g1m, g4k, dev):
                         f"{last:.4f} dB, {live} live)"
                         for r, (first, last, live, _) in fits.items()))
 
-    cam_o = camera(SMALL_FIT["res"], dev)
-    cam_t = camera(CFG_FIT["res"], dev)
+    cam_o = bench_camera(SMALL_FIT["res"], dev)
+    cam_t = bench_camera(CFG_FIT["res"], dev)
     secondary = {
         f"oracle ({g4k.num} splats at {SMALL_FIT['res'][0]}x"
         f"{SMALL_FIT['res'][1]})": grads_twice(
@@ -3416,8 +3317,9 @@ def phase19_frames(g1m, dev, tmp):
     save_scene(ply, g1m)
     w, h = FULL_RES
     argv = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEEP),
-            "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
-            "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+            "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
+            "--theta", str(BENCH_POSE["theta"]),
+            "--phi", str(BENCH_POSE["phi"]),
             "--max-candidates", "3584", "--tile-bands", str(BANDS),
             "--bin-narrow", "4", "--renderer", "keys", "--device", "cuda"]
     peel_keys_cuda.launches = 0
@@ -3446,7 +3348,7 @@ def phase19_frames(g1m, dev, tmp):
             f"wall (scene loads included); keys launches {launches} "
             f"({len(pass_depths(DEEP))} passes a band)")
 
-    cam = camera(FULL_RES, dev)
+    cam = bench_camera(FULL_RES, dev)
     kw = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
               bin_narrow=4)
     for depth in FRAME_DEPTHS:
@@ -3595,8 +3497,8 @@ def phase19_fits_serve(g100k, g1m, dev):
             + f"; launches {launches}")
     del deep_ds
 
-    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEEP,
-                              renderer="keys", radius=POSE["r"], port=0)
+    args = argparse.Namespace(res=FULL_RES, fov=BENCH_POSE["fov"], depth=DEEP,
+                              renderer="keys", radius=BENCH_POSE["r"], port=0)
     server, session = make_server(g1m, args, render_kwargs=SERVE_KW)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -3778,8 +3680,10 @@ def phase20_cli(g1m, tmp):
 
     def argv(depth):
         return ["-o", str(ply), "-r", f"{w},{h}", "-d", str(depth),
-                "--fov", str(POSE["fov"]), "--radius", str(POSE["r"]),
-                "--theta", str(POSE["theta"]), "--phi", str(POSE["phi"]),
+                "--fov", str(BENCH_POSE["fov"]),
+                "--radius", str(BENCH_POSE["r"]),
+                "--theta", str(BENCH_POSE["theta"]),
+                "--phi", str(BENCH_POSE["phi"]),
                 "--max-candidates", "3584", "--tile-bands", str(BANDS),
                 "--bin-narrow", "4", "--device", "cuda"]
 
@@ -3840,13 +3744,11 @@ def phase20_frames(g1m, dev):
     numbers for the kernels line."""
     import torch
 
-    from rtgs_tpu_torch.ops.peel import (_counts, peel_fused_cuda,
-                                         peel_fused_torch)
     from rtgs_tpu_torch.render.api import render, resolve_renderer
     from rtgs_tpu_torch.render.tiled import render_tiled_pallas
 
     w, h = FULL_RES
-    cam = camera(FULL_RES, dev)
+    cam = bench_camera(FULL_RES, dev)
     kw = SERVE_KW
     check(resolve_renderer("auto", g1m.num, g1m.device) == "pallas",
           "auto does not resolve to pallas for the 1M scene on the card")
@@ -3914,7 +3816,6 @@ def phase20_frames(g1m, dev):
 
     # The whole frame at depth 16 through the fused twin, in bands of
     # PLAIN_BAND tiles (its float64 fields would not fit at once).
-    t = band["packed"].shape[0]
     with torch.inference_mode():
         img = render(g1m, cam, depth=DEPTH, **kw)
         ntiles = -(-w // TILE[0]) * -(-h // TILE[1])
@@ -3926,7 +3827,24 @@ def phase20_frames(g1m, dev):
     same = torch.equal(img, twin)
     del img, twin
 
-    # One band (the busiest) through the kernel and its twin at depth 16.
+    say(20, f"depth 16 frame against the fused twin's (in "
+            f"{-(-ntiles // PLAIN_BAND)} bands of {PLAIN_BAND} tiles): "
+            f"{'bitwise equal' if same else 'not bitwise'}, {IMG_Q}-quantile "
+            f"|diff| {q:.2e}, max {worst:.2e}")
+    return band_against_twin(band, 20, "the busiest full-width band")
+
+
+def band_against_twin(band, phase, label):
+    """One band (``fused_frame``'s busiest) through ``peel_fwd`` and its
+    twin at depth 16: winners, radiance and transmittance bitwise; the
+    kernel timed around the wrapper and busy, at K = 16 and 64, the twin
+    (in bands of PLAIN_BAND tiles), the bound. Returns the kernels line's
+    numbers."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import (_counts, peel_fused_cuda,
+                                         peel_fused_torch)
+
     packed, cand, pix = band["packed"], band["cand"], band["pix"]
     counts = _counts(cand)
 
@@ -3942,31 +3860,28 @@ def phase20_frames(g1m, dev):
         rad_k, tr_k, sl_k = kernel()
         rad_p, tr_p, sl_p = plain()
         torch.cuda.synchronize()
-        check(torch.equal(sl_k, sl_p), f"peel_fwd at a full-width band: "
-              f"winners differ from the twin's at "
-              f"{int((sl_k != sl_p).sum())} entries")
+        check(torch.equal(sl_k, sl_p), f"peel_fwd at {label}: winners "
+              f"differ from the twin's at {int((sl_k != sl_p).sum())} "
+              f"entries")
         err = max(float((rad_k - rad_p).abs().max()),
                   float((tr_k - tr_p).abs().max()))
-        check(err == 0.0, f"peel_fwd at a full-width band: radiance or "
+        check(err == 0.0, f"peel_fwd at {label}: radiance or "
               f"transmittance differs from the twin's by {err}")
         shape = launch_shape(packed, cand, pix, sl_k)
         ms, ms_plain, ms_busy = (time_ms(kernel), time_ms(plain, reps=3),
                                  busy_ms(kernel))
         k64 = busy_ms(lambda: peel_fused_cuda(packed, cand, counts, pix, 64))
     bound_ms, bound_by = peel_bound("peel_fwd", shape)
-    say(20, f"depth 16 frame against the fused twin's (in "
-            f"{-(-ntiles // PLAIN_BAND)} bands of {PLAIN_BAND} tiles): "
-            f"{'bitwise equal' if same else 'not bitwise'}, {IMG_Q}-quantile "
-            f"|diff| {q:.2e}, max {worst:.2e}")
-    say(20, f"peel_fwd at the busiest full-width band (T={shape['t']} "
-            f"C={shape['c']} P={shape['p']} K={DEPTH}, {shape['live']} live "
-            f"pairs, {shape['winners']} winners): winners, radiance and "
-            f"transmittance bitwise the twin's; kernel {ms:.3f} ms around "
-            f"the wrapper, {ms_busy:.3f} ms busy (device), twin "
-            f"{ms_plain:.1f} ms (CUDA events); bound {bound_ms:.4f} ms "
-            f"({bound_by}) = {bound_ms / ms_busy:.1%} of the busy time; at "
-            f"K=64 {k64:.3f} ms busy; of {t} table rows")
-    return dict(err=err, ms=ms, plain_ms=ms_plain, shape=shape)
+    say(phase, f"peel_fwd at {label} (T={shape['t']} C={shape['c']} "
+               f"P={shape['p']} K={DEPTH}, {shape['live']} live pairs, "
+               f"{shape['winners']} winners): winners, radiance and "
+               f"transmittance bitwise the twin's; kernel {ms:.3f} ms around "
+               f"the wrapper, {ms_busy:.3f} ms busy (device), twin "
+               f"{ms_plain:.1f} ms (CUDA events); bound {bound_ms:.4f} ms "
+               f"({bound_by}) = {bound_ms / ms_busy:.1%} of the busy time; "
+               f"at K=64 {k64:.3f} ms busy; of {packed.shape[0]} table rows")
+    return dict(err=err, ms=ms, plain_ms=ms_plain, shape=shape,
+                busy_ms=ms_busy)
 
 
 def phase20_serve(g1m, dev):
@@ -3989,8 +3904,8 @@ def phase20_serve(g1m, dev):
     from rtgs_tpu_torch.viewer.server import make_server
 
     w, h = FULL_RES
-    args = argparse.Namespace(res=FULL_RES, fov=POSE["fov"], depth=DEPTH,
-                              renderer="auto", radius=POSE["r"], port=0)
+    args = argparse.Namespace(res=FULL_RES, fov=BENCH_POSE["fov"], depth=DEPTH,
+                              renderer="auto", radius=BENCH_POSE["r"], port=0)
     server, session = make_server(g1m, args, render_kwargs=SERVE_KW)
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -4048,7 +3963,7 @@ def phase20_serve(g1m, dev):
     # Jitter pads every box by 0.5 px, so its tiles hold more pairs than
     # the centred frame's: the sampler runs at the smallest budgets that
     # drop nothing (a sample that drops pairs is another image).
-    cam = camera(FULL_RES, dev)
+    cam = bench_camera(FULL_RES, dev)
     kw, tried = jitter_budgets(g1m, cam)
     peel_fused_cuda.launches = peel_keys_cuda.launches = 0
     with torch.inference_mode():
@@ -4154,7 +4069,7 @@ def phase20_threshold(dev):
     # the default global list, and the comparison needs nothing dropped.
     kw = dict(max_candidates=ORACLE_N + 1, max_global=ORACLE_N + 1)
     for res in (FULL_RES, ORACLE_RES):
-        cam = camera(res, dev)
+        cam = bench_camera(res, dev)
         out = {}
         with torch.inference_mode():
             for label, g in (("4096", g4k), ("4097", far)):
@@ -4216,10 +4131,578 @@ def phase20_default(g1m, dev):
     return launches, band
 
 
+# Phase 21: the JAX package's production-scale tools through the port's
+# probes (scripts/make_scene.py, fitbench.py, fitscratch.py, imquality.py,
+# trace_step.py; kbench.py, keystage.py and stageprobe.py as probes.stages).
+STRUCT_N, STRUCT_SMALL, STRUCT_SMALL_RES = 1_000_000, 250_000, (1280, 720)
+# The structured scene seen whole: the bench pose's angles at radius 10.
+# From the bench's radius 5 the camera stands inside the ground plane's
+# extent (its corners lie 6.4 from the center), and the binning's global
+# list outgrows any budget the CLI can pass (phase 21 prints it).
+STRUCT_POSE = dict(BENCH_POSE, r=10.0)
+# The JAX package's own command for its 250k structured scene
+# (BASELINE.md:223-226): render --renderer pallas --max-candidates 2048
+# --tile-bands 4.
+JAX_STRUCT_CMD = ("pallas", 2048, 4)
+FITBENCH_STEPS = 300          # scripts/fitbench.py's defaults: 300 steps,
+FITBENCH_VIEWS = 12           # 12 views at 512x384, 1536 candidates
+FITSCRATCH_STEPS = 1200       # BASELINE.md:136-150's standard run
+FITSCRATCH_CUT = 300          # the keys run and the bitwise repeat
+# The growth, live count and PSNR rise are asserted at this step of the
+# standard run: from step ~815 the f32 exponent (F2) renders some steps'
+# images at up to 4e18, so the last steps' PSNR says nothing of the fit.
+FITSCRATCH_GATE = 800
+# The script's code fits a uniform box (random_scene): there its seeds'
+# isotropic scale (the median nearest-neighbour distance of 512 seeds,
+# ~0.30) exceeds the world-size prune (0.1 x the 90th percentile of |mean|,
+# ~0.26), and the first density pass prunes 99% of them in both packages
+# (fault F11): FITSCRATCH_COLLAPSE steps of it are reported. The asserted
+# runs fit the structured scene its docstring names. Its large seeds fan
+# out wide, and the wide class's budget (N/16) spills to the global list:
+# over the 1,200 steps each frame's least clean budgets reach 4,288
+# candidates and a global list of 12,648 (the script's 1536 / 128 drop
+# ~11k pairs a step), so the fits bin at FITSCRATCH_BUDGETS.
+FITSCRATCH_COLLAPSE = 150
+FITSCRATCH_BUDGETS = dict(cand=4352, glob=12800)
+TRACE_STEPS = 3
+IMQ_MIN_PSNR, IMQ_MIN_SSIM = 40.0, 0.999
+
+
+def counted(fn):
+    """``fn()`` with the launch counts of the four kernels a fit or a
+    render runs set to 0 before and read after; returns (result, counts)."""
+    from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
+                                         peel_fused_cuda, peel_keys_cuda,
+                                         segment_rows_cuda)
+
+    wrappers = {"keys_sid": peel_keys_cuda, "peel_fwd": peel_fused_cuda,
+                "peel_bwd": peel_fused_bwd_cuda,
+                "segment_rows": segment_rows_cuda}
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def struct_cli(ply, res, renderer, budget, bands, out):
+    """``render`` of a structured scene through the CLI at STRUCT_POSE,
+    depth 16; returns the wall seconds, the printed line and the
+    launches."""
+    import torch
+
+    from rtgs_tpu_torch.__main__ import main as cli
+
+    argv = ["render", "-o", str(ply), "-r", f"{res[0]},{res[1]}", "-d",
+            str(DEPTH), "--fov", str(STRUCT_POSE["fov"]), "--radius",
+            str(STRUCT_POSE["r"]), "--theta", str(STRUCT_POSE["theta"]),
+            "--phi", str(STRUCT_POSE["phi"]), "--max-candidates",
+            str(budget), "--tile-bands", str(bands), "--device", "cuda",
+            "--output", str(out)]
+    if renderer:
+        argv += ["--renderer", renderer]
+    printed = io.StringIO()
+
+    def go():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            cli(argv)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall, counts = counted(go)
+    return wall, printed.getvalue().strip(), counts
+
+
+def phase21_make_scene(g1m, dev, tmp):
+    """The structured scene: written by the probe's CLI at 1M and 250k and
+    reloaded; its candidate counts beside the uniform scene's; the least
+    clean budgets; ``render`` through the CLI (default and keys, 8 bands;
+    the JAX package's 250k command and the same at the least clean
+    budget), 0 dropped pairs wherever asserted; the busiest band of the 1M
+    default frame against its twin. Returns launches and the band's
+    numbers."""
+    import numpy as np
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import CHUNK
+    from rtgs_tpu_torch.probes import make_scene
+    from rtgs_tpu_torch.render.api import render
+    from rtgs_tpu_torch.scene import load_scene
+
+    launches = {}
+    scenes = {}
+    for n in (STRUCT_N, STRUCT_SMALL):
+        ply = tmp / f"structured_{n}.ply"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_scene.main([str(ply), str(n), "--device", "cuda"])
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        g = load_scene(ply, device=dev)
+        t_load = time.perf_counter() - t0
+        ref = make_scene.structured_scene_arrays(n)
+        errs = {f: float(np.max(np.abs(getattr(g, f).cpu().numpy() - ref[f])
+                                / np.maximum(np.abs(ref[f]), 1e-6)))
+                for f in ("means", "scales", "colors", "opacities", "sh")}
+        check(g.num == n and max(errs.values()) < 1e-5,
+              f"structured {n}: reloaded {g.num} splats, largest relative "
+              f"field error {errs}")
+        say(21, f"structured scene {n}: made and written by probes."
+                f"make_scene in {t_write:.1f} s "
+                f"({ply.stat().st_size / 2**20:.0f} MiB), reloaded in "
+                f"{t_load:.1f} s, fields within {max(errs.values()):.1e} "
+                f"(relative) of the generator's")
+        scenes[n] = (g, ply)
+
+    g, ply = scenes[STRUCT_N]
+    cams = {"bench pose r 5": (BENCH_POSE, (4, 8)),
+            "view pose r 10": (STRUCT_POSE, (4,))}
+    least = {}
+    for label, (pose, narrows) in cams.items():
+        cam = bench_camera(FULL_RES, dev, **pose)
+        for narrow in narrows:
+            c = make_scene.count_summary(make_scene.candidate_counts(
+                g, cam, narrow=narrow))
+            least[(label, narrow)] = c
+            say(21, f"structured 1M@{FULL_RES[0]}x{FULL_RES[1]}, {label}, "
+                    f"bin_narrow {narrow}: candidate slots a tile (global "
+                    f"list + own) max {c['max_slots']}, p99 "
+                    f"{c['p99_slots']:.0f}, mean {c['mean_slots']:.1f}; "
+                    f"{c['tiles_over_416']} of {c['tiles']} tiles over "
+                    f"{make_scene.SMEM_SLOTS} slots (peel_fwd.cu shades "
+                    f"them from device memory); global list {c['global']}; "
+                    f"least clean budgets max_candidates "
+                    f"{c['least_candidates']}, max_global "
+                    f"{c['least_global']}")
+    uni = make_scene.count_summary(make_scene.candidate_counts(
+        g1m, bench_camera(FULL_RES, dev), narrow=4))
+    say(21, f"the uniform 1M scene (random_scene) at the bench pose, "
+            f"bin_narrow 4: max {uni['max_slots']}, p99 "
+            f"{uni['p99_slots']:.0f}, mean {uni['mean_slots']:.1f} slots, "
+            f"{uni['tiles_over_416']} tiles over {make_scene.SMEM_SLOTS}, "
+            f"global {uni['global']}; least clean budgets "
+            f"{uni['least_candidates']} / {uni['least_global']} (the "
+            f"viewer's 3584 / 64)")
+    view = least[("view pose r 10", 4)]
+    check(view["least_global"] <= 64, f"structured 1M at the view pose: a "
+          f"global list of {view['least_global']} outgrows the CLI's 64")
+    budget = view["least_candidates"]
+
+    cam = bench_camera(FULL_RES, dev, **STRUCT_POSE)
+    for renderer in (None, "keys"):
+        wall, line, counts = struct_cli(ply, FULL_RES, renderer, budget,
+                                        BANDS, tmp / "s1m.npy")
+        add_counts(launches, counts)
+        name = renderer or "default (pallas)"
+        key = "keys_sid" if renderer else "peel_fwd"
+        check(counts[key] == BANDS and sum(counts.values()) == BANDS,
+              f"structured 1M CLI {name}: launches {counts}, expected "
+              f"{BANDS} of {key}")
+        kw = dict(max_candidates=budget, tile_bands=BANDS)
+        frame = (lambda r=renderer or "auto": render(
+            g, cam, depth=DEPTH, renderer=r, **kw))
+        with torch.inference_mode():
+            _, stats = render(g, cam, depth=DEPTH, with_stats=True,
+                              renderer=renderer or "auto", **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(frame)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        dropped = int(stats["local_overflow"]) + int(stats["global_overflow"])
+        w, h = FULL_RES
+        say(21, f"structured 1M CLI render {name} at {w}x{h}, view pose, "
+                f"max_candidates {budget} (the least clean), {BANDS} bands, "
+                f"depth {DEPTH}: {wall:.2f} s wall (scene load included), "
+                f"launches {counts}, printed '{line}'; in process "
+                f"{ms:.2f} ms a frame (host clock with sync, median of 5) = "
+                f"{w * h / ms * 1e3 / 1e6:.2f} M rays/s, peak {peak:.2f} "
+                f"GiB, dropped pairs {dropped}")
+        check(dropped == 0, f"structured 1M {name}: {dropped} pairs dropped "
+              f"at {budget}")
+        img8 = np.load(tmp / "s1m.npy")
+        check(img8.shape == (h, w, 3) and img8.max() > 0,
+              f"structured 1M {name}: saved frame {img8.shape}")
+
+    # The JAX package's 250k command, and the same at its least budget.
+    g250, ply250 = scenes[STRUCT_SMALL]
+    cam250 = bench_camera(STRUCT_SMALL_RES, dev, **STRUCT_POSE)
+    c250 = make_scene.count_summary(make_scene.candidate_counts(g250, cam250))
+    renderer, jax_budget, jax_bands = JAX_STRUCT_CMD
+    w, h = STRUCT_SMALL_RES
+    for budget_250 in (jax_budget, c250["least_candidates"]):
+        wall, line, counts = struct_cli(ply250, STRUCT_SMALL_RES, renderer,
+                                        budget_250, jax_bands,
+                                        tmp / "s250k.npy")
+        add_counts(launches, counts)
+        check(counts["peel_fwd"] == jax_bands, f"structured 250k CLI: "
+              f"launches {counts}")
+        with torch.inference_mode():
+            _, stats = render(g250, cam250, depth=DEPTH, with_stats=True,
+                              renderer=renderer, max_candidates=budget_250,
+                              tile_bands=jax_bands)
+        dropped = int(stats["local_overflow"]) + int(stats["global_overflow"])
+        say(21, f"structured 250k CLI render --renderer {renderer} "
+                f"--max-candidates {budget_250} --tile-bands {jax_bands} at "
+                f"{w}x{h}, view pose: {wall:.2f} s wall, launches {counts}, "
+                f"printed '{line}'; dropped pairs {dropped} (counts: max "
+                f"{c250['max_slots']}, p99 {c250['p99_slots']:.0f}, "
+                f"{c250['tiles_over_416']} of {c250['tiles']} tiles over "
+                f"{make_scene.SMEM_SLOTS}, global {c250['global']})")
+        if budget_250 != jax_budget:
+            check(dropped == 0, f"structured 250k: {dropped} pairs dropped "
+                  f"at its least budget {budget_250}")
+
+    # The whole keys frame, kernel path against twin path, and the busiest
+    # band of the default frame against its twin.
+    frame_parity(g, dict(res=FULL_RES, max_candidates=budget, max_global=64,
+                         bin_narrow=4), dev, cam=cam, phase=21,
+                 label=f"the structured 1M scene (keys, {budget} candidates)")
+    kw = dict(max_candidates=budget, max_global=64, bin_narrow=4,
+              tile_bands=BANDS)
+    with torch.inference_mode():
+        img, stages, _, per_band, band = fused_frame(g, cam, DEPTH, kw)
+    counts = band["cand"].ge(0).sum(1)
+    say(21, f"structured 1M default frame split: "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
+            + "; peel_fwd by band " + ", ".join(f"{m:.2f}" for m in per_band)
+            + f" ms; the busiest band holds {int((counts > 416).sum())} of "
+            f"{counts.numel()} tiles over {make_scene.SMEM_SLOTS} slots, "
+            f"longest {int(counts.max())}")
+    check(band["dropped"] == 0, f"structured 1M band: dropped "
+          f"{band['dropped']}")
+    del img
+    out = band_against_twin(band, 21, "the structured 1M scene's busiest "
+                            "band")
+    out["budget"] = budget
+    return launches, out
+
+
+def phase21_fitbench(g100k):
+    """scripts/fitbench.py's protocol at its size through ``pallas`` and
+    ``keys``: PSNR must rise by MIN_PSNR_RISE."""
+    from rtgs_tpu_torch.probes import fitbench
+
+    launches = {}
+    steps = {}
+    for renderer in ("pallas", "keys"):
+        r, counts = counted(lambda: fitbench.run(
+            g100k, steps=FITBENCH_STEPS, views=FITBENCH_VIEWS,
+            res=CFG_FIT["res"], depth=DEPTH,
+            cand=CFG_FIT["max_candidates"], renderer=renderer,
+            log=lambda m: None))
+        add_counts(launches, counts)
+        rise = r["last_psnr"] - r["first_psnr"]
+        steps[renderer] = r["median_step_ms"]
+        say(21, f"fitbench 100k@{CFG_FIT['res'][0]}x{CFG_FIT['res'][1]}, "
+                f"{FITBENCH_VIEWS} views, {FITBENCH_STEPS} steps through "
+                f"{renderer}: PSNR {r['first_psnr']:.2f} -> "
+                f"{r['last_psnr']:.2f} dB (means over the first and last "
+                f"{FITBENCH_VIEWS} steps; rise limit {MIN_PSNR_RISE:g}); "
+                f"curve " + " ".join(f"{c['step']}:{c['psnr']:.2f}"
+                                     for c in r["curve"])
+                + f"; median step {r['median_step_ms']} ms (host clock with "
+                f"sync, steps 3-{FITBENCH_STEPS}); {r['wall_s']} s wall; "
+                f"peak {r['peak_gib']:.2f} GiB; launches {counts}")
+        check(rise >= MIN_PSNR_RISE, f"fitbench through {renderer}: PSNR "
+              f"rose {rise:.3f} dB")
+    return launches, steps
+
+
+def phase21_fitscratch(g100k, dev, tmp):
+    """scripts/fitscratch.py's protocol: FITSCRATCH_COLLAPSE steps of it on
+    the uniform box its code fits (F11, reported); on the structured scene
+    the standard run (FITSCRATCH_STEPS steps through the default renderer,
+    pallas on the card), its first FITSCRATCH_CUT steps again (PSNRs,
+    parameters and mask bitwise), and those steps through keys; Adam's
+    state checked after every step."""
+    import torch
+
+    from rtgs_tpu_torch.probes import fitscratch
+
+    def watcher(snap=None):
+        seen = {"cap": None}
+
+        def watch(solver, m):
+            for grp, p in zip(solver.optimizer.param_groups, solver.params):
+                st = solver.optimizer.state.get(p, {})
+                check(grp["params"][0] is p and int(st.get("step", -1))
+                      == solver.step, f"step {solver.step}: Adam's group "
+                      f"{grp['name']} holds another tensor, or its step "
+                      f"count {st.get('step')} is not the solver's")
+            cap = solver.mask.shape[0]
+            if "grown" in seen:
+                moved = not torch.equal(seen.pop("grown"),
+                                        solver.params.means.detach())
+                check(moved, f"step {solver.step}: the step after a growth "
+                      f"did not update the new leaves")
+            if seen["cap"] is not None and cap != seen["cap"]:
+                seen["grown"] = solver.params.means.detach().clone()
+            seen["cap"] = cap
+            if snap is not None and solver.step == FITSCRATCH_CUT:
+                snap["params"] = [p.detach().clone() for p in solver.params]
+                snap["mask"] = solver.mask.clone()
+        return watch
+
+    def report(label, r, counts):
+        growths = "; ".join(
+            f"step {s}: {a} -> {b}" + (f" ({m['allocated_gib']:.2f} GiB "
+                                       f"allocated, peak {m['peak_gib']:.2f})"
+                                       if m else "")
+            for (s, a, b), m in zip(r["capacity_growths"],
+                                    r["growth_memory"]
+                                    + [None] * len(r["capacity_growths"])))
+        host = r["host_roundtrips"]
+        blown = [i + 1 for i, p in enumerate(r["psnrs"]) if not p > 0]
+        say(21, f"fitscratch {label}: {r['steps']} steps, seed "
+                f"{r['seed_points']} of {r['gt_n']}, {r['views']} views at "
+                f"{r['res'][0]}x{r['res'][1]}: growths {growths}; "
+                f"capacities {r['capacities']}; final live "
+                f"{r['final_live']}, PSNR {r['final_psnr']}; curve "
+                + " ".join(f"{s}:{p}/{n}" for s, p, n in r["psnr_curve"])
+                + f"; median steady step {r['median_step_ms']} ms (host "
+                f"clock with sync); {r['total_fit_s']} s of steps; peak "
+                f"{r['peak_gib']:.2f} GiB; dropped pairs summed over every "
+                f"step {r['dropped_pairs']}; host round trips at "
+                f"{r['final_live']} live: gradient norms "
+                f"{host['grad_norms_ms']:.3f} ms, the density pass's "
+                f"parameter copy {host['host_params_ms']:.3f} ms; reloaded "
+                f"{r['reloaded']} splats; launches {counts}; steps whose PSNR "
+                f"is not positive (an f32 exponent blown up, F2): "
+                f"{len(blown)} {blown[:20]}")
+        # The asserts read the run up to its gate; past it the f32
+        # exponent (F2) may blow up any step's image, so the tail is
+        # reported above, not asserted.
+        gate, views = min(FITSCRATCH_GATE, r["steps"]), r["views"]
+        grown = [e for e in r["capacity_growths"] if e[0] <= gate]
+        live = {s: n for s, _, n in r["psnr_curve"]}[gate]
+        first = statistics.mean(r["psnrs"][:views])
+        last = statistics.mean(r["psnrs"][gate - views:gate])
+        say(21, f"fitscratch {label}, at step {gate}: {len(grown)} growths "
+                f"by then, {live} live; mean PSNR over steps 1-{views} "
+                f"{first:.2f} dB, over steps {gate - views + 1}-{gate} "
+                f"{last:.2f} dB")
+        check(len(grown) >= 1 and live > r["seed_points"], f"fitscratch "
+              f"{label}: growths {grown}, {live} live at step {gate}")
+        check(last - first >= MIN_PSNR_RISE, f"fitscratch {label}: PSNR "
+              f"rose {last - first:.3f} dB by step {gate}")
+        check(r["reloaded"] == r["final_live"], f"fitscratch {label}: the "
+              f".ply reloaded {r['reloaded']} of {r['final_live']} splats")
+        check(r["dropped_pairs"] in (0, None), f"fitscratch {label}: "
+              f"{r['dropped_pairs']} pairs dropped")
+
+    launches = {}
+    box, counts = counted(lambda: fitscratch.run(
+        g100k, steps=FITSCRATCH_STEPS, stop_at=FITSCRATCH_COLLAPSE,
+        renderer="auto", out=str(tmp / "box.ply"), log=lambda m: None))
+    add_counts(launches, counts)
+    solver = box.pop("solver")
+    seed_scale = float(torch.exp(fitscratch.seed_params(
+        g100k, box["seed_points"])[0].log_scales[0, 0]))
+    say(21, f"fitscratch as the script's code runs it (random_scene, "
+            f"{FITSCRATCH_COLLAPSE} of {FITSCRATCH_STEPS} steps, auto -> "
+            f"pallas): live " + " ".join(f"{s}:{n}" for s, _, n in
+                                        box["psnr_curve"])
+            + f", PSNR " + " ".join(f"{s}:{p}" for s, p, _ in
+                                    box["psnr_curve"])
+            + f"; the world-size prune at the step-100 pass is 0.1 x "
+            f"{solver.scene_extent:.3f} = {0.1 * solver.scene_extent:.3f} "
+            f"against the seeds' isotropic scale {seed_scale:.3f}; fault "
+            f"F11, shared with the JAX package "
+            f"(tests/test_torch_fitscratch.py)")
+    del solver, box
+
+    from rtgs_tpu_torch.probes import make_scene
+
+    gt = make_scene.structured_scene(g100k.num, device=dev)
+    least = [make_scene.candidate_counts(gt, cam) for cam in
+             fitscratch_cameras(dev)]
+    say(21, f"structured 100k ground truth, its 16 views at 512x384: least "
+            f"clean budgets {max(c['least_candidates'] for c in least)} / "
+            f"{max(c['least_global'] for c in least)}; the fits bin at "
+            f"{FITSCRATCH_BUDGETS['cand']} / {FITSCRATCH_BUDGETS['glob']}")
+    budgets = FITSCRATCH_BUDGETS
+    snap = {}
+    std, counts = counted(lambda: fitscratch.run(
+        gt, steps=FITSCRATCH_STEPS, renderer="auto",
+        out=str(tmp / "fitscratch.ply"), count_dropped=True,
+        on_step=watcher(snap), log=lambda m: None, **budgets))
+    add_counts(launches, counts)
+    check(counts["peel_fwd"] > 0 and counts["keys_sid"] == 0,
+          f"fitscratch auto: launches {counts}")
+    report(f"structured (auto -> pallas, {FITSCRATCH_STEPS} steps)", std,
+           counts)
+    std.pop("solver")
+    rep, counts = counted(lambda: fitscratch.run(
+        gt, steps=FITSCRATCH_STEPS, stop_at=FITSCRATCH_CUT,
+        renderer="auto", out=str(tmp / "repeat.ply"), log=lambda m: None,
+        **budgets))
+    add_counts(launches, counts)
+    same = rep["psnrs"] == std["psnrs"][:FITSCRATCH_CUT] and all(
+        torch.equal(a, b.detach()) for a, b in zip(snap["params"],
+                                                    rep["solver"].params))
+    same = same and torch.equal(snap["mask"], rep["solver"].mask)
+    check(same, f"fitscratch: the first {FITSCRATCH_CUT} steps again are "
+          f"not bitwise the standard run's")
+    say(21, f"fitscratch: the first {FITSCRATCH_CUT} steps again "
+            f"({len(rep['capacity_growths'])} growths in them): every PSNR, "
+            f"parameter and the mask bitwise the first run's")
+    del rep, snap
+    keys, counts = counted(lambda: fitscratch.run(
+        gt, steps=FITSCRATCH_STEPS, stop_at=FITSCRATCH_CUT,
+        renderer="keys", out=str(tmp / "keys.ply"), count_dropped=True,
+        on_step=watcher(), log=lambda m: None, **budgets))
+    add_counts(launches, counts)
+    report(f"structured, keys (the first {FITSCRATCH_CUT} steps)", keys,
+           counts)
+    keys.pop("solver")
+    return launches, std, keys
+
+
+def fitscratch_cameras(dev):
+    """The 16 orbit views of the fitscratch protocol (512x384, r 5)."""
+    return [bench_camera((512, 384), dev, theta=2 * math.pi * i / 16)
+            for i in range(16)]
+
+
+def phase21_imquality(scenes, dev):
+    """The production renders (keys and auto) of the three bench
+    configurations against their twins (bitwise) and against the oracle
+    where it runs (IMQ_MIN_PSNR, IMQ_MIN_SSIM); the JAX package's TPU
+    quality record beside them."""
+    from rtgs_tpu_torch.probes import imquality
+    from rtgs_tpu_torch.probes._common import BENCH_CONFIGS
+    from rtgs_tpu_torch.scene import random_scene
+
+    record = ROOT / "IMQUALITY_r05.json"
+    jax_rows = (json.loads(record.read_text())["rows"]
+                if record.is_file() else [])
+    launches, rows = {}, []
+    for i, cfg in enumerate(BENCH_CONFIGS):
+        g = scenes.get(cfg["n"])
+        if g is None:
+            g = random_scene(cfg["n"], device=dev, **BENCH_SCENE)
+        out, counts = counted(lambda: imquality.run_config(
+            cfg, dev, g=g, log=lambda m: None))
+        add_counts(launches, counts)
+        w, h = cfg["res"]
+        check(out["oracle"] == (cfg["n"] * w * h <= imquality.ORACLE_LIMIT),
+              f"imquality {cfg['label']}: oracle {out['oracle']}")
+        for row in out["rows"]:
+            twin = row["prod_vs_twin"]
+            check(twin["psnr_db"] == 120.0 and twin["max_absdiff"] == 0.0,
+                  f"imquality {cfg['label']} {row['row']}: production "
+                  f"against twin {twin}")
+            oracle = ""
+            if "prod_vs_oracle" in row:
+                po, to = row["prod_vs_oracle"], row["twin_vs_oracle"]
+                check(po["psnr_db"] >= IMQ_MIN_PSNR
+                      and po["ssim"] >= IMQ_MIN_SSIM,
+                      f"imquality {cfg['label']} {row['row']}: production "
+                      f"against oracle {po}")
+                oracle = (f"; against the oracle ({row['oracle_ms']:.0f} ms)"
+                          f" production {po}, twin {to}")
+            say(21, f"imquality {cfg['label']} {row['row']} "
+                    f"({row['renderer']}): production {row['prod_ms']:.1f} "
+                    f"ms, twin {row['twin_ms']:.0f} ms; production against "
+                    f"twin {twin}{oracle}")
+            rows.append(row)
+        if i < len(jax_rows):
+            j = {k: v for k, v in jax_rows[i].items()
+                 if k not in ("res", "backend")}
+            say(21, f"the JAX package's record there (TPU v5e, "
+                    f"IMQUALITY_r05.json; quality, not time): {j}")
+        check(counts["keys_sid"] > 0 and counts["peel_fwd"] > 0,
+              f"imquality {cfg['label']}: launches {counts}")
+    return launches, rows
+
+
+def phase21_trace(dev, tmp):
+    """scripts/trace_step.py's protocol: TRACE_STEPS traced pallas steps
+    at 100k@256x256, depth 8; the summary must name the training
+    kernels."""
+    from rtgs_tpu_torch.probes import trace_step
+
+    out, counts = counted(lambda: trace_step.run(
+        100_000, TRACE_STEPS, str(tmp / "trace"), dev, log=lambda m: None))
+    k = out["kernels"]
+    say(21, f"trace_step 100k@256x256, {TRACE_STEPS} traced steps: "
+            f"{out['ms_per_step']:.1f} ms a step (trace on), {out['files']} "
+            f"files, {out['bytes'] / 1e6:.1f} MB; device ms a step by "
+            f"kernel: " + ", ".join(
+                f"{g} {v['us'] / TRACE_STEPS / 1e3:.3f} "
+                f"({v['kernels'] // TRACE_STEPS} kernels)"
+                for g, v in k.items())
+            + f"; launches {counts}")
+    for g in ("peel_fwd", "peel_bwd", "segment_rows"):
+        check(k[g]["kernels"] > 0, f"trace_step: no {g} kernel in the "
+              f"trace ({k})")
+    return counts
+
+
+def phase21_stages(dev):
+    """probes.stages at 100k@640x384 and 1M@1920x1088, both renderers."""
+    from rtgs_tpu_torch.probes import stages
+
+    launches = {}
+    for n, (w, h), cand, narrow, bands in (
+            (100_000, (640, 384), 1536, 3, 0),
+            (1_000_000, FULL_RES, 3584, 4, BANDS)):
+        for renderer in ("keys", "pallas"):
+            out, counts = counted(lambda: stages.stage_table(
+                n, w, h, dev, cand=cand, glob=128, bands=bands,
+                narrow=narrow, renderer=renderer, log=lambda m: None))
+            add_counts(launches, counts)
+            check(out["dropped"] == 0, f"stages {n}@{w}x{h}: dropped "
+                  f"{out['dropped']}")
+            part = (f" (kernel and shade on {out['band_tiles']} of "
+                    f"{out['tiles']} tiles)" if bands else "")
+            say(21, f"stages {n}@{w}x{h} {renderer}, bands {bands or 1} "
+                    f"(CUDA events, median of 5){part}: "
+                    + ", ".join(f"{k} {v:.3f} ms"
+                                for k, v in out["stages_ms"].items()))
+    return launches
+
+
+def phase21_tools(g100k, g1m, dev):
+    """Phase 21. Returns the launches of its main paths by kernel and the
+    structured band's numbers."""
+    launches, secs = {}, {}
+    t_all = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        counts, band = phase21_make_scene(g1m, dev, tmp)
+        add_counts(launches, counts)
+        secs["make_scene"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_counts(launches, phase21_fitbench(g100k)[0])
+        secs["fitbench"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_counts(launches, phase21_fitscratch(g100k, dev, tmp)[0])
+        secs["fitscratch"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_counts(launches, phase21_imquality(
+            {100_000: g100k, 1_000_000: g1m}, dev)[0])
+        secs["imquality"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        add_counts(launches, phase21_trace(dev, tmp))
+        secs["trace_step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    add_counts(launches, phase21_stages(dev))
+    secs["stages"] = time.perf_counter() - t0
+    say(21, f"phase 21 took {time.perf_counter() - t_all:.1f} s: "
+            + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
+            + f"; launches on its main paths {launches}")
+    return launches, band
+
+
 def run():
-    if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
-        raise SmokeFailure(f"no rtgs_tpu_torch package beside {__file__}")
-    sys.path.insert(0, str(ROOT))
     import torch
 
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
@@ -4243,9 +4726,9 @@ def run():
 
     from rtgs_tpu_torch.scene import random_scene
 
-    g100k = random_scene(CFG_100K["n"], device=dev, **SCENE)
+    g100k = random_scene(CFG_100K["n"], device=dev, **BENCH_SCENE)
     case_100k = phase3_case("100k@640x384", g100k, CFG_100K, dev)
-    g1m = random_scene(CFG_1M_GATE["n"], device=dev, **SCENE)
+    g1m = random_scene(CFG_1M_GATE["n"], device=dev, **BENCH_SCENE)
     case_1m = phase3_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     frame_parity(g1m, CFG_1M_GATE, dev)
     phase3_anisotropic(dev)
@@ -4274,11 +4757,13 @@ def run():
         phase11_tiled(g100k, ply_4k, dev, pathlib.Path(tmp))
 
     phase12_gradients(g100k, dev)
+    from rtgs_tpu_torch.probes._common import BENCH_CONFIGS
+
     scenes = {100_000: g100k, 1_000_000: g1m}
     for cfg in BENCH_CONFIGS:
         g = scenes.get(cfg["n"])
         if g is None:
-            g = random_scene(cfg["n"], device=dev, **SCENE)
+            g = random_scene(cfg["n"], device=dev, **BENCH_SCENE)
         launches += phase12_bench(cfg, g, dev)
     del g, scenes
     with tempfile.TemporaryDirectory() as tmp:
@@ -4306,6 +4791,11 @@ def run():
     seg_launches += deep["segment_rows_cuda"]
     default_launches, band = phase20_default(g1m, dev)
     fwd_launches += default_launches
+    tools, _ = phase21_tools(g100k, g1m, dev)
+    launches += tools.get("keys_sid", 0)
+    fwd_launches += tools.get("peel_fwd", 0)
+    bwd_launches += tools.get("peel_bwd", 0)
+    seg_launches += tools.get("segment_rows", 0)
     del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
@@ -4407,8 +4897,9 @@ def run():
            f"sharded steps; {seg_bench} more in phase "
            f"18's 1M forward+backward), keys_sid's 100k@640x384; the probe "
            f"families' are sums over their variants; launches include "
-           f"phase 19's deep main path ({deep}) and phase 20's default "
-           f"path ({default_launches} of peel_fwd)")
+           f"phase 19's deep main path ({deep}), phase 20's default "
+           f"path ({default_launches} of peel_fwd) and phase 21's tools "
+           f"({tools})")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -16,4 +16,19 @@ kernels' launch shape, each runnable as
 
 Every variant is a function with a defined result; beside each kernel
 stands a plain torch version, which the wrappers take for CPU tensors only.
+
+The JAX package's production-scale tools, each a function and a program,
+with no kernel of their own:
+
+  * :mod:`~rtgs_tpu_torch.probes.make_scene` — the structured scene and
+    each tile's candidate count;
+  * :mod:`~rtgs_tpu_torch.probes.fitbench` — the recovery fit;
+  * :mod:`~rtgs_tpu_torch.probes.fitscratch` — the fit from a sparse seed
+    with density control;
+  * :mod:`~rtgs_tpu_torch.probes.imquality` — full-frame image quality
+    against the twins and the oracle;
+  * :mod:`~rtgs_tpu_torch.probes.trace_step` — a profiler trace of
+    training steps;
+  * :mod:`~rtgs_tpu_torch.probes.stages` — the stage split of the keys and
+    fused paths.
 """
