@@ -12,10 +12,16 @@ the targets, depth 8, ``renderer="pallas"``, ``TrainConfig()``. One warm
 step runs outside the trace window; then ``steps`` (default 3) run inside
 ``utils.profiling.trace``, which writes ``trace.json`` to ``outdir``
 (default ``rtgs_torch_trace`` in the temporary directory). Printed: ms a
-step (host clock, the trace on), the trace's file count and size, and the
+step (host clock, the trace on), the trace's file count and size, the
 device time summed by kernel group (:data:`GROUPS`; the rest under
-``other``). On the CPU the trace holds no device kernels and the summary
-is empty.
+``other``), and the program's own record of the traced steps
+(``utils.profiling.read``): per span (``fit.step``, its phases
+``fit.forward``, ``fit.loss``, ``fit.backward``, ``fit.adam``,
+``fit.readback``, and the frame's ``render.*`` layers) the spans a step,
+their host ms a step and, on the card, their stream ms a step (how long
+the layer held the stream, busy or waiting for the host), and the pairs
+the binning dropped a step. On the CPU the trace holds no device kernels,
+the kernel summary is empty and the spans have no stream ms.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ def run(n: int = 100_000, steps: int = 3, outdir: str | None = None,
     from rtgs_tpu_torch.scene import random_scene
     from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
     from rtgs_tpu_torch.train.solver import Solver, init_params
-    from rtgs_tpu_torch.utils.profiling import trace
+    from rtgs_tpu_torch.utils import profiling
 
     dev = _common.device_of(str(device))
     g = random_scene(n, device=dev, **_common.BENCH_SCENE)
@@ -80,7 +86,8 @@ def run(n: int = 100_000, steps: int = 3, outdir: str | None = None,
     t0 = time.time()
     m = solver.train_step()
     log(f"warm step: {time.time() - t0:.1f}s  loss={m['loss']:.4f}")
-    with trace(outdir) as logdir:
+    profiling.clear()
+    with profiling.trace(outdir) as logdir:
         t0 = time.time()
         for _ in range(steps):
             m = solver.train_step()
@@ -96,9 +103,22 @@ def run(n: int = 100_000, steps: int = 3, outdir: str | None = None,
     for name, s in summary.items():
         log(f"  {name:13s} {s['us'] / steps / 1e3:8.3f} ms a step in "
             f"{s['kernels'] / steps:.0f} kernels")
+    record = profiling.read()
+    spans = {name: {"count": s["count"] / steps,
+                    "host_ms": s["host_ms"] / steps,
+                    "stream_ms": (None if s["stream_ms"] is None
+                                  else s["stream_ms"] / steps)}
+             for name, s in record["spans"].items()}
+    log("spans a step (count, host ms, stream ms):")
+    for name, s in spans.items():
+        stream = ("-" if s["stream_ms"] is None
+                  else f"{s['stream_ms']:8.3f}")
+        log(f"  {name:18s} {s['count']:4.1f} {s['host_ms']:8.3f} {stream}")
+    dropped = record["counters"].get("binning.dropped_pairs", 0) / steps
+    log(f"dropped pairs a step: {dropped:g}")
     return {"n": n, "steps": steps, "ms_per_step": dt * 1e3,
             "logdir": logdir, "files": len(files), "bytes": total,
-            "kernels": summary}
+            "kernels": summary, "spans": spans, "dropped_pairs": dropped}
 
 
 def main(argv=None):

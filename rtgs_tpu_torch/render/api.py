@@ -28,6 +28,7 @@ import torch
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
+from rtgs_tpu_torch.utils.profiling import span
 
 _TILED_ONLY = ("max_candidates", "max_global", "tile_bands",
                "max_tiles_local", "tile", "bin_narrow")
@@ -55,25 +56,27 @@ def resolve_renderer(renderer: str, num: int, device) -> str:
 
 def render(g: G.Gaussians, camera: Camera, depth: int = 16,
            renderer: str = "auto", **kwargs) -> torch.Tensor:
-    """Render a full frame. Returns (W, H, 3) radiance."""
-    renderer = resolve_renderer(renderer, g.num, g.device)
-    if renderer == "keys":
-        from rtgs_tpu_torch.render.tiled import render_tiled_keys
+    """Render a full frame. Returns (W, H, 3) radiance. Under a profiler
+    the frame is one ``render`` span, the top of its layers' spans."""
+    with span("render", g.device):
+        renderer = resolve_renderer(renderer, g.num, g.device)
+        if renderer == "keys":
+            from rtgs_tpu_torch.render.tiled import render_tiled_keys
 
-        return render_tiled_keys(g, camera, depth=depth, **kwargs)
-    if renderer == "pallas":
-        from rtgs_tpu_torch.render.tiled import render_tiled_pallas
+            return render_tiled_keys(g, camera, depth=depth, **kwargs)
+        if renderer == "pallas":
+            from rtgs_tpu_torch.render.tiled import render_tiled_pallas
 
-        return render_tiled_pallas(g, camera, depth=depth, **kwargs)
-    if renderer == "oracle":
-        from rtgs_tpu_torch.render.oracle import render_oracle
+            return render_tiled_pallas(g, camera, depth=depth, **kwargs)
+        if renderer == "oracle":
+            from rtgs_tpu_torch.render.oracle import render_oracle
 
-        kwargs = {k: v for k, v in kwargs.items() if k not in _TILED_ONLY}
-        return render_oracle(g, camera, depth=depth, **kwargs)
-    from rtgs_tpu_torch.render.tiled import render_tiled   # "tiled"
+            kwargs = {k: v for k, v in kwargs.items() if k not in _TILED_ONLY}
+            return render_oracle(g, camera, depth=depth, **kwargs)
+        from rtgs_tpu_torch.render.tiled import render_tiled   # "tiled"
 
-    kwargs.pop("tile_bands", None)
-    return render_tiled(g, camera, depth=depth, **kwargs)
+        kwargs.pop("tile_bands", None)
+        return render_tiled(g, camera, depth=depth, **kwargs)
 
 
 def render_progressive(g: G.Gaussians, camera: Camera, depth: int = 16,

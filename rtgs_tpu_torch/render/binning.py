@@ -29,6 +29,7 @@ import torch
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
+from rtgs_tpu_torch.utils import profiling
 from rtgs_tpu_torch.utils import quaternion as quat
 
 _INT32_MAX = 2**31 - 1
@@ -231,6 +232,11 @@ def tile_candidates(
                                  min=0).sum()
     global_overflow = torch.clamp(tcounts[num_tiles] - max_global, min=0)
     counts = cl + n_glob
+    # The binning's work and its losses, for a profiled window: the live
+    # (tile, splat) pairs and those the budgets dropped.
+    profiling.count("binning.live_pairs", counts)
+    profiling.count("binning.dropped_pairs", local_overflow)
+    profiling.count("binning.dropped_pairs", global_overflow)
 
     chunk_lb = None
     if chunk:

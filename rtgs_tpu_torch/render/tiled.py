@@ -50,6 +50,7 @@ from rtgs_tpu_torch.ops.peel import (CHUNK, G_DIM, entry_depth, peel_fused,
                                      peel_keys, segment_rows)
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.utils import quaternion as quat
+from rtgs_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -423,15 +424,21 @@ def render_tiled_keys(
     w, h = camera.buf_size
     tw, th = tile
     ntx, nty = -(-w // tw), -(-h // th)
-    packed = pack_features(precompute_features(g, camera))
+    dev = g.device
+    with span("render.features", dev):
+        packed = pack_features(precompute_features(g, camera))
     with torch.no_grad():
-        binning = tile_candidates(
-            g, camera, tile=tile, max_candidates=max_candidates,
-            max_global=max_global, max_tiles_local=max_tiles_local,
-            pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow,
-            chunk=CHUNK, entry_lb=entry_lower_bound(g, camera, packed))
+        with span("render.entry_lb", dev):
+            entry_lb = entry_lower_bound(g, camera, packed)
+        with span("render.binning", dev):
+            binning = tile_candidates(
+                g, camera, tile=tile, max_candidates=max_candidates,
+                max_global=max_global, max_tiles_local=max_tiles_local,
+                pad_px=0.0 if pixel_offset is None else 0.5,
+                narrow=bin_narrow, chunk=CHUNK, entry_lb=entry_lb)
     cand, lb = binning.candidates, binning.chunk_lb
-    pix = _tile_pixel_features(camera, tile, pixel_offset)
+    with span("render.features", dev):
+        pix = _tile_pixel_features(camera, tile, pixel_offset)
 
     def band(packed, cand_b, pix_b, lb_b, counts_b):
         with torch.no_grad():
@@ -444,17 +451,21 @@ def render_tiled_keys(
     nb = _band_size(t, tile_bands)
     remat = nb < t and torch.is_grad_enabled() and packed.requires_grad
     rads = []
-    for s in range(0, t, nb):
-        args = (packed, cand[s:s + nb], pix[s:s + nb], lb[s:s + nb],
-                binning.counts[s:s + nb])
-        if remat:
-            rads.append(torch.utils.checkpoint.checkpoint(
-                band, *args, use_reentrant=False, preserve_rng_state=False))
-        else:
-            rads.append(band(*args))
-    rad = torch.cat(rads)
-    img = _tiles_to_image(rad, ntx, nty, tile)[:w, :h]
-    if with_stats:
+    with span("render.keys_shade", dev):
+        for s in range(0, t, nb):
+            args = (packed, cand[s:s + nb], pix[s:s + nb], lb[s:s + nb],
+                    binning.counts[s:s + nb])
+            if remat:
+                rads.append(torch.utils.checkpoint.checkpoint(
+                    band, *args, use_reentrant=False,
+                    preserve_rng_state=False))
+            else:
+                rads.append(band(*args))
+    with span("render.assemble", dev):
+        rad = torch.cat(rads)
+        img = _tiles_to_image(rad, ntx, nty, tile)[:w, :h]
+        if not with_stats:
+            return img
         stats = {
             "live": (binning.candidates >= 0).sum(),
             "local_overflow": binning.local_overflow,
@@ -463,7 +474,6 @@ def render_tiled_keys(
                             * CHUNK).sum(),
         }
         return img, stats
-    return img
 
 
 def render_tiled_pallas(
@@ -495,33 +505,37 @@ def render_tiled_pallas(
     w, h = camera.buf_size
     tw, th = tile
     ntx, nty = -(-w // tw), -(-h // th)
-    with torch.no_grad():
+    dev = g.device
+    with torch.no_grad(), span("render.binning", dev):
         binning = tile_candidates(
             g, camera, tile=tile, max_candidates=max_candidates,
             max_global=max_global, max_tiles_local=max_tiles_local,
             pad_px=0.0 if pixel_offset is None else 0.5, narrow=bin_narrow)
-    cand = binning.candidates
-    pad_c = (-cand.shape[1]) % CHUNK
-    if pad_c:
-        cand = F.pad(cand, (0, pad_c), value=-1)
-    packed = pack_features(precompute_features(g, camera))
-    pix = _tile_pixel_features(camera, tile, pixel_offset)
+        cand = binning.candidates
+        pad_c = (-cand.shape[1]) % CHUNK
+        if pad_c:
+            cand = F.pad(cand, (0, pad_c), value=-1)
+    with span("render.features", dev):
+        packed = pack_features(precompute_features(g, camera))
+        pix = _tile_pixel_features(camera, tile, pixel_offset)
 
     t = cand.shape[0]
     nb = _band_size(t, tile_bands)
-    rad = torch.cat([
-        peel_fused(packed, cand[s:s + nb], pix[s:s + nb], depth,
-                   impl=peel_impl)[0]
-        for s in range(0, t, nb)])                      # (T, 3, P)
-    img = _tiles_to_image(rad.transpose(1, 2), ntx, nty, tile)[:w, :h]
-    if with_stats:
+    with span("render.peel", dev):
+        rads = [peel_fused(packed, cand[s:s + nb], pix[s:s + nb], depth,
+                           impl=peel_impl)[0]
+                for s in range(0, t, nb)]               # (T, 3, P) each
+    with span("render.assemble", dev):
+        rad = torch.cat(rads)
+        img = _tiles_to_image(rad.transpose(1, 2), ntx, nty, tile)[:w, :h]
+        if not with_stats:
+            return img
         stats = {
             "live": (binning.candidates >= 0).sum(),
             "local_overflow": binning.local_overflow,
             "global_overflow": binning.global_overflow,
         }
         return img, stats
-    return img
 
 
 def intersect_candidates(feats: TileFeatures, cand: torch.Tensor,

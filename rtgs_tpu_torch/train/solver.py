@@ -37,6 +37,7 @@ from rtgs_tpu_torch.camera import Camera
 from rtgs_tpu_torch.config import TrainConfig
 from rtgs_tpu_torch.train.loss import psnr, render_loss
 from rtgs_tpu_torch.utils import quaternion as quat
+from rtgs_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -158,20 +159,26 @@ def _make_step(cfg: TrainConfig, optimizer: torch.optim.Optimizer,
 
     def step(params: SceneParams, mask: torch.Tensor, camera: Camera,
              target: torch.Tensor) -> dict:
+        dev = mask.device
         optimizer.zero_grad(set_to_none=True)
-        img = render_fn(activate(params, mask), camera)
-        loss = render_loss(img, target, cfg.lambda_dssim)
-        loss.backward()
-        for p in params:
-            # optax updates every group each step, zero gradients included.
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        with span("fit.forward", dev):
+            img = render_fn(activate(params, mask), camera)
+        with span("fit.loss", dev):
+            loss = render_loss(img, target, cfg.lambda_dssim)
+        with span("fit.backward", dev):
+            loss.backward()
+            for p in params:
+                # optax updates every group each step, zero gradients
+                # included.
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         with torch.no_grad():
             metrics = {"loss": loss.detach(),
                        "psnr": psnr(img.detach(), target),
                        "grad_means_norm": torch.linalg.norm(
                            params.means.grad, dim=-1)}
-        optimizer.step()
+        with span("fit.adam", dev):
+            optimizer.step()
         return metrics
 
     return step
@@ -289,23 +296,33 @@ class Solver:
         return activate(self.params, self.mask)
 
     def train_step(self) -> dict:
-        i = self.step % len(self.cameras)
-        metrics = self.step_fn(self.params, self.mask, self.cameras[i],
-                               self.targets[i])
-        gn = metrics["grad_means_norm"].cpu().numpy()
-        self._grad_accum += gn
-        # Visibility-weighted stats (3DGS recipe): a Gaussian's densify
-        # signal averages only over steps where it received gradient.
-        self._grad_count += (gn > 0).astype(np.int32)
-        self.step += 1
+        """One step on the next view, then the density pass and the
+        opacity reset where they are due. Under a profiler the step is one
+        ``fit.step`` span, the top of its phases' spans; ``fit.readback``
+        is the host's wait for the step's numbers."""
+        dev = self.mask.device
+        with span("fit.step", dev):
+            i = self.step % len(self.cameras)
+            metrics = self.step_fn(self.params, self.mask, self.cameras[i],
+                                   self.targets[i])
+            with span("fit.readback", dev):
+                gn = metrics["grad_means_norm"].cpu().numpy()
+                out = {k: float(v) for k, v in metrics.items()
+                       if v.ndim == 0}
+            self._grad_accum += gn
+            # Visibility-weighted stats (3DGS recipe): a Gaussian's densify
+            # signal averages only over steps where it received gradient.
+            self._grad_count += (gn > 0).astype(np.int32)
+            self.step += 1
 
-        c = self.cfg
-        if (c.densify_from <= self.step <= c.densify_until
-                and self.step % c.densify_every == 0):
-            self.densify_and_prune()
-        if c.opacity_reset_every and self.step % c.opacity_reset_every == 0:
-            self.reset_opacity()
-        return {k: float(v) for k, v in metrics.items() if v.ndim == 0}
+            c = self.cfg
+            if (c.densify_every and c.densify_from <= self.step
+                    <= c.densify_until and self.step % c.densify_every == 0):
+                self.densify_and_prune()
+            if (c.opacity_reset_every
+                    and self.step % c.opacity_reset_every == 0):
+                self.reset_opacity()
+            return out
 
     # ----- adaptive density control (host-side, static capacity) -----
 

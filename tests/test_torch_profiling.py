@@ -2,14 +2,13 @@
 the JAX package's: ``timed``'s keys and ordering, ``timed`` waiting for
 every card a result's tensors lie on (through dataclasses and nested
 containers, as ``jax.block_until_ready`` waits on every leaf; on the card
-tests/test_torch_profiling_cuda.py), ``Meter.flush``'s
-line, and ``trace`` writing a Chrome trace of a render on the CPU into the
-log directory it yields."""
+tests/test_torch_profiling_cuda.py), and ``trace`` writing a Chrome trace
+of a render on the CPU into the log directory it yields. The spans and
+counters: tests/test_torch_spans.py."""
 
 import dataclasses
 import json
 import os
-import re
 import tempfile
 from typing import NamedTuple
 
@@ -88,19 +87,6 @@ def test_timed_waits_for_every_card_of_the_result(monkeypatch, make, cards):
     out = make()
     prof.timed(lambda: out, iters=3, warmup=1)
     assert synced == cards * 4
-
-
-def test_meter_flush_matches_jax():
-    """The same updates give the same line, apart from the times."""
-    ours, ref = prof.Meter(), jprof.Meter()
-    for m in (ours, ref):
-        m.update(loss=0.5, psnr=20.0)
-        m.update(loss=0.25, psnr=22.0)
-    a, b = ours.flush(7, rays_per_step=1000), ref.flush(7, rays_per_step=1000)
-    times = r"[\d.]+ ms/step|[\d.]+M rays/s"
-    assert (re.sub(times, "T", a) == re.sub(times, "T", b)
-            == "step 7 T T loss=0.375 psnr=21")
-    assert ours.flush(8).startswith("step 8 ")   # reset after a flush
 
 
 def test_trace_writes_chrome_trace(tmp_path):

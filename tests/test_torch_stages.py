@@ -2,8 +2,9 @@
 run on the CPU at a tiny size: every stage is timed (the host clock
 around the plain versions: no device metric), the splits cover their
 stages, and the trace of a training step is written where it says and read
-back by the summary (no device kernels on the CPU). Their numbers mean
-something only on the card (``chip_smoke.py`` phase 21)."""
+back by the summary (no device kernels on the CPU), beside the spans it
+reads from the program's record. Their numbers mean something only on the
+card (``chip_smoke.py`` phase 21)."""
 
 import json
 import math
@@ -66,3 +67,11 @@ def test_trace_step_runs(tmp_path):
     assert set(out["kernels"]) == {g for g, _ in trace_step.GROUPS} | \
         {"other"}
     assert all(v["kernels"] == 0 for v in out["kernels"].values())
+    # The program's record of the traced step: one step and its phases,
+    # host ms only on the CPU, and the binning's dropped pairs.
+    assert {"fit.step", "fit.forward", "fit.loss", "fit.backward",
+            "fit.adam", "fit.readback", "render"} <= set(out["spans"])
+    assert out["spans"]["fit.step"]["count"] == 1
+    assert all(s["host_ms"] > 0 and s["stream_ms"] is None
+               for s in out["spans"].values())
+    assert out["dropped_pairs"] >= 0

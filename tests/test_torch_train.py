@@ -6,6 +6,7 @@ whole training step through the fused-payload renderer (the JAX kernels in
 interpret mode), density control, and the port's own checkpoint, reset,
 dataset and CLI paths."""
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -439,6 +440,19 @@ def test_checkpoint_roundtrip_restores_optimizer(toy_solver, tmp_path):
     assert np.isfinite(toy_solver.train_step()["loss"])
     assert toy_solver.optimizer.param_groups[0]["params"][0] is \
         toy_solver.params.means
+
+
+def test_densify_every_zero_steps_past_densify_from(toy_solver):
+    """``densify_every = 0`` turns the density pass off, as
+    ``opacity_reset_every = 0`` turns the reset off: steps past
+    ``densify_from`` inside ``densify_until`` run and change no capacity
+    (it divided by zero at step ``densify_from``)."""
+    toy_solver.cfg = dataclasses.replace(toy_solver.cfg, densify_from=1,
+                                         densify_until=10, densify_every=0)
+    for _ in range(3):
+        assert np.isfinite(toy_solver.train_step()["loss"])
+    assert toy_solver.step == 3 and toy_solver.num_live == 24
+    assert toy_solver.mask.shape == (24,)
 
 
 def test_grow_keeps_moments(toy_solver):
