@@ -207,6 +207,21 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      tables of both renderers at 100k@640x384 and 1M@1920x1088. Its
      launches join the kernels line.
 
+ 22. the binning kernels (``binning.cu``, ``tile_candidates_cuda``)
+     against the plain chain (``tile_candidates_torch`` on the same CUDA
+     tensors) at the benchmark's two configurations (1M@1920x1088, budgets
+     4608 / 128 / narrow 4, and 100k@512x384, 1536 / 128, from the bench
+     pose), bitwise on every field, with the fused path's arguments and
+     with the keys path's (``chunk=CHUNK`` and ``entry_lb`` from
+     ``entry_lower_bound``); each timed at the fused path's arguments (CUDA
+     events around the call, with its one read of the live count; device
+     ms with the stream kept busy; kernels and their split from a profiler
+     trace past its warm-up) beside the chain and a bound in bytes: the
+     splats' inputs read once (44 B), the live pairs (the
+     ``binning.live_pairs`` count plus the dropped) written and read once
+     as (key, id), the rows written once. Its launches on the main path:
+     one ``render(auto)`` and one ``render(keys)`` frame at 1M@1920x1088,
+     one binning each.
 Then one {"kernels": [...]} JSON line (each kernel with its launches on its
 main path, its time beside the plain version's, and ``bound_ms``: the
 larger of its bytes over the memory rate and its operations over the peak
@@ -4702,6 +4717,108 @@ def phase21_tools(g100k, g1m, dev):
     return launches, band
 
 
+def profiled(fn, reps=10):
+    """Device ms, device operations and the five costliest of them (name,
+    ms) of one ``fn()``, from a ``torch.profiler`` trace of ``reps`` calls
+    after two discarded warm-up steps: a trace's first launches can be
+    missed while the profiler starts."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=2, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(reps + 2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
+            round(sum(e.count for e in events) / reps),
+            [(e.key, e.self_device_time_total / reps / 1e3)
+             for e in events[:5]])
+
+
+def phase22_binning(g1m, g100k, dev):
+    """Phase 22. Returns the 1M row's numbers (err 0: bitwise) with the
+    binnings that one fused and one keys frame at 1M@1920x1088 launched."""
+    import torch
+
+    from rtgs_tpu_torch.ops.peel import CHUNK
+    from rtgs_tpu_torch.render import binning as B
+    from rtgs_tpu_torch.render.api import render
+    from rtgs_tpu_torch.render.tiled import (entry_lower_bound,
+                                             pack_features,
+                                             precompute_features)
+
+    fields = ("candidates", "counts", "local_overflow", "global_overflow",
+              "chunk_lb")
+    full = dict(max_candidates=4608, max_global=128)
+    out = {}
+    for label, g, res, kw in (
+            ("1M@1920x1088", g1m, FULL_RES, dict(full, narrow=4)),
+            ("100k@512x384", g100k, (512, 384),
+             dict(max_candidates=1536, max_global=128))):
+        cam = bench_camera(res, dev)
+        with torch.no_grad():
+            entry_lb = entry_lower_bound(
+                g, cam, pack_features(precompute_features(g, cam)))
+            # The fused path's arguments, then the keys path's.
+            for args in (kw, dict(kw, chunk=CHUNK, entry_lb=entry_lb)):
+                k = B.tile_candidates_cuda(g, cam, **args)
+                p = B.tile_candidates_torch(g, cam, **args)
+                for f in fields:
+                    x, y = getattr(k, f), getattr(p, f)
+                    same = (x is None and y is None) or (
+                        x is not None and y is not None
+                        and x.dtype == y.dtype and torch.equal(x, y))
+                    check(same, f"binning {label} (chunk "
+                                f"{args.get('chunk')}): the kernels' {f} is "
+                                f"not the plain chain's")
+
+            def kernels():
+                return B.tile_candidates_cuda(g, cam, **kw)
+
+            def plain():
+                return B.tile_candidates_torch(g, cam, **kw)
+
+            ms, plain_ms = time_ms(kernels), time_ms(plain)
+            busy = busy_ms(kernels)
+            dev_ms, dev_ops, split = profiled(kernels)
+            plain_dev_ms, plain_ops, _ = profiled(plain, reps=3)
+        t, c = k.candidates.shape
+        pairs = int(k.counts.sum()) + int(k.local_overflow)
+        bound_ms, bound_by = bound(44 * g.num + 16 * pairs + 4 * t * c)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, err=0.0)
+        costliest = ", ".join(f"{name[:48]} {x:.3f}" for name, x in split)
+        say(22, f"binning {label}: bitwise the plain chain at both paths' "
+                f"arguments; {ms:.3f} ms around the call, {busy:.3f} busy "
+                f"(the stream kept busy; the live count's round trip "
+                f"included), device {dev_ms:.3f} ms in {dev_ops} operations "
+                f"({costliest}); plain chain {plain_ms:.3f} ms (device "
+                f"{plain_dev_ms:.3f} in {plain_ops}); bound {bound_ms:.4f} ms "
+                f"({bound_by}: {g.num} splats, {pairs} live pairs, {t}x{c} "
+                f"rows): {bound_ms / ms:.1%} of it around the call, "
+                f"{bound_ms / busy:.1%} busy")
+    # The main path: one binning a frame, fused or keys.
+    cam = bench_camera(FULL_RES, dev)
+    frames = {}
+    with torch.inference_mode():
+        for renderer in ("auto", "keys"):
+            B.tile_candidates_cuda.launches = 0
+            render(g1m, cam, depth=DEPTH, renderer=renderer,
+                   **dict(SERVE_KW, **full))
+            torch.cuda.synchronize()
+            frames[renderer] = B.tile_candidates_cuda.launches
+            check(frames[renderer] == 1,
+                  f"a render({renderer}) frame launched the binning "
+                  f"{frames[renderer]} times, not once")
+    say(22, f"binning launches a 1M@1920x1088 frame: {frames}")
+    return dict(out["1M@1920x1088"], launches=sum(frames.values()))
+
+
 def run():
     import torch
 
@@ -4796,6 +4913,7 @@ def run():
     fwd_launches += tools.get("peel_fwd", 0)
     bwd_launches += tools.get("peel_bwd", 0)
     seg_launches += tools.get("segment_rows", 0)
+    bins = phase22_binning(g1m, g100k, dev)
     del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
@@ -4872,6 +4990,11 @@ def run():
                                 for c in case.values()),
               seg["ms"], seg["plain_ms"], seg["bound_ms"], seg["bound_by"],
               seg["library_ms"]),
+        # No TPU kernel: the JAX package bins in XLA.
+        entry("binning", "binning.cu",
+              "none (XLA: rtgs_tpu/render/binning.py:tile_candidates)",
+              bins["launches"], bins["err"], bins["ms"],
+              bins["plain_ms"], bins["bound_ms"], bins["bound_by"]),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was launched no time on its "
@@ -4899,7 +5022,8 @@ def run():
            f"families' are sums over their variants; launches include "
            f"phase 19's deep main path ({deep}), phase 20's default "
            f"path ({default_launches} of peel_fwd) and phase 21's tools "
-           f"({tools})")
+           f"({tools}); binning's numbers are phase 22's 1M@1920x1088 "
+           f"binning, its launches one fused and one keys frame there")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

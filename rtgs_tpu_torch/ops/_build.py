@@ -105,6 +105,10 @@ SIGNATURES = {
     "rtgs_peel_topk_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
     "rtgs_peel_topk_bwd": (_P,) * 9 + (_I,) * 5 + (_P,),
     "rtgs_segment_rows": (_P,) * 4 + (_I,) * 3 + (_P,),
+    "rtgs_binning_count": (_P,) * 8 + (_I,) * 12 + (_F, _I, _P),
+    "rtgs_binning_scratch_ints": (_I, _I, _P, _I, _P),
+    "rtgs_binning_pair_ints": (_I,) * 3 + (_P, _I, _P),
+    "rtgs_binning_rows": (_P,) * 8 + (_I,) * 14 + (_P,),
     "rtgs_probe_micro": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
     "rtgs_probe_ablate": (_I,) + (_P,) * 5 + (_I,) * 5 + (_F,) * 2 + (_I, _P),
     "rtgs_probe_floor": (_I, _P, _P, _P) + (_I,) * 6 + (_P,),

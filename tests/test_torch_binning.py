@@ -18,6 +18,7 @@ from rtgs_tpu.render.binning import tile_candidates as j_tile_candidates
 from rtgs_tpu.viewer.orbit import orbit_camera_pose
 from rtgs_tpu_torch.bridge import camera_from_numpy, gaussians_from_numpy
 from rtgs_tpu_torch.ops.peel import CHUNK
+from rtgs_tpu_torch.render import binning as B
 from rtgs_tpu_torch.render.binning import tile_candidates
 from rtgs_tpu_torch.scene import random_scene_arrays
 
@@ -30,6 +31,11 @@ CASES = {
     "overflows": dict(n=600, extent=0.6, scale_range=(0.02, 0.3), r=2.0,
                       res=(64, 48), kw=dict(max_candidates=48, max_global=8,
                                             narrow=2)),
+    # More than 32,767 tiles: keys carry the tile alone and chunk_lb is 0
+    # (no tile overflows, so both keep the same sets).
+    "tile_only": dict(n=300, extent=1.0, scale_range=(0.02, 0.1), r=3.0,
+                      res=(512, 256), kw=dict(tile=(2, 2), max_candidates=128,
+                                              max_global=64)),
 }
 
 
@@ -58,6 +64,9 @@ def test_binning_matches_jax(case):
     np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(jb.counts))
     if case == "overflows":
         assert int(jb.local_overflow) > 0 and int(jb.global_overflow) > 0
+    if case == "tile_only":
+        assert tb.n_tiles_x * tb.n_tiles_y > 32767
+        assert int(tb.counts.max()) > 1 and not tb.chunk_lb.any()
 
     jc, tc = np.asarray(jb.candidates), tb.candidates.numpy()
     assert tc.shape == jc.shape and tc.dtype == np.int32
@@ -100,3 +109,34 @@ def test_chunk_lb_is_a_sound_bound():
     lb = b.chunk_lb.numpy()
     for c in range(cand.shape[1] // CHUNK):
         assert not (t1[:, c * CHUNK:] < lb[:, c:c + 1] - 1e-5).any(), c
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cpu_tensors_take_the_plain_version(case):
+    """On CPU tensors the dispatcher runs the plain chain (bitwise its
+    result, the counters included) and never the kernels."""
+    _, _, tg, tcam, kw = _inputs(case)
+    before = B.tile_candidates_cuda.launches
+    b = tile_candidates(tg, tcam, chunk=CHUNK, **kw)
+    p = B.tile_candidates_torch(tg, tcam, chunk=CHUNK, **kw)
+    assert B.tile_candidates_cuda.launches == before
+    for f in ("candidates", "counts", "local_overflow", "global_overflow",
+              "chunk_lb"):
+        x, y = getattr(b, f), getattr(p, f)
+        assert x.dtype == y.dtype and torch.equal(x, y), f
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        B.tile_candidates_cuda(tg, tcam, chunk=CHUNK, **kw)
+
+
+def test_rotation_columns_are_the_rotation():
+    """The written-out columns are quaternion.as_rotation_mat3's, to f32
+    rounding (its products and sums run in the library's order)."""
+    from rtgs_tpu_torch.utils import quaternion as quat
+
+    q = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(4096, 4)).astype(np.float32))
+    cols = B._rotation_columns(q)
+    mine = torch.stack([torch.stack(cols[i], -1) for i in range(3)], -1)
+    ref = quat.as_rotation_mat3(q)
+    scale = (q * q).sum(-1)[:, None, None]
+    assert ((mine - ref).abs() <= 4e-7 * scale).all()
