@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
+from rtgs_tpu_torch.utils import profiling
 
 F_DIM = 64
 G_DIM = 24
@@ -867,15 +868,26 @@ class PeelFused(torch.autograd.Function):
     def backward(ctx, grad_rad, grad_trans, *_floor):
         # Autograd materializes an unused output's cotangent as zeros.
         packed, candidates, pix, slots = ctx.saved_tensors
-        if ctx.use_kernel:
-            dpacked = peel_fused_bwd_cuda(
-                packed, candidates, _counts(candidates), pix, slots,
-                grad_rad.contiguous(), grad_trans.contiguous(), ctx.depth)
-        else:
-            dpacked = _scatter_slot_grads(packed, candidates,
-                                          peel_fused_bwd_torch(
-                                              packed, candidates, pix, slots,
-                                              grad_rad, grad_trans))
+        with profiling.span("peel.backward", packed.device):
+            counts = (_counts(candidates)
+                      if ctx.use_kernel or profiling.recording() else None)
+            if ctx.use_kernel:
+                dpacked = peel_fused_bwd_cuda(
+                    packed, candidates, counts, pix, slots,
+                    grad_rad.contiguous(), grad_trans.contiguous(),
+                    ctx.depth)
+            else:
+                dpacked = _scatter_slot_grads(packed, candidates,
+                                              peel_fused_bwd_torch(
+                                                  packed, candidates, pix,
+                                                  slots, grad_rad,
+                                                  grad_trans))
+            # A band's backward writes a whole table gradient; stage 2
+            # reduces the kernel's pair rows, Σ counts (the twin pads them
+            # to T·C, its padding summed into the sentinel row).
+            profiling.count("peel.backward_bands", 1)
+            profiling.count("peel.table_grad_rows", dpacked.shape[0])
+            profiling.count("peel.winner_rows", counts)
         return dpacked, None, None, None, None, None, None, None
 
 

@@ -189,13 +189,20 @@ class _Span:
             self.events = None
 
 
+def recording() -> bool:
+    """Whether a profiler records on this thread (autograd's device
+    threads inherit the state): spans and counts are live only then."""
+    return torch.autograd._profiler_enabled()
+
+
 def span(name: str, device=None):
     """A context manager around one layer's work, recorded only while a
     profiler records. ``device``: where the work runs; on a CUDA device
     the span also times the current stream. A span opened inside another
     on the same thread is its child and shares its top span's id (one id a
-    frame or a training step)."""
-    if not torch.autograd._profiler_enabled():
+    frame or a training step); one opened on autograd's device thread, as
+    a backward's is on a card, is a top of its own."""
+    if not recording():
         return _OFF
     return _Span(name, device)
 
@@ -204,7 +211,7 @@ def count(name: str, value) -> None:
     """Add ``value`` to the counter ``name`` while a profiler records: a
     number as it comes, a tensor by reference, summed by :func:`read` (no
     operation runs and nothing waits here)."""
-    if torch.autograd._profiler_enabled():
+    if recording():
         values = _RECORD.counters.setdefault(name, [0])
         if isinstance(value, torch.Tensor):
             values.append(value)

@@ -199,3 +199,46 @@ def test_spans_off_share_one_null_context():
         with live:
             pass
     assert prof.read()["spans"]["a"]["count"] == 1
+
+
+@pytest.mark.parametrize("tile_bands", [4, None])
+def test_band_backwards_record_spans_and_counters(monkeypatch, tile_bands):
+    """Each band's backward of the fused path is one ``peel.backward`` span
+    under ``fit.backward``, and counts one band, the (N+1)-row table
+    gradient it writes and the pair rows its stage 2 reduces (Σ of the
+    band's tiles' candidate counts, ``ops.peel._counts``): a step of 8 tiles
+    in 4 bands records 4 of each, an unbanded step 1."""
+    import rtgs_tpu_torch.render.tiled as tiled
+    from rtgs_tpu_torch.ops.peel import CHUNK, _counts
+
+    g = _scene()
+    cam = _camera((64, 32))
+    kw = dict(BUDGETS, tile_bands=tile_bands)
+    with torch.no_grad():
+        target = render(g, cam, depth=4, renderer="pallas", **kw)
+    solver = Solver(params=init_params(g), mask=g.mask,
+                    cfg=TrainConfig(densify_every=0, opacity_reset_every=0,
+                                    checkpoint_every=0),
+                    cameras=[cam], targets=[target], depth=4,
+                    renderer="pallas", render_kwargs=kw)
+    bins, orig = [], tiled.tile_candidates
+
+    def kept(*args, **kwargs):
+        bins.append(orig(*args, **kwargs))
+        return bins[-1]
+
+    monkeypatch.setattr(tiled, "tile_candidates", kept)
+    _profiled(solver.train_step)
+    (b,) = bins
+    cand = torch.nn.functional.pad(
+        b.candidates, (0, (-b.candidates.shape[1]) % CHUNK), value=-1)
+    assert cand.shape[0] == 8
+    bands = 4 if tile_bands else 1
+    got = prof.read()
+    spans = [r for r in got["records"] if r["name"] == "peel.backward"]
+    assert len(spans) == bands
+    assert all(r["parent"] == "fit.backward" for r in spans)
+    assert got["counters"]["peel.backward_bands"] == bands
+    assert got["counters"]["peel.table_grad_rows"] == bands * (g.num + 1)
+    assert got["counters"]["peel.winner_rows"] == int(_counts(cand).sum())
+    assert int(_counts(cand).sum()) > 0
