@@ -171,16 +171,18 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      pass and band; CUDA events), peak memory and dropped pairs (0) beside
      the keys path's frame in the same call, the images to the image
      statistic, the device's busy share at 16; the frame at 16 against the
-     fused twin's; the busiest band's ``peel_fwd`` bitwise its twin, its
-     time beside its bound (these are the kernels line's ms, plain_ms and
-     bound_ms for peel_fwd); ``serve`` over HTTP (a first frame bitwise the
+     fused twin's; the busiest band's ``peel_fwd`` bitwise its twin at
+     depth 16 and 64, its time beside its bound at both (at 16 these are
+     the kernels line's ms, plain_ms and bound_ms for peel_fwd); ``serve``
+     over HTTP (a first frame bitwise the
      in-process render, a cached one launching nothing, pan, zoom,
      rotation; no pose drops a pair); ``ProgressiveSampler`` x4 jittered
      at the smallest budget whose padded binning drops nothing, bitwise
      ``render_progressive``; the oracle against the fused path at 4096 and
      4097 splats at 1920x1088 and 640x384 (``auto`` takes each side of the
-     threshold); ``peel_fwd.cu``'s registers at K = 16 and 64 from the
-     build's report. Its launches join the kernels line;
+     threshold); ``peel_fwd.cu``'s registers and blocks an SM at K = 16
+     and 64 from the build's report (the deep pass must keep 16 warps an
+     SM or more and spill nothing). Its launches join the kernels line;
  21. the JAX package's production-scale tools through the port's probes
      (``probes.make_scene``, ``fitbench``, ``fitscratch``, ``imquality``,
      ``trace_step``, ``stages``), each through its function at the
@@ -422,7 +424,7 @@ def toolchain_stamp(nvcc_version: str) -> str:
 
 def ptxas_summary(log: str) -> str:
     """One entry per kernel instantiation from nvcc's ``-Xptxas -v``."""
-    out, name, frame = [], "?", ""
+    out, name, frame, threads = [], "?", "", 256
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -433,14 +435,19 @@ def ptxas_summary(log: str) -> str:
             name = f"{k.group(1)} {what}{k.group(2)}" if k else m.group(1)
             if "ELb1E" in m.group(1):
                 name += " counting"
+            # peel_fwd's deep pass (K > 16) runs blocks of 512: a lane pair
+            # a pixel.
+            threads = 512 if (k and k.group(1) == "peel_fwd_kernel"
+                              and int(k.group(2)) > 16) else 256
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
             # Registers are granted in units of 8 a thread; an SM has 65,536.
             regs = int(re.search(r"Used (\d+) registers", ln).group(1))
-            fit = 65536 // (-(-regs // 8) * 8 * 256)
+            fit = 65536 // (-(-regs // 8) * 8 * threads)
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {frame}; "
-                       f"registers let {fit} blocks of 256 threads on an SM")
+                       f"registers let {fit} blocks of {threads} threads "
+                       f"({fit * threads // 32} warps) on an SM")
     return " | ".join(out)
 
 
@@ -3851,13 +3858,16 @@ def phase20_frames(g1m, dev):
 
 def band_against_twin(band, phase, label):
     """One band (``fused_frame``'s busiest) through ``peel_fwd`` and its
-    twin at depth 16: winners, radiance and transmittance bitwise; the
-    kernel timed around the wrapper and busy, at K = 16 and 64, the twin
-    (in bands of PLAIN_BAND tiles), the bound. Returns the kernels line's
-    numbers."""
+    twin at depth 16 and at 64 (the deep pass, a lane pair a pixel):
+    winners, radiance and transmittance bitwise; the kernel timed around the
+    wrapper and busy, at K = 16 and 64, the twin (in bands of PLAIN_BAND
+    tiles), the bound (at 64 the benchmark's, ``benchmark/bounds.py``: the
+    f32 screen on every live pair, the float64 chain on the winners).
+    Returns the kernels line's numbers."""
     import torch
 
-    from rtgs_tpu_torch.ops.peel import (_counts, peel_fused_cuda,
+    from benchmark.bounds import peel_bound as launch_bound
+    from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, _counts, peel_fused_cuda,
                                          peel_fused_torch)
 
     packed, cand, pix = band["packed"], band["cand"], band["pix"]
@@ -3885,7 +3895,23 @@ def band_against_twin(band, phase, label):
         shape = launch_shape(packed, cand, pix, sl_k)
         ms, ms_plain, ms_busy = (time_ms(kernel), time_ms(plain, reps=3),
                                  busy_ms(kernel))
-        k64 = busy_ms(lambda: peel_fused_cuda(packed, cand, counts, pix, 64))
+
+        def deep():
+            return peel_fused_cuda(packed, cand, counts, pix, MAX_DEPTH)
+
+        deep_k = deep()
+        deep_p = plain_in_bands(
+            lambda c, x: peel_fused_torch(packed, c, x, MAX_DEPTH),
+            cand.shape[0], cand, pix)
+        torch.cuda.synchronize()
+        for got, ref, what in zip(deep_k, deep_p, ("radiance",
+                                                   "transmittance",
+                                                   "winners")):
+            check(torch.equal(got, ref), f"peel_fwd at {label}, K=64: "
+                  f"{what} differs from the twin's")
+        k64 = busy_ms(deep)
+        k64_bound = launch_bound("peel_fwd", dict(
+            launch_shape(packed, cand, pix, deep_k[2]), k=MAX_DEPTH))
     bound_ms, bound_by = peel_bound("peel_fwd", shape)
     say(phase, f"peel_fwd at {label} (T={shape['t']} C={shape['c']} "
                f"P={shape['p']} K={DEPTH}, {shape['live']} live pairs, "
@@ -3894,7 +3920,10 @@ def band_against_twin(band, phase, label):
                f"the wrapper, {ms_busy:.3f} ms busy (device), twin "
                f"{ms_plain:.1f} ms (CUDA events); bound {bound_ms:.4f} ms "
                f"({bound_by}) = {bound_ms / ms_busy:.1%} of the busy time; "
-               f"at K=64 {k64:.3f} ms busy; of {packed.shape[0]} table rows")
+               f"at K=64 (lane pairs) winners, radiance and transmittance "
+               f"bitwise the twin's, {k64:.3f} ms busy (one thread a pixel "
+               f"read 3.850-3.878), bound {k64_bound:.4f} ms = "
+               f"{k64_bound / k64:.1%}; of {packed.shape[0]} table rows")
     return dict(err=err, ms=ms, plain_ms=ms_plain, shape=shape,
                 busy_ms=ms_busy)
 
@@ -4141,6 +4170,13 @@ def phase20_default(g1m, dev):
     regs = [e for e in ptxas_summary(log.read_text()).split(" | ")
             if e.startswith(("peel_fwd_kernel K=16:", "peel_fwd_kernel K=64:"))]
     say(20, f"peel_fwd.cu registers from the build: {' | '.join(regs)}")
+    # The deep pass's layout exists for its residency: 16 warps an SM or
+    # more, and no local memory.
+    for e in regs:
+        if e.startswith("peel_fwd_kernel K=64:"):
+            warps = int(re.search(r"\((\d+) warps\)", e).group(1))
+            check(warps >= 16 and "0 bytes spill stores" in e,
+                  f"peel_fwd's deep pass: {e}")
     say(20, f"the default path launched peel_fwd {launches} times and the "
             f"keys kernel never; bench printed '{bench}'")
     return launches, band

@@ -83,6 +83,10 @@ MAX_DEPTH = 64
 # Pixels a backward block takes at once (csrc/peel_common.cuh, kThreads):
 # a tile of more pixels is contracted group after group.
 PIXEL_GROUP = 256
+# Passes of more layers than this are deep: the fused forward kernel holds
+# their list in a lane pair a pixel (csrc/peel_fwd.cu, kPairs), and
+# peel_fused counts them (``peel.deep_passes``).
+SHALLOW_DEPTH = 16
 _INT32_MAX = 2**31 - 1
 
 
@@ -915,7 +919,9 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
     Returns (radiance (T, 3, P), transmittance (T, P)). The backward gives
     ``packed`` a gradient and ``candidates``/``pix`` none, as the JAX rule;
     a deep peel's backward runs each pass's backward kernel once, on the
-    cotangents autograd carries through the chain.
+    cotangents autograd carries through the chain. While a profiler
+    records, each pass of more than ``SHALLOW_DEPTH`` layers counts one
+    ``peel.deep_passes``, whichever implementation runs it.
 
     Determinism: forward and gradient are bitwise repeatable on the card,
     as the JAX package's are, with torch's deterministic mode off. The
@@ -933,6 +939,8 @@ def peel_fused(packed: torch.Tensor, candidates: torch.Tensor,
     for j, k in enumerate(depths):
         out = PeelFused.apply(packed, candidates, pix, k, impl, *floor,
                               j + 1 < len(depths))
+        if k > SHALLOW_DEPTH:
+            profiling.count("peel.deep_passes", 1)
         if rad is None:
             rad, trans = out[0], out[1]
         else:

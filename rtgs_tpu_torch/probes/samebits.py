@@ -10,8 +10,9 @@ Run it as a file, not with ``-m``: ``--dump`` imports ``rtgs_tpu_torch``
 from the checkout ``DIR`` (``.`` for this one), so the same script drives
 an older checkout that does not have it. For each configuration of
 :data:`CONFIGS` (the bench scene seen from the bench pose, as
-``probes/_common.scene_tables`` bins it) at each depth of :data:`DEPTHS`,
-the file holds:
+``probes/_common.scene_tables`` bins it) at each depth of :data:`DEPTHS`
+(16 and 64 one launch a peel, 128 a chain of two passes of 64), the file
+holds:
 
 * the inputs: packed table, candidates, chunk bounds, pixel features;
 * ``peel_keys`` (t1, ids); ``peel_fused`` (radiance, transmittance) and the
@@ -45,7 +46,7 @@ CONFIGS = (
     ("1M@256x192", 1_000_000, 256, 192, 3584, 128, 4),
     ("100k@512x384", 100_000, 512, 384, 1536, 128, None),
 )
-DEPTHS = (16, 64)
+DEPTHS = (16, 64, 128)
 # A scene small enough for the plain twins on a CPU (``--small``).
 SMALL = (("600@64x48", 600, 64, 48, 640, 64, None),)
 KERNELS = ("peel_keys_cuda", "peel_fused_cuda", "peel_fused_bwd_cuda",

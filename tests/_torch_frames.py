@@ -41,11 +41,13 @@ def sweep_inputs(device, shape):
 
 # Peels deeper than one list (passes of MAX_DEPTH above a floor): a fog of
 # large splats under a 20° field of view, so that a sixth of the pixels have
-# 256 hits or more (64x48 in 16x16 tiles); and tiles of 64x64 = 4096 pixels.
+# 256 hits or more (64x48 in 16x16 tiles); tiles of 64x64 = 4096 pixels;
+# and tiles of 20x20 = 400 pixels (a pixel group of 256, then a ragged 144).
 DEEP_DEPTHS = (65, 96, 128, 256)
 DEEP_SHAPES = {
     "16x16": ((64, 48), (16, 16), 2048, 64),
     "64x64": ((128, 64), (64, 64), 2048, 2048),
+    "20x20": ((80, 60), (20, 20), 2048, 64),
 }
 
 

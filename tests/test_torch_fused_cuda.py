@@ -18,16 +18,20 @@ and the sentinel row N must be exactly 0. Deeper than MAX_DEPTH, peel_fused
 chains the kernels in passes above each pixel's floor: the passes' slots
 bitwise one twin call's at the whole depth, the chained composite and its
 gradient at the same tolerances; tiles of 4096 pixels are swept and
-contracted group after group."""
+contracted group after group. The deep pass (K = 64, a lane pair a pixel)
+is held bitwise against the twin in every output, radiance and
+transmittance included: the kernel shades and composites with the twin's
+operations in its order."""
 
 import numpy as np
 import pytest
 import torch
 
 from rtgs_tpu_torch.camera import camera_from_fov
-from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts, _safe_ids,
-                                     _scatter_slot_grads, entry_depth,
-                                     pass_depths, peel_fused,
+from rtgs_tpu_torch.ops.peel import (CHUNK, MAX_DEPTH, _counts,
+                                     _fused_twin, _safe_ids,
+                                     _scatter_slot_grads, _select,
+                                     entry_depth, pass_depths, peel_fused,
                                      peel_fused_bwd_cuda,
                                      peel_fused_bwd_torch, peel_fused_cuda,
                                      peel_fused_torch)
@@ -173,6 +177,94 @@ def test_chained_kernels_match_twin(cuda, shape, depth):
     d_t = _scatter_slot_grads(packed, cand, peel_fused_bwd_torch(
         packed, cand, pix, sl_t, g_rad, g_tr))
     assert_tables_close(x.grad, d_t)
+
+
+def _tied(packed, cand, third=500):
+    """Every splat's row twice and the first ``third`` rows a third time,
+    each copy a candidate of the tiles that list the splat: a hit ties bit
+    for bit in t1 with its copies, at distinct slots."""
+    n = packed.shape[0] - 1
+    table = torch.cat([packed[:n], packed[:n], packed[:third], packed[n:]])
+    live = cand >= 0
+    return table, torch.cat([cand, torch.where(live, cand + n, -1),
+                             torch.where(live & (cand < third), cand + 2 * n,
+                                         -1)], dim=1).contiguous()
+
+
+def _deep_case(device, case):
+    """(packed, candidates, pix) of a K = 64 case (see its test)."""
+    if case == "vacant":
+        return sweep_inputs(device, "one_chunk")
+    packed, cand, _, pix = deep_inputs(
+        device, "20x20" if case == "ragged_group" else "16x16")
+    if case == "ties":
+        packed, cand = _tied(packed, cand)
+    return packed, cand, pix
+
+
+def _pass_bitwise(packed, cand, pix, depth, floor=None):
+    """One pass through peel_fused_cuda (plain and counting) and through
+    the twin above the same floor: slots, radiance, transmittance and the
+    last layer's t1 bitwise. Returns the twin's (slots, last t1)."""
+    t, p = cand.shape[0], pix.shape[1]
+    last = torch.empty((t, p), device=pix.device)
+    counters = torch.zeros(2, dtype=torch.int64, device=pix.device)
+    got = peel_fused_cuda(packed, cand, _counts(cand), pix, depth,
+                          floor=floor, out_last_t1=last)
+    counted = peel_fused_cuda(packed, cand, _counts(cand), pix, depth,
+                              screen_counts=counters, floor=floor)
+    rad, tr, sl, last_t = _fused_twin(packed, cand, pix, depth, floor)
+    torch.cuda.synchronize()
+    for a, b, what in ((got[2], sl, "slots"), (got[0], rad, "radiance"),
+                       (got[1], tr, "transmittance"), (last, last_t, "t1")):
+        assert torch.equal(a, b), what
+    assert all(torch.equal(a, b) for a, b in zip(counted, got))
+    assert int(counters[0]) == int((cand >= 0).sum()) * p
+    return sl, last_t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unstaged", "ragged_group", "vacant",
+                                  "ties"])
+def test_deep_pass_bitwise_twin(cuda, case):
+    """The deep pass (K = 64, a lane pair a pixel) bitwise the twin: tiles
+    past the 416 slots that shading stages (rows read from the table); 400
+    pixels a tile (a group of 256 pixels, then a ragged one of 144); pixels
+    with fewer than 64 hits (vacant layers); and hits whose t1 ties bit for
+    bit, in the front half, the back half and across the two."""
+    packed, cand, pix = _deep_case(cuda, case)
+    sl, _ = _pass_bitwise(packed, cand, pix, MAX_DEPTH)
+    assert (sl >= 0).any()
+    if case == "unstaged":
+        assert int(_counts(cand).max()) > 416
+    elif case == "ragged_group":
+        assert pix.shape[1] == 400
+    elif case == "vacant":
+        assert (sl[:, MAX_DEPTH - 1] < 0).any()
+    else:
+        t1 = _select(packed, cand, pix, MAX_DEPTH)[0]
+        half = MAX_DEPTH // 2
+        tie = torch.isfinite(t1[:, 1:]) & (t1[:, 1:] == t1[:, :-1])
+        assert tie[:, :half - 1].any() and tie[:, half:].any()
+        assert tie[:, half - 1].any()           # layers 31 and 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [33, 64, 65, 128])
+def test_deep_passes_chain_bitwise_twin(cuda, depth):
+    """peel_fused at depths whose passes take the deep layout: each pass
+    through the kernel and through the twin above the floor of the pass
+    before, every output bitwise; the chained radiance and transmittance of
+    peel_fused bitwise its chain of twins (impl "torch")."""
+    packed, cand, _, pix = deep_inputs(cuda)
+    floor = None
+    for k in pass_depths(depth):
+        sl, last = _pass_bitwise(packed, cand, pix, k, floor)
+        floor = (last.contiguous(), sl[:, -1].contiguous())
+    assert (sl[:, -1] >= 0).any()
+    got = peel_fused(packed, cand, pix, depth)
+    ref = peel_fused(packed, cand, pix, depth, impl="torch")
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
 @pytest.mark.cuda

@@ -242,3 +242,15 @@ def test_band_backwards_record_spans_and_counters(monkeypatch, tile_bands):
     assert got["counters"]["peel.table_grad_rows"] == bands * (g.num + 1)
     assert got["counters"]["peel.winner_rows"] == int(_counts(cand).sum())
     assert int(_counts(cand).sum()) > 0
+
+
+@pytest.mark.parametrize("depth,per_band", [(16, 0), (65, 1), (128, 2)])
+def test_deep_passes_count_per_band(depth, per_band):
+    """``peel.deep_passes`` counts each pass of more than 16 layers, on the
+    twin as on the card: at depth 128 two a band, at 65 one (its second
+    pass holds one layer), at 16 none."""
+    g = _scene()
+    _profiled(lambda: render(g, _camera((64, 32)), depth=depth,
+                             renderer="pallas", tile_bands=4, **BUDGETS))
+    got = prof.read()["counters"].get("peel.deep_passes", 0)
+    assert got == 4 * per_band
