@@ -1,36 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (rtgs_tpu_torch) once on an NVIDIA GPU.
+"""Check the PyTorch/CUDA port (rtgs_tpu_torch) once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; imports nothing of JAX. Phases, one line
-each (any failure exits non-zero, and nothing falls back to the CPU):
+Needs one CUDA card and nvcc; imports nothing of JAX. It times nothing:
+the card's times come from ``benchmark/`` and the probes (``probes.ktime``,
+``probes.stages``, ``probes.samebits``). Phases, one line or more each (any
+failed check exits non-zero, and nothing falls back to the CPU):
 
   1. device and toolchain: card name and power limit, torch, CUDA, nvcc;
      and one stamp line: nvcc's release, the GPU driver version,
      ``torch.__version__``, ``torch.version.cuda`` and whether triton
      imports;
   2. build the CUDA kernels (nine sources) from the sources in this
-     checkout;
+     checkout, and print each kernel's registers and spills;
   3. the keys kernel against its plain torch twin at the main path's
      shapes — 100k splats at 640x384 and 1M splats at 256x192 — bitwise,
-     with and without the early-exit bounds, timed with CUDA events (and
-     once more with the stream kept busy: device time without the wrapper's
-     host time), with the share of (pixel, candidate) pairs its f32 screen
-     rejects; a whole 256x192 frame through the kernel against one through
-     the twin; and a scene that strains the screen, needles and discs
-     (scale ratio >= 100 within a splat) seen from 0.2 and from 50 units
-     away: every row of the f32 table positive definite, chunk_lb a lower
-     bound of the twin's t1 field on every tile, the full sweep and the
-     early exit both bitwise the twin's on every tile (any failure fails
-     the run);
+     with and without the early-exit bounds, with the share of (pixel,
+     candidate) pairs its f32 screen rejects; a whole 256x192 frame
+     through the kernel against one through the twin; and a scene that
+     strains the screen, needles and discs (scale ratio >= 100 within a
+     splat) seen from 0.2 and from 50 units away: every row of the f32
+     table positive definite, chunk_lb a lower bound of the twin's t1
+     field on every tile, the full sweep and the early exit both bitwise
+     the twin's on every tile;
   4. precision of the kernel's winning t1 against float64 recomputed from
      the same f32 inputs;
   5. the render path through the CLI: ``render`` and a 3-frame ``orbit``
      of a 1M-splat scene at 1920x1088, depth 16, 8 tile bands; every frame
      must have launched the keys kernel once per band; the image is checked
-     (finite, not black, dropped candidates < 0.1%) and its frame and
-     per-stage times measured (the proven entry bound a stage of its own);
+     (finite, not black, dropped candidates < 0.1%);
   6. the fused-peel kernels (forward and backward) against their plain
      torch twins at the fit configuration (100k splats at 512x384, K 16,
      1536 candidates) and at 1M splats at 256x192: winners' slots bitwise,
@@ -39,10 +38,8 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      table gradient (pair rows summed by segment_rows.cu) against index_add_
      of the twin's per-slot gradients, per lane relative to the lane's
      largest entry, its sentinel row exactly 0, and a second launch bitwise
-     the first; times with CUDA events (both kernels' also with the
-     stream kept busy; the backward also without its segment sum), the
-     share of pairs the forward sweep's f32 screen rejects; the winners' α
-     against float64 from the same f32 inputs;
+     the first; the share of pairs the forward sweep's f32 screen rejects;
+     the winners' α against float64 from the same f32 inputs;
   7. the training path through the CLI: ``fit --renderer pallas`` from
      scratch on the 100k scene at 512x384, depth 16, 12 views, 20 steps, 2
      tile bands, a checkpoint every 10 steps; the forward kernel must have
@@ -52,8 +49,8 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      by ``probes.fitbench.perturb`` (means σ 0.01, log-scales 0.3, color
      logits 0.5; a ``torch.Generator`` seeded with 7), 50 ``Solver``
      steps with one density-control pass and one opacity reset; PSNR must
-     rise; step time, the kernels' time in one step, the dropped
-     share and peak device memory are printed;
+     rise and the final scene's binning drop less than 0.1%; peak device
+     memory is printed;
   9. the K-list path (the top-K peel, uncomposited) at the fit
      configuration and at 1M splats at 256x192: both top-K kernels against
      their plain twins (slots and t1 bitwise, α and rgb to an absolute
@@ -67,17 +64,15 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      to 1e-4 of the lane's largest entry, each scene field's gradient to
      1e-2 of the field's largest entry at the 0.99 quantile (5e-2 for
      rotations and scales; its maximum and relative L2 norm printed), and
-     the fused path's scene gradient bitwise a second run of itself; times
-     with CUDA events, the forward's also with the stream kept busy;
+     the fused path's scene gradient bitwise a second run of itself;
  10. the oracle through the CLI: ``render --renderer oracle`` of a
      4096-splat scene at 640x384 against the keys render of the same scene
-     (the statistic of tests/_utils.assert_images_close), its frame time and
-     peak device memory; ``fit --renderer oracle`` for 5 steps at 128x96;
+     (the statistic of tests/_utils.assert_images_close); ``fit --renderer
+     oracle`` for 5 steps at 128x96;
  11. the ``tiled`` renderer through the CLI: ``render --renderer tiled`` of
      the 100k scene at 640x384 against its keys render (and the winners of
-     the pixel where the two differ most, as each lists them), frame time
-     and peak memory; ``fit --renderer tiled`` for 5 steps on the 4096-splat scene
-     at 128x96;
+     the pixel where the two differ most, as each lists them); ``fit
+     --renderer tiled`` for 5 steps on the 4096-splat scene at 128x96;
  12. the keys path's backward at the fit configuration: the hand-written
      backward of ``shade_winners_kp`` against torch autograd of its plain
      forward (per lane, relative to the lane's largest entry), bitwise a
@@ -87,102 +82,91 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      NaN; then the benchmark protocol of the repository (forward with
      the binning counters, and the gradient of Σ image) at its three
      configurations, 100k at 640x384, 250k at 1280x720 and 1M at 1920x1088
-     in 8 bands, with zero dropped candidates, peak memory, the device's
-     busy share, and the keys kernel's launches of one step (2 per band
-     under recomputation);
+     in 8 bands, with zero dropped candidates, peak memory and the keys
+     kernel's launches of one step (2 per band under recomputation);
  13. ``fit --renderer keys`` and ``bench`` through the CLI at the fit
      configuration (phase 7's protocol), launches counted; the 50-step
-     re-fit of phase 8 through ``keys``, whose PSNR must rise, its step
-     time beside phase 8's;
+     re-fit of phase 8 through ``keys``, whose PSNR must rise;
  14. the probes: every variant of the three probe kernels against its
      plain version at the probes' sizes (kmicro 960x256x128; kprobe and
-     lpprobe at 100k, 640x384, budget 1536), each with its time and GB/s,
-     the floor kernels' also with the stream kept busy (how much of a
-     wrapper call is the kernel's);
-     kprobe's shade variants once more with a +inf state, where their
-     result is the minimum of their shading terms, against the plain
-     minimum; then the three probes as programs (``python -m
-     rtgs_tpu_torch.probes.<name>``'s main), launches counted; lpprobe ends
-     with the host time of a wrapper call and of each step of the launch
-     path;
+     lpprobe at 100k, 640x384, budget 1536); kprobe's shade variants once
+     more with a +inf state, where their result is the minimum of their
+     shading terms, against the plain minimum; a wrapper refuses what its
+     kernel does not take; then the three probes as programs (``python -m
+     rtgs_tpu_torch.probes.<name>``'s main, its output dropped), launches
+     counted;
  15. the browser viewer (``viewer.server``, what ``serve`` runs) on the 1M
      scene at 1920x1088 in 8 tile bands, over HTTP on a free port: the page,
      a PNG frame bitwise the in-process render of its pose, a repeated
      frame that renders nothing, a new frame after each of a pan, a zoom
-     and a rotation, 8 keys launches a fresh frame, and each request's time
-     split into render, PNG encoding and transfer; then ``ProgressiveSampler``
-     (4 jittered samples equal to ``render_progressive`` of the same seed;
-     4 unjittered ones bitwise one render);
+     and a rotation, 8 keys launches a fresh frame; then
+     ``ProgressiveSampler`` (4 jittered samples equal to
+     ``render_progressive`` of the same seed; 4 unjittered ones bitwise one
+     render);
  16. the ring renderer (``parallel.render``) on a 1x1 mesh, one rank in an
      NCCL group (one card cannot hold more: NCCL refuses two ranks on one
-     device): ``render_tiled_sharded`` of the 1M scene at 1920x1088 against
-     ``render_tiled_keys`` to 1e-5, its frame time and peak memory, one keys
-     launch a ring step; its scene gradients of Σ image² at the fit
-     configuration, with torch's deterministic mode off, bitwise a second
-     run of themselves and bitwise the unbanded keys path's (one
-     ``segment_rows`` launch: the owner's sum); 5 sharded training steps
-     (``make_sharded_train_step``) bitwise 5 one-card keys steps, each
-     step's ms both ways, at the fit cell and at the JAX dry run's full
-     scale (100k at 256x256, depth 8); ``render_sharded`` of the 4096-splat
-     scene at 128x96 against ``composite_rays`` to 1e-5;
- 17. the LBVH of the 1M scene: build time (``utils.profiling.timed``), the
-     tree's structure, ``bvh_hit`` of 1,024 seeded rays at max_steps 4096
-     against a brute-force nearest hit (uncut rays: the same splat but for
-     ties within 1e-6, t1 to 1e-5; cut rays: never a nearer t1), how many
-     rays are cut; and ``utils.profiling.trace`` around a 100k keys render,
-     whose Chrome trace must name the keys kernel;
+     device): ``render_tiled_sharded`` of the 1M scene at 1920x1088 bitwise
+     ``render_tiled_keys``, one keys launch a ring step; its scene
+     gradients of Σ image² at the fit configuration, with torch's
+     deterministic mode off, bitwise a second run of themselves and
+     bitwise the unbanded keys path's (one ``segment_rows`` launch: the
+     owner's sum); 5 sharded training steps (``make_sharded_train_step``)
+     bitwise 5 one-card keys steps, at the fit cell and at the JAX dry
+     run's full scale (100k at 256x256, depth 8); ``render_sharded`` of
+     the 4096-splat scene at 128x96 against ``composite_rays`` to 1e-5;
+ 17. the LBVH of the 1M scene: the tree's structure, ``bvh_hit`` of 1,024
+     seeded rays at max_steps 4096 against a brute-force nearest hit
+     (uncut rays: the same splat but for ties within 1e-6, t1 to 1e-5; cut
+     rays: never a nearer t1), how many rays are cut; and
+     ``utils.profiling.trace`` around a 100k keys render, whose Chrome
+     trace must name the keys kernel;
  18. determinism, with torch's deterministic mode off (asserted):
      segment_rows.cu against its CPU twin on the card's inputs (the fused
      backward's pair rows and the keys path's winner ids at 100k@512x384
-     and 1M@256x192), bitwise, with its time beside index_add_'s; then at
-     the four shapes of probes.ktime.segment_inputs (those pair rows and
-     the fit configuration's winner rows, and the winner rows of the
-     busiest of 8 bands of the keys backward at 1M@1920x1088) bitwise its
-     CPU twin and a second launch, rows no id names +0.0, and its time
-     around the wrapper, busy and on the card, split by kernel, beside
-     index_add_, the bound and the ids' run lengths; the
-     fused, top-K and keys backwards at those two configurations, each
-     twice, bitwise; the keys path's forward+backward at 1M@1920x1088 in 8
-     bands twice, bitwise; 20 training steps (a density-control pass at
-     step 10) through ``pallas`` and through ``keys`` twice from the same
-     state, every parameter and every step's loss and PSNR bitwise; the
-     ``oracle`` and ``tiled`` gradients twice, printed as bitwise or not
-     (plain torch autograd). Any other mismatch fails the run;
+     and 1M@256x192), bitwise; then at the four shapes of
+     probes.ktime.segment_inputs (those pair rows and the fit
+     configuration's winner rows, and the winner rows of the busiest of 8
+     bands of the keys backward at 1M@1920x1088) bitwise its CPU twin and
+     a second launch, rows no id names +0.0; the fused, top-K and keys
+     backwards at those two configurations, each twice, bitwise; the keys
+     path's forward+backward at 1M@1920x1088 in 8 bands twice, bitwise; 20
+     training steps (a density-control pass at step 10) through ``pallas``
+     and through ``keys`` twice from the same state, every parameter and
+     every step's loss and PSNR bitwise; the ``oracle`` and ``tiled``
+     gradients twice, printed as bitwise or not (plain torch autograd).
+     Any other mismatch fails the run;
  19. deep peels, more layers than one kernel's list holds (64), run in
      passes above each pixel's floor: the keys kernel chained at depth 65,
      96, 128 and 256 at 1M@256x192 bitwise one twin call, one launch a
-     pass, each pass timed (and 96 and 128 also cut into other passes);
-     the fused and top-K forwards chained at depth 128 at the fit
-     configuration and at 1M@256x192, slots (and top-K t1) bitwise one
-     twin call's;
-     ``render -d 128`` and a 3-frame ``orbit`` through the CLI at
-     1M@1920x1088 in 8 bands (2 keys launches a band); in process at depth
-     16, 64 and 128 the frame time, rays/s, each keys pass's time, peak
-     memory and the residual transmittance (mean, p99); 20 fit steps at
-     depth 128 through ``pallas`` and ``keys`` twice (PSNR must rise, every
-     parameter bitwise); one ``serve`` frame at depth 128, bitwise the
-     in-process render. Its kernels' launches join the kernels line;
+     pass (and 96 and 128 also cut into other passes); the fused and top-K
+     forwards chained at depth 128 at the fit configuration and at
+     1M@256x192, slots (and top-K t1) bitwise one twin call's, their
+     backwards under autograd against one twin backward at 128 (also on
+     the splats that win only past layer 64); ``render -d 128`` and a
+     3-frame ``orbit`` through the CLI at 1M@1920x1088 in 8 bands (2 keys
+     launches a band); in process at depth 16, 64 and 128 the frame with
+     its passes launched here bitwise ``render_tiled_keys``', peak memory
+     and the residual transmittance (mean, p99); 20 fit steps at depth 128
+     through ``pallas`` and ``keys`` twice (PSNR must rise, every parameter
+     bitwise); one ``serve`` frame at depth 128, bitwise the in-process
+     render;
  20. the default path, with no renderer named (``auto``: the fused kernel
      on the card above 4096 splats) at 1M@1920x1088 with phase 19's
      budgets: ``render`` and a 3-frame ``orbit`` at depth 16, ``render`` at
      64 and 128 and ``bench`` through the CLI, ``peel_fwd`` once a band and
-     pass and the keys kernel never; in process at depth 16, 64 and 128 the
-     frame time and rays/s, its stages (features, binning, ``peel_fwd`` by
-     pass and band; CUDA events), peak memory and dropped pairs (0) beside
-     the keys path's frame in the same call, the images to the image
-     statistic, the device's busy share at 16; the frame at 16 against the
-     fused twin's; the busiest band's ``peel_fwd`` bitwise its twin at
-     depth 16 and 64, its time beside its bound at both (at 16 these are
-     the kernels line's ms, plain_ms and bound_ms for peel_fwd); ``serve``
-     over HTTP (a first frame bitwise the
-     in-process render, a cached one launching nothing, pan, zoom,
-     rotation; no pose drops a pair); ``ProgressiveSampler`` x4 jittered
-     at the smallest budget whose padded binning drops nothing, bitwise
-     ``render_progressive``; the oracle against the fused path at 4096 and
-     4097 splats at 1920x1088 and 640x384 (``auto`` takes each side of the
-     threshold); ``peel_fwd.cu``'s registers and blocks an SM at K = 16
-     and 64 from the build's report (the deep pass must keep 16 warps an
-     SM or more and spill nothing). Its launches join the kernels line;
+     pass and the keys kernel never; in process at depth 16, 64 and 128
+     the frame bitwise its passes launched here, peak memory and dropped
+     pairs (0) beside the keys path's frame, the images to the image
+     statistic; the frame at 16 against the fused twin's; the busiest
+     band's ``peel_fwd`` bitwise its twin at depth 16 and 64; ``serve``
+     over HTTP (a first frame bitwise the in-process render, a cached one
+     launching nothing, pan, zoom, rotation; no pose drops a pair);
+     ``ProgressiveSampler`` x4 jittered at the smallest budget whose padded
+     binning drops nothing, bitwise ``render_progressive``; the oracle
+     against the fused path at 4096 and 4097 splats at 1920x1088 and
+     640x384 (``auto`` takes each side of the threshold); ``peel_fwd.cu``'s
+     registers and blocks an SM at K = 16 and 64 from the build's report
+     (the deep pass must keep 16 warps an SM or more and spill nothing);
  21. the JAX package's production-scale tools through the port's probes
      (``probes.make_scene``, ``fitbench``, ``fitscratch``, ``imquality``,
      ``trace_step``, ``stages``), each through its function at the
@@ -206,31 +190,19 @@ each (any failure exits non-zero, and nothing falls back to the CPU):
      twins and >= 40 dB / 0.999 SSIM against the oracle where it runs,
      beside the JAX package's TPU quality record; a profiler trace of 3
      training steps naming peel_fwd, peel_bwd and segment_rows; the stage
-     tables of both renderers at 100k@640x384 and 1M@1920x1088. Its
-     launches join the kernels line.
-
+     tables of both renderers at 100k@640x384 and 1M@1920x1088 dropping
+     no pair;
  22. the binning kernels (``binning.cu``, ``tile_candidates_cuda``)
      against the plain chain (``tile_candidates_torch`` on the same CUDA
      tensors) at the benchmark's two configurations (1M@1920x1088, budgets
      4608 / 128 / narrow 4, and 100k@512x384, 1536 / 128, from the bench
      pose), bitwise on every field, with the fused path's arguments and
      with the keys path's (``chunk=CHUNK`` and ``entry_lb`` from
-     ``entry_lower_bound``); each timed at the fused path's arguments (CUDA
-     events around the call, with its one read of the live count; device
-     ms with the stream kept busy; kernels and their split from a profiler
-     trace past its warm-up) beside the chain and a bound in bytes: the
-     splats' inputs read once (44 B), the live pairs (the
-     ``binning.live_pairs`` count plus the dropped) written and read once
-     as (key, id), the rows written once. Its launches on the main path:
-     one ``render(auto)`` and one ``render(keys)`` frame at 1M@1920x1088,
-     one binning each.
-Then one {"kernels": [...]} JSON line (each kernel with its launches on its
-main path, its time beside the plain version's, and ``bound_ms``: the
-larger of its bytes over the memory rate and its operations over the peak
-rate of their type, computed from this run's inputs; ``library_ms``: the
-time of the single PyTorch calls that compute the same function, for the
-probe variants that have one, else null), the card's name and
-power limit, and last {"ok": true, "device": {...}}.
+     ``entry_lower_bound``); its launches on the main path: one
+     ``render(auto)`` and one ``render(keys)`` frame at 1M@1920x1088, one
+     binning each.
+Then every hand-written kernel must have been launched on its main path
+(the line of launches by kernel), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -245,7 +217,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 if not (ROOT / "rtgs_tpu_torch" / "__init__.py").is_file():
@@ -345,6 +316,10 @@ BVH_TIE_RTOL, BVH_T1_RTOL = 1e-6, 1e-5
 BVH_BRUTE_CHUNK = 32
 
 
+# The roofline arithmetic below (the peaks, the operation counts, bound,
+# peel_bound and segment_bound) is no longer called here: it stays, byte for
+# byte, because benchmark/tests/test_bench_bounds.py reads it from this
+# file's source to hold benchmark/bounds.py's frozen copy against it.
 # Peaks of one H100 SXM (NVIDIA's data sheet, dense): device memory
 # 3.35 TB/s, float32 67 TFLOP/s and float64 34 TFLOP/s outside the tensor
 # cores (the kernels use none).
@@ -357,13 +332,6 @@ HBM_BPS, F32_OPS, F64_OPS = 3.35e12, 67e12, 34e12
 SWEEP_F64 = 21
 SHADE_F32 = dict(peel_fwd=127, peel_topk_fwd=118, peel_bwd=280,
                  peel_topk_bwd=250)
-# kmicro: f32 operations per element of the (T, P, C) block, where they are
-# not negligible beside its 8 bytes; chunkbody's float64 chain runs for 13
-# chunks of 128 rows against every pixel: 13·21 per element at C = 128.
-MICRO_F32 = dict(chain10=20, fori16=32, any_when8=9, roll_sub16=16,
-                 merge16_loop_reg=26, merge16_loop_shfl=26,
-                 merge16_loop_smem=39)
-MICRO_F64 = dict(chunkbody=13 * SWEEP_F64)
 # Probe kernels against their plain versions: exp, exp2 and log are the
 # CUDA math library's in both, but need not compile to the same code
 # (2 ulp); sums run in another order (1e-5 relative); all else bitwise.
@@ -373,7 +341,7 @@ SHADE_TOL = 1e-6
 # Deep peels (phase 19): more layers than one kernel's list holds, run in
 # passes above each pixel's floor. The chains against one twin call at
 # these depths; the CLI, fits and viewer at DEEP; frames at FRAME_DEPTHS;
-# and two ways to cut 96 and 128 layers into passes, timed side by side.
+# and two more ways to cut 96 and 128 layers into passes.
 CHAIN_DEPTHS = (65, 96, 128, 256)
 DEEP = 128
 FRAME_DEPTHS = (16, 64, 128)
@@ -391,6 +359,13 @@ def check(cond, msg):
 
 def say(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
+
+
+def run_quiet(main, argv):
+    """``main(argv)`` (a probe's or the CLI's) with what it prints
+    dropped."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        main(argv)
 
 
 def nvidia_smi_line() -> str:
@@ -451,35 +426,6 @@ def ptxas_summary(log: str) -> str:
     return " | ".join(out)
 
 
-def time_ms(fn, reps=5):
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def busy_ms(fn, reps=5):
-    """Median device time of ``fn`` with the stream kept busy by a
-    preceding long kernel: the wrapper's host time (allocation, ctypes,
-    launch) is hidden behind it, so what is left is the kernels' own."""
-    import torch
-
-    from rtgs_tpu_torch.probes._common import busy_ms as probe_busy_ms
-
-    return probe_busy_ms(fn, reps, torch.device("cuda", 0))
-
-
 def bound(nbytes, f32_ops=0.0, f64_ops=0.0):
     """The least time (ms) the card could take: the bytes over the memory
     rate against the operations over the peak of their type. Returns
@@ -518,14 +464,6 @@ def peel_bound(kind, shape):
     return bound(common + layers + grads + live * 64 * 4, shade)
 
 
-def launch_shape(packed, cand, pix, slots=None):
-    shape = dict(t=cand.shape[0], c=cand.shape[1], p=pix.shape[1],
-                 n=packed.shape[0], live=int((cand >= 0).sum()))
-    if slots is not None:
-        shape["winners"] = int((slots >= 0).sum())
-    return shape
-
-
 def keys_inputs(g, cfg, dev, cam=None):
     from rtgs_tpu_torch.ops.peel import CHUNK, _counts
     from rtgs_tpu_torch.render.binning import tile_candidates
@@ -546,27 +484,17 @@ def keys_inputs(g, cfg, dev, cam=None):
 
 
 def phase3_case(label, g, cfg, dev):
-    """Kernel vs twin, bitwise, at one configuration; returns the timings
-    and the kernel's outputs."""
+    """Kernel vs twin, bitwise, at one configuration; returns the kernel's
+    outputs and inputs."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import peel_keys_cuda, peel_keys_torch
 
-    cam, packed, cand, counts, lb, pix = keys_inputs(g, cfg, dev)
+    _, packed, cand, counts, lb, pix = keys_inputs(g, cfg, dev)
     zeros = torch.zeros_like(lb)
-
-    def kernel():
-        return peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH)
-
-    def kernel_full():
-        return peel_keys_cuda(packed, cand, counts, zeros, pix, DEPTH)
-
-    def twin():
-        return peel_keys_torch(packed, cand, pix, DEPTH)
-
-    t1_k, sid_k = kernel()
-    t1_f, sid_f = kernel_full()
-    t1_t, sid_t = twin()
+    t1_k, sid_k = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH)
+    t1_f, sid_f = peel_keys_cuda(packed, cand, counts, zeros, pix, DEPTH)
+    t1_t, sid_t = peel_keys_torch(packed, cand, pix, DEPTH)
     torch.cuda.synchronize()
     fin = torch.isfinite(t1_t)
     err = float((t1_k - t1_t)[fin].abs().max()) if fin.any() else 0.0
@@ -580,22 +508,13 @@ def phase3_case(label, g, cfg, dev):
     check(bool((sid_k >= 0).any()), f"{label}: no pixel has a hit")
     pairs, rejected = screen_share(packed, cand, counts, zeros, pix,
                                    (t1_f, sid_f))
-    ms = time_ms(kernel)
-    ms_full = time_ms(kernel_full)
-    ms_twin = time_ms(twin)
     t, c = cand.shape
     say(3, f"keys {label}: T={t} C={c} P={pix.shape[1]} K={DEPTH}: ids and "
            f"t1 bitwise equal to the twin, and with chunk_lb bitwise equal "
-           f"to the full sweep; kernel {ms:.3f} ms (full sweep "
-           f"{ms_full:.3f} ms), twin {ms_twin:.3f} ms (CUDA events, median "
-           f"of 5); the f32 screen rejects {rejected} of {pairs} (pixel, "
-           f"live candidate) pairs of the full sweep = {rejected / pairs:.2%} "
-           f"before the float64 chain")
-    say(3, f"keys {label} with the stream kept busy (device time without "
-           f"the wrapper's host time): {busy_ms(kernel):.3f} ms")
-    return dict(ms=ms, ms_full=ms_full, ms_twin=ms_twin, max_abs_err=err,
-                packed=packed, pix=pix, t1=t1_k, sid=sid_k, cam=cam,
-                shape=launch_shape(packed, cand, pix))
+           f"to the full sweep; the f32 screen rejects {rejected} of {pairs} "
+           f"(pixel, live candidate) pairs of the full sweep = "
+           f"{rejected / pairs:.2%} before the float64 chain")
+    return dict(packed=packed, pix=pix, t1=t1_k, sid=sid_k)
 
 
 def screen_share(packed, cand, counts, lb, pix, want):
@@ -609,7 +528,7 @@ def screen_share(packed, cand, counts, lb, pix, want):
     t1, sid = peel_keys_cuda(packed, cand, counts, lb, pix, DEPTH,
                              screen_counts=counters)
     check(torch.equal(t1, want[0]) and torch.equal(sid, want[1]),
-          "the counting keys kernel differs from the timed one")
+          "the counting keys kernel differs from the uncounted one")
     pairs, rejected = (int(x) for x in counters)
     check(0 <= rejected <= pairs and pairs > 0,
           f"screen counters {pairs}, {rejected}")
@@ -628,7 +547,7 @@ def sweep_screen_share(packed, cand, counts, pix, want_slots):
     slots = peel_fused_cuda(packed, cand, counts, pix, DEPTH,
                             screen_counts=counters)[2]
     check(torch.equal(slots, want_slots),
-          "the counting forward kernel differs from the timed one")
+          "the counting forward kernel differs from the uncounted one")
     pairs, rejected = (int(x) for x in counters)
     check(0 <= rejected <= pairs and pairs > 0,
           f"sweep screen counters {pairs}, {rejected}")
@@ -795,15 +714,11 @@ def phase5_main_path(g, dev, tmp):
 
     from rtgs_tpu_torch.__main__ import main as cli
     from rtgs_tpu_torch.ops.peel import peel_keys_cuda
-    from rtgs_tpu_torch.probes.stages import stage_times
     from rtgs_tpu_torch.render.tiled import render_tiled_keys
     from rtgs_tpu_torch.scene import save_scene
 
     ply = tmp / "scene_1m.ply"
-    t0 = time.perf_counter()
     save_scene(ply, g)
-    say(5, f"wrote the {g.num}-splat scene to a .ply in "
-           f"{time.perf_counter() - t0:.1f} s")
     w, h = FULL_RES
     argv = ["-o", str(ply), "-r", f"{w},{h}", "-d", str(DEPTH),
             "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
@@ -814,17 +729,14 @@ def phase5_main_path(g, dev, tmp):
 
     # The main path: one render and an orbit, through the CLI.
     peel_keys_cuda.launches = 0
-    t0 = time.perf_counter()
-    cli(["render", *argv, "--output", str(tmp / "frame.npy")])
-    cli(["orbit", *argv, "--frames", str(ORBIT_FRAMES),
-         "--output", str(tmp / "orbit")])
+    run_quiet(cli, ["render", *argv, "--output", str(tmp / "frame.npy")])
+    run_quiet(cli, ["orbit", *argv, "--frames", str(ORBIT_FRAMES),
+                    "--output", str(tmp / "orbit")])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = peel_keys_cuda.launches
     frames = 1 + ORBIT_FRAMES
-    say(5, f"CLI render + orbit --frames {ORBIT_FRAMES}: {frames} frames in "
-           f"{wall:.2f} s wall (scene loads included); keys kernel "
-           f"launches {launches} (expected {BANDS} per frame = "
+    say(5, f"CLI render + orbit --frames {ORBIT_FRAMES}: {frames} frames; "
+           f"keys kernel launches {launches} (expected {BANDS} per frame = "
            f"{BANDS * frames})")
     check(launches == BANDS * frames, f"keys kernel launched {launches} "
           f"times, expected {BANDS * frames}")
@@ -838,7 +750,7 @@ def phase5_main_path(g, dev, tmp):
             check(img8.shape == (h, w, 3) and img8.max() > 0,
                   f"{p.name}: shape {img8.shape}, max {img8.max()}")
 
-    # The same frame in process: values, binning counters and times.
+    # The same frame in process: values and binning counters.
     cam = bench_camera(FULL_RES, g.device)
     kw = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
               bin_narrow=4)
@@ -860,25 +772,7 @@ def phase5_main_path(g, dev, tmp):
                f"{share:.3e} (limit {MAX_DROPPED:g}); peak device memory "
                f"{peak:.2f} GiB")
         check(share < MAX_DROPPED, f"dropped share {share} >= {MAX_DROPPED}")
-
-        def frame():
-            render_tiled_keys(g, cam, depth=DEPTH, tile=TILE, **kw)
-            torch.cuda.synchronize()
-
-        frame()
-        host = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            frame()
-            host.append((time.perf_counter() - t0) * 1e3)
-        frame_ms = statistics.median(host)
-        stages = [stage_times(g, cam, kw, DEPTH, TILE) for _ in range(3)]
-    med = {k: statistics.median(s[k] for s in stages) for k in stages[0]}
-    say(5, f"frame time {frame_ms:.2f} ms (host clock with sync, median of "
-           f"5) = {w * h / frame_ms * 1e3 / 1e6:.2f} M rays/s; device "
-           f"stages (CUDA events, median of 3): "
-           + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()))
-    return launches, med["keys"]
+    return launches
 
 
 def table_in_bands(packed, fn, t, cand, *tiled):
@@ -957,7 +851,7 @@ def alpha_precision(packed, cand, pix, slots):
 
 def phase6_case(label, g, cfg, dev):
     """Fused forward and backward kernels against their twins at one
-    configuration; returns errors, times and the α precision."""
+    configuration, and the winners' α precision."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
@@ -967,16 +861,9 @@ def phase6_case(label, g, cfg, dev):
     _, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
     t = cand.shape[0]
     swept = torch.arange(cand.shape[1], device=dev) < counts[:, None]
-
-    def kernel():
-        return peel_fused_cuda(packed, cand, counts, pix, DEPTH)
-
-    def plain():
-        return plain_in_bands(
-            lambda c, q: peel_fused_torch(packed, c, q, DEPTH), t, cand, pix)
-
-    rad_k, tr_k, sl_k = kernel()
-    rad_p, tr_p, sl_p = plain()
+    rad_k, tr_k, sl_k = peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+    rad_p, tr_p, sl_p = plain_in_bands(
+        lambda c, q: peel_fused_torch(packed, c, q, DEPTH), t, cand, pix)
     torch.cuda.synchronize()
     check(torch.equal(sl_k, sl_p), f"{label}: kernel winners differ from "
           f"the twin's at {int((sl_k != sl_p).sum())} entries")
@@ -994,69 +881,44 @@ def phase6_case(label, g, cfg, dev):
         return peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k, g_rad,
                                    g_tr, DEPTH)
 
-    def plain_bwd():
-        return table_in_bands(
-            packed, lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
-                packed, c, q, sl, gr, gt),
-            t, cand, pix, sl_k, g_rad, g_tr)
-
-    def kernel_pairs():
-        return peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k, g_rad,
-                                   g_tr, DEPTH, table=False)
-
-    def plain_pairs():
-        return plain_in_bands(
-            lambda c, q, sl, gr, gt: peel_fused_bwd_torch(packed, c, q, sl,
-                                                          gr, gt),
-            t, cand, pix, sl_k, g_rad, g_tr)
-
-    d_k, d_p = kernel_bwd(), plain_bwd()
+    d_k = kernel_bwd()
+    d_p = table_in_bands(
+        packed, lambda c, q, sl, gr, gt: peel_fused_bwd_torch(
+            packed, c, q, sl, gr, gt),
+        t, cand, pix, sl_k, g_rad, g_tr)
     torch.cuda.synchronize()
     bwd_abs, bwd_lane = table_errors(f"{label}: backward", d_k, d_p)
     check(torch.equal(kernel_bwd(), d_k), f"{label}: a second launch of the "
           f"backward gives another table gradient")
     del d_p
-    rows_k, ids_k = kernel_pairs()
+    rows_k, ids_k = peel_fused_bwd_cuda(packed, cand, counts, pix, sl_k,
+                                        g_rad, g_tr, DEPTH, table=False)
     check(torch.equal(ids_k, cand[swept]), f"{label}: the backward kernel's "
           f"pair ids are not the swept candidates")
-    pair_lane, pair_same = pair_rows_against_twin(label, rows_k,
-                                                  plain_pairs(), swept)
+    pair_lane, pair_same = pair_rows_against_twin(
+        label, rows_k, plain_in_bands(
+            lambda c, q, sl, gr, gt: peel_fused_bwd_torch(packed, c, q, sl,
+                                                          gr, gt),
+            t, cand, pix, sl_k, g_rad, g_tr), swept)
     del rows_k, ids_k
-    ms, ms_plain = time_ms(kernel), time_ms(plain)
-    ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
-    ms_pairs, ms_pairs_plain = time_ms(kernel_pairs), time_ms(plain_pairs)
     alpha = alpha_precision(packed, cand, pix, sl_k)
     t, c = cand.shape
     say(6, f"fused {label}: T={t} C={c} P={pix.shape[1]} K={DEPTH}: winners "
            f"bitwise equal to the twin's; forward max |diff| {fwd_err:.3e} "
            f"(limit {FWD_ATOL:g}); backward max |diff| {bwd_abs:.3e}, per "
            f"lane {bwd_lane:.3e} of the lane's largest (limit "
-           f"{BWD_LANE_RTOL:g}); forward kernel {ms:.3f} ms, twin "
-           f"{ms_plain:.3f} ms; backward kernel {ms_bwd:.3f} ms with its "
-           f"segment sum ({ms_pairs:.3f} ms without), twin "
-           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5); a second "
-           f"backward bitwise the first; its {int(swept.sum())} pair rows "
-           f"against the twin's per-slot rows: per lane {pair_lane:.3e} of "
-           f"the lane's largest, {pair_same}")
+           f"{BWD_LANE_RTOL:g}); a second backward bitwise the first; its "
+           f"{int(swept.sum())} pair rows against the twin's per-slot rows: "
+           f"per lane {pair_lane:.3e} of the lane's largest, {pair_same}")
     say(6, f"alpha {label}: {alpha['n']} winners vs float64 from the same "
            f"f32 inputs: median rel err {alpha['median']:.3e}, p99.9 "
            f"{alpha['p999']:.3e}, max {alpha['max']:.3e}; {alpha['zeroed']} "
            f"winners have α = 0 in f32 (f32 Δ ≤ 0) but not in float64 "
            f"(gate: finite)")
     pairs, rejected = sweep_screen_share(packed, cand, counts, pix, sl_k)
-    ms_busy = busy_ms(kernel)
-    say(6, f"fused {label} with the stream kept busy (device time without "
-           f"the wrapper's host time): forward kernel {ms_busy:.3f} ms "
-           f"({ms:.3f} around the wrapper); backward kernel with its segment "
-           f"sum {busy_ms(kernel_bwd):.3f} ms, without "
-           f"{busy_ms(kernel_pairs):.3f} ms; its result is the (N+1, 64) "
-           f"table gradient, sentinel row exactly 0; the forward sweep's f32 "
-           f"screen rejects {rejected} of {pairs} (pixel, live candidate) "
-           f"pairs = {rejected / pairs:.2%} before the float64 chain")
-    return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
-                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, ms_busy=ms_busy,
-                ms_pairs=ms_pairs, ms_pairs_plain=ms_pairs_plain,
-                shape=launch_shape(packed, cand, pix, sl_k))
+    say(6, f"fused {label}: the forward sweep's f32 screen rejects "
+           f"{rejected} of {pairs} (pixel, live candidate) pairs = "
+           f"{rejected / pairs:.2%} before the float64 chain")
 
 
 def pair_rows_against_twin(label, rows, per_slot, swept):
@@ -1107,17 +969,14 @@ def phase7_fit_cli(g, tmp):
     peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
     peel_keys_cuda.launches = segment_rows_cuda.launches = 0
     printed = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         cli(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     fwd, bwd = peel_fused_cuda.launches, peel_fused_bwd_cuda.launches
     seg = segment_rows_cuda.launches
     line = printed.getvalue().strip()
-    say(7, f"CLI {' '.join(argv[:1] + argv[3:])}: {wall:.2f} s wall (scene "
-           f"load, {FIT_VIEWS} target renders and {FIT_CLI_STEPS} steps); "
-           f"printed '{line}'; fused forward launches {fwd} (expected "
+    say(7, f"CLI {' '.join(argv[:1] + argv[3:])}: printed '{line}'; fused "
+           f"forward launches {fwd} (expected "
            f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + {FIT_CLI_STEPS})), backward "
            f"{bwd} (expected {FIT_CLI_BANDS} x {FIT_CLI_STEPS}), its "
            f"segment sum {seg} (as many); keys kernel "
@@ -1171,40 +1030,27 @@ def fit_render_kwargs(cfg):
 
 
 def phase8_fitbench(g, dev, renderer="pallas", phase=8):
-    """Re-fit the perturbed 100k scene in process through ``renderer``;
-    returns the numbers. The per-stage and per-kernel times of a step are
-    the fused path's and are taken only for ``pallas``."""
+    """Re-fit the perturbed 100k scene in process through ``renderer``: PSNR
+    must rise; for ``pallas`` the final scene's binning must drop less than
+    MAX_DROPPED."""
     import torch
 
-    from rtgs_tpu_torch.ops.peel import (CHUNK, _counts, peel_fused_bwd_cuda,
-                                         peel_fused_cuda)
-    from rtgs_tpu_torch.render.binning import tile_candidates
-    from rtgs_tpu_torch.render.tiled import (_tile_pixel_features,
-                                             pack_features,
-                                             precompute_features,
-                                             render_tiled_pallas)
-    from rtgs_tpu_torch.probes.stages import step_stages
+    from rtgs_tpu_torch.render.tiled import render_tiled_pallas
     from rtgs_tpu_torch.train.datasets import synthetic_orbit_dataset
 
     kw = dict(max_candidates=CFG_FIT["max_candidates"],
               max_global=CFG_FIT["max_global"])
-    t0 = time.perf_counter()
     ds = synthetic_orbit_dataset(g, FIT_VIEWS, CFG_FIT["res"],
                                  fov=BENCH_POSE["fov"], radius=BENCH_POSE["r"],
                                  depth=DEPTH, renderer=renderer, **kw)
-    t_data = time.perf_counter() - t0
     solver = refit_solver(g, ds, renderer, FIT_STEPS)
     mid = FIT_STEPS // 2
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     live0 = solver.num_live
-    psnrs, times = [], []
+    psnrs = []
     for _ in range(FIT_STEPS):
-        t0 = time.perf_counter()
-        m = solver.train_step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        psnrs.append(m["psnr"])
+        psnrs.append(solver.train_step()["psnr"])
         if solver.step == mid:
             live_after_densify = solver.num_live
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1214,60 +1060,31 @@ def phase8_fitbench(g, dev, renderer="pallas", phase=8):
     # Mean PSNR over the first and the last full cycle of the views.
     first = statistics.mean(psnrs[:FIT_VIEWS])
     last = statistics.mean(psnrs[-FIT_VIEWS:])
-    step_ms = statistics.median(times[2:])
     w, h = CFG_FIT["res"]
-    say(phase, f"fitbench 100k@{w}x{h} through {renderer}, {FIT_VIEWS} views "
-               f"({t_data:.1f} s to render them), {FIT_STEPS} steps: PSNR "
+    say(phase, f"fitbench 100k@{w}x{h} through {renderer}, {FIT_VIEWS} views, "
+               f"{FIT_STEPS} steps: PSNR "
                f"{first:.2f} -> {last:.2f} dB (means over the first and the "
                f"last {FIT_VIEWS} steps, each view once; rise limit "
                f"{MIN_PSNR_RISE:g} dB); curve "
                + " ".join(f"{p:.2f}" for p in psnrs[::5]) + f"; live {live0} "
                f"-> {live_after_densify} at the step-{mid} density pass "
                f"(capacity {solver.mask.shape[0]}); loss after the "
-               f"step-{FIT_STEPS} opacity reset {after_reset['loss']:.5f}")
+               f"step-{FIT_STEPS} opacity reset {after_reset['loss']:.5f}; "
+               f"peak device memory {peak:.2f} GiB")
     check(last - first >= MIN_PSNR_RISE, f"PSNR through {renderer} rose "
           f"{last - first:.3f} dB, less than {MIN_PSNR_RISE} dB")
     if renderer != "pallas":
-        say(phase, f"step time through {renderer} {step_ms:.2f} ms (host "
-                   f"clock with sync, median of steps 3-{FIT_STEPS}; min "
-                   f"{min(times[2:]):.2f}, max {max(times[2:]):.2f}); peak "
-                   f"device memory {peak:.2f} GiB")
-        return dict(step_ms=step_ms, first=first, last=last)
-    stages = [step_stages(solver, kw, TILE) for _ in range(3)]
-    stages = {k: statistics.median(st[k] for st in stages) for k in stages[0]}
-
-    # The kernels' share of one step, at view 0 and the final state.
-    scene = solver.scene()
-    cam = ds.cameras[0]
+        return
+    # The binning of view 0 at the final state.
     with torch.no_grad():
-        _, stats = render_tiled_pallas(scene, cam, depth=DEPTH,
-                                       with_stats=True, **kw)
+        _, stats = render_tiled_pallas(solver.scene(), ds.cameras[0],
+                                       depth=DEPTH, with_stats=True, **kw)
     stats = {k: int(v) for k, v in stats.items()}
     dropped = stats["local_overflow"] + stats["global_overflow"]
     share = dropped / max(stats["live"] + dropped, 1)
-    with torch.no_grad():
-        b = tile_candidates(scene, cam, tile=TILE, chunk=CHUNK, **kw)
-        packed = pack_features(precompute_features(scene, cam))
-        pix = _tile_pixel_features(cam, TILE)
-        counts = _counts(b.candidates)
-        rad, tr, sl = peel_fused_cuda(packed, b.candidates, counts, pix,
-                                      DEPTH)
-        g_rad, g_tr = torch.ones_like(rad), torch.zeros_like(tr)
-        fwd_ms = time_ms(lambda: peel_fused_cuda(
-            packed, b.candidates, counts, pix, DEPTH))
-        bwd_ms = time_ms(lambda: peel_fused_bwd_cuda(
-            packed, b.candidates, counts, pix, sl, g_rad, g_tr, DEPTH))
-    say(8, f"step time {step_ms:.2f} ms (host clock with sync, median of "
-           f"steps 3-{FIT_STEPS}; min {min(times[2:]):.2f}, max "
-           f"{max(times[2:]):.2f}); in one step the fused forward kernel "
-           f"takes {fwd_ms:.3f} ms and the backward {bwd_ms:.3f} ms (CUDA "
-           f"events, median of 5); binning {stats}, dropped share "
-           f"{share:.3e} (limit {MAX_DROPPED:g}); peak device memory "
-           f"{peak:.2f} GiB")
-    say(8, "one step's device stages (CUDA events, median of 3): "
-           + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items()))
+    say(8, f"binning {stats}, dropped share {share:.3e} (limit "
+           f"{MAX_DROPPED:g})")
     check(share < MAX_DROPPED, f"dropped share {share} >= {MAX_DROPPED}")
-    return dict(step_ms=step_ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms)
 
 
 SCENE_FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
@@ -1275,8 +1092,8 @@ SCENE_FIELDS = ("means", "quats", "scales", "colors", "opacities", "sh")
 
 def phase9_case(label, g, cfg, dev):
     """The top-K kernels against their twins and against the fused peel at
-    one configuration; returns errors, times and the launches of its main
-    path run (the K-list's scene gradient)."""
+    one configuration; returns the launches of its main path run (the
+    K-list's scene gradient)."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import (TOPK_LANES, _shade_layers,
@@ -1290,16 +1107,9 @@ def phase9_case(label, g, cfg, dev):
 
     cam, packed, cand, counts, _, pix = keys_inputs(g, cfg, dev)
     t, p = cand.shape[0], pix.shape[1]
-
-    def kernel():
-        return peel_topk_cuda(packed, cand, counts, pix, DEPTH)
-
-    def plain():
-        return plain_in_bands(
-            lambda c, q: peel_topk_torch(packed, c, q, DEPTH), t, cand, pix)
-
-    lay_k, sl_k = kernel()
-    lay_p, sl_p = plain()
+    lay_k, sl_k = peel_topk_cuda(packed, cand, counts, pix, DEPTH)
+    lay_p, sl_p = plain_in_bands(
+        lambda c, q: peel_topk_torch(packed, c, q, DEPTH), t, cand, pix)
     torch.cuda.synchronize()
     check(torch.equal(sl_k, sl_p), f"{label}: top-K winners differ from the "
           f"twin's at {int((sl_k != sl_p).sum())} entries")
@@ -1343,13 +1153,11 @@ def phase9_case(label, g, cfg, dev):
         return peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay,
                                   DEPTH)
 
-    def plain_bwd():
-        return table_in_bands(
-            packed, lambda c, q, sl, gl: peel_topk_bwd_torch(
-                packed, c, q, sl, gl),
-            t, cand, pix, sl_k, g_lay)
-
-    d_k, d_p = kernel_bwd(), plain_bwd()
+    d_k = kernel_bwd()
+    d_p = table_in_bands(
+        packed, lambda c, q, sl, gl: peel_topk_bwd_torch(
+            packed, c, q, sl, gl),
+        t, cand, pix, sl_k, g_lay)
     torch.cuda.synchronize()
     bwd_abs, bwd_lane = table_errors(f"{label}: top-K backward", d_k, d_p)
     check(torch.equal(kernel_bwd(), d_k), f"{label}: a second launch of the "
@@ -1413,21 +1221,14 @@ def phase9_case(label, g, cfg, dev):
               f"limit {limit:g})")
     del grads_f2, grads_k2
 
-    def kernel_pairs():
-        return peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay,
-                                  DEPTH, table=False)
-
-    def plain_pairs():
-        return plain_in_bands(
-            lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl, gl),
-            t, cand, pix, sl_k, g_lay)
-
     swept = torch.arange(cand.shape[1], device=dev) < counts[:, None]
     pair_lane, pair_same = pair_rows_against_twin(
-        f"{label}: top-K", kernel_pairs()[0], plain_pairs(), swept)
-    ms, ms_plain = time_ms(kernel), time_ms(plain)
-    ms_bwd, ms_bwd_plain = time_ms(kernel_bwd), time_ms(plain_bwd)
-    ms_pairs, ms_pairs_plain = time_ms(kernel_pairs), time_ms(plain_pairs)
+        f"{label}: top-K",
+        peel_topk_bwd_cuda(packed, cand, counts, pix, sl_k, g_lay, DEPTH,
+                           table=False)[0],
+        plain_in_bands(
+            lambda c, q, sl, gl: peel_topk_bwd_torch(packed, c, q, sl, gl),
+            t, cand, pix, sl_k, g_lay), swept)
     c = cand.shape[1]
     say(9, f"top-K {label}: T={t} C={c} P={p} K={DEPTH}: slots and t1 "
            f"bitwise equal to the twin's, α/rgb max |diff| {fwd_err:.3e} "
@@ -1435,20 +1236,13 @@ def phase9_case(label, g, cfg, dev):
            f"max |diff| {alpha_err:.3e} from the fused winners' α; backward "
            f"max |diff| {bwd_abs:.3e}, per lane {bwd_lane:.3e} of the "
            f"lane's largest (limit {BWD_LANE_RTOL:g}), a second launch "
-           f"bitwise the first; forward kernel {ms:.3f} ms, twin "
-           f"{ms_plain:.3f} ms; backward kernel with its segment sum "
-           f"{ms_bwd:.3f} ms ({ms_pairs:.3f} without), twin "
-           f"{ms_bwd_plain:.3f} ms (CUDA events, median of 5); its pair rows "
-           f"against the twin's per-slot rows: per lane {pair_lane:.3e} of "
-           f"the lane's largest, {pair_same}")
+           f"bitwise the first; its pair rows against the twin's per-slot "
+           f"rows: per lane {pair_lane:.3e} of the lane's largest, "
+           f"{pair_same}")
     pairs, rejected = sweep_screen_share(packed, cand, counts, pix, sl_k)
-    say(9, f"top-K {label} with the stream kept busy (device time without "
-           f"the wrapper's host time): forward kernel {busy_ms(kernel):.3f} "
-           f"ms ({ms:.3f} around the wrapper); backward kernel "
-           f"{busy_ms(kernel_bwd):.3f} ms; its result is the (N+1, 64) table "
-           f"gradient, sentinel row exactly 0; its sweep is the fused "
-           f"forward's (sweep_topk), whose f32 screen rejects {rejected} of "
-           f"{pairs} pairs = {rejected / pairs:.2%} on these inputs")
+    say(9, f"top-K {label}: its sweep is the fused forward's (sweep_topk), "
+           f"whose f32 screen rejects {rejected} of {pairs} pairs = "
+           f"{rejected / pairs:.2%} on these inputs")
     say(9, f"outputs {label} (vacant share {vacant:.2%}): "
            + "; ".join(shares))
     say(9, f"main path {label}: scene gradient of Σ w·radiance + Σ "
@@ -1463,10 +1257,7 @@ def phase9_case(label, g, cfg, dev):
            + ", ".join(f"{k} {l2:.1e}/{q:.1e}/{m:.1e}"
                        for k, (l2, q, m) in grad_errs.items())
            + "; a second run of each path gives every gradient bitwise")
-    return dict(fwd_err=fwd_err, bwd_err=bwd_abs, ms=ms, ms_plain=ms_plain,
-                ms_bwd=ms_bwd, ms_bwd_plain=ms_bwd_plain, launches=launches,
-                ms_pairs=ms_pairs, ms_pairs_plain=ms_pairs_plain,
-                shape=launch_shape(packed, cand, pix, sl_k))
+    return launches
 
 
 def quantile(x, q):
@@ -1495,23 +1286,6 @@ def compare_images(label, img, ref):
     return q, worst
 
 
-def frame_stats(render_fn):
-    """Median host time with sync of 3 frames after a warm-up, in ms, and
-    the peak device memory of one frame, in GiB."""
-    import torch
-
-    render_fn()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    host = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        render_fn()
-        torch.cuda.synchronize()
-        host.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(host), torch.cuda.max_memory_allocated() / 2**30
-
-
 def cli_argv(ply, res):
     return ["-o", str(ply), "-r", f"{res[0]},{res[1]}", "-d", str(DEPTH),
             "--fov", str(BENCH_POSE["fov"]), "--radius", str(BENCH_POSE["r"]),
@@ -1522,7 +1296,7 @@ def cli_argv(ply, res):
 
 def small_fit(renderer, ply, tmp):
     """``fit --renderer <renderer>`` through the CLI on the small scene;
-    returns the printed line, wall seconds and peak device memory (GiB)."""
+    returns the printed line and peak device memory (GiB)."""
     import torch
 
     from rtgs_tpu_torch.__main__ import main as cli
@@ -1537,11 +1311,9 @@ def small_fit(renderer, ply, tmp):
     printed = io.StringIO()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         cli(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     line = printed.getvalue().strip()
     m = FIT_LINE.search(line)
@@ -1550,7 +1322,7 @@ def small_fit(renderer, ply, tmp):
         float(m.group(3))), f"fit --renderer {renderer}: {line!r}")
     check(out.is_file() and out.stat().st_size > 0,
           f"fit --renderer {renderer} wrote no .ply")
-    return line, wall, peak
+    return line, peak
 
 
 def phase10_oracle(dev, tmp):
@@ -1565,11 +1337,9 @@ def phase10_oracle(dev, tmp):
     ply = tmp / "scene_4k.ply"
     save_scene(ply, random_scene(ORACLE_N, device=dev, **SCENE_4K))
     w, h = ORACLE_RES
-    t0 = time.perf_counter()
-    cli(["render", *cli_argv(ply, ORACLE_RES), "--renderer", "oracle",
-         "--output", str(tmp / "oracle.npy")])
+    run_quiet(cli, ["render", *cli_argv(ply, ORACLE_RES), "--renderer",
+                    "oracle", "--output", str(tmp / "oracle.npy")])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
 
     g = load_scene(ply, device=dev)
     cam = bench_camera(ORACLE_RES, dev)
@@ -1585,19 +1355,15 @@ def phase10_oracle(dev, tmp):
         check(bool(torch.isfinite(img_o).all()) and float(img_o.max()) > 0.05,
               "oracle image is not finite or black")
         q, worst = compare_images("oracle vs keys", img_o, img_k)
-        frame_ms, peak = frame_stats(
-            lambda: render_oracle(g, cam, depth=DEPTH))
-    say(10, f"CLI render --renderer oracle of {g.num} splats at {w}x{h}: "
-            f"{wall:.2f} s wall (scene load included); in process against "
-            f"the keys render: {IMG_Q}-quantile |diff| {q:.2e} (limit "
-            f"{IMG_QTOL:g}), max {worst:.2e} (limit {IMG_MAXTOL:g}); oracle "
-            f"frame {frame_ms:.2f} ms (host clock with sync, median of 3), "
-            f"peak device memory {peak:.2f} GiB")
-    line, wall, peak = small_fit("oracle", ply, tmp)
+    say(10, f"CLI render --renderer oracle of {g.num} splats at {w}x{h}; in "
+            f"process against the keys render: {IMG_Q}-quantile |diff| "
+            f"{q:.2e} (limit {IMG_QTOL:g}), max {worst:.2e} (limit "
+            f"{IMG_MAXTOL:g})")
+    line, peak = small_fit("oracle", ply, tmp)
     say(10, f"CLI fit --renderer oracle, {SMALL_FIT['steps']} steps at "
             f"{SMALL_FIT['res'][0]}x{SMALL_FIT['res'][1]}, "
-            f"{SMALL_FIT['views']} views: '{line}' in {wall:.2f} s wall; "
-            f"peak device memory {peak:.2f} GiB")
+            f"{SMALL_FIT['views']} views: '{line}'; peak device memory "
+            f"{peak:.2f} GiB")
     return ply
 
 
@@ -1658,10 +1424,8 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
     argv = [*cli_argv(ply, res), "--renderer", "tiled", "--max-candidates",
             str(CFG_100K["max_candidates"]), "--bin-narrow",
             str(CFG_100K["bin_narrow"])]
-    t0 = time.perf_counter()
-    cli(["render", *argv, "--output", str(tmp / "tiled.npy")])
+    run_quiet(cli, ["render", *argv, "--output", str(tmp / "tiled.npy")])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
 
     g = load_scene(ply, device=dev)
     cam = bench_camera(res, dev)
@@ -1675,20 +1439,17 @@ def phase11_tiled(g100k, ply_4k, dev, tmp):
               "tiled image is not finite or black")
         q, worst = compare_images("tiled vs keys", img_t, img_k)
         lists = worst_pixel_lists(g, cam, kw, img_t, img_k)
-        frame_ms, peak = frame_stats(lambda: render_tiled(g, cam, **kw))
     say(11, f"CLI render --renderer tiled of {g.num} splats at "
-            f"{res[0]}x{res[1]}: {wall:.2f} s wall (scene load included); "
-            f"in process against the keys render: {IMG_Q}-quantile |diff| "
-            f"{q:.2e} (limit {IMG_QTOL:g}), max {worst:.2e} (limit "
-            f"{IMG_MAXTOL:g}); tiled frame {frame_ms:.2f} ms (host clock "
-            f"with sync, median of 3), peak device memory {peak:.2f} GiB")
+            f"{res[0]}x{res[1]}; in process against the keys render: "
+            f"{IMG_Q}-quantile |diff| {q:.2e} (limit {IMG_QTOL:g}), max "
+            f"{worst:.2e} (limit {IMG_MAXTOL:g})")
     say(11, f"tiled vs keys, the worst pixel's winners (id, t1, alpha) a "
             f"layer: {lists}")
-    line, wall, peak = small_fit("tiled", ply_4k, tmp)
+    line, peak = small_fit("tiled", ply_4k, tmp)
     say(11, f"CLI fit --renderer tiled, {SMALL_FIT['steps']} steps at "
             f"{SMALL_FIT['res'][0]}x{SMALL_FIT['res'][1]} on the "
-            f"{ORACLE_N}-splat scene, {SMALL_FIT['views']} views: '{line}' "
-            f"in {wall:.2f} s wall; peak device memory {peak:.2f} GiB")
+            f"{ORACLE_N}-splat scene, {SMALL_FIT['views']} views: '{line}'; "
+            f"peak device memory {peak:.2f} GiB")
 
 def scene_grads(g, cam, render, **kw):
     """The image and the gradients of Σ image for every scene field."""
@@ -1735,17 +1496,13 @@ def phase12_gradients(g, dev):
                   / (d_auto[:n].abs().amax(0) + 1e-30)).max())
     check(lane <= BWD_LANE_RTOL, f"shade backward per-lane error {lane} > "
           f"{BWD_LANE_RTOL}")
-    ms_hand = time_ms(lambda: table_grad(shade_winners_kp), reps=3)
-    ms_auto = time_ms(lambda: table_grad(_shade_forward), reps=3)
     vacant = float((sid < 0).float().mean())
     w, h = CFG_FIT["res"]
     say(12, f"shade_winners_kp at 100k@{w}x{h} (T={cand.shape[0]} K={DEPTH} "
             f"P={pix.shape[1]}, vacant {vacant:.2%}): backward vs torch "
             f"autograd of the plain forward, per lane {lane:.3e} of the "
             f"lane's largest (limit {BWD_LANE_RTOL:g}), sentinel row exactly "
-            f"0, a second run bitwise the first; forward+backward "
-            f"{ms_hand:.2f} ms, through autograd {ms_auto:.2f} ms (CUDA "
-            f"events, median of 3)")
+            f"0, a second run bitwise the first")
     del d_hand, d_auto, cots
 
     kw = dict(max_candidates=CFG_FIT["max_candidates"],
@@ -1779,39 +1536,6 @@ def phase12_gradients(g, dev):
             f"{img_err:.2e}, banded image bitwise the unbanded one; no NaN")
 
 
-def host_ms(fn, reps=5):
-    """Median host-clock ms of ``fn`` ending in a synchronize, after one
-    warm-up."""
-    import torch
-
-    def once():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    once()
-    return statistics.median(once() for _ in range(reps))
-
-
-def device_busy(fn, reps=3):
-    """Device time (ms) and device kernels of one ``fn()``: the kernels'
-    own times summed from a ``torch.profiler`` trace of ``reps`` calls.
-    Beside the untraced host time of the same call it gives the device's
-    busy share; (0, 0) means the profiler saw no device activity."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
-    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
-            round(sum(e.count for e in events) / reps))
-
-
 def phase12_bench(cfg, g, dev):
     """The repository's benchmark protocol at one configuration; returns
     the keys kernel's launches of one forward+backward."""
@@ -1826,21 +1550,9 @@ def phase12_bench(cfg, g, dev):
               max_global=BENCH_MAX_GLOBAL, bin_narrow=cfg["bin_narrow"],
               tile_bands=cfg["tile_bands"])
 
-    def fwd():
-        with torch.no_grad():
-            return render_tiled_keys(g, cam, with_stats=True, **kw)
-
-    leaves = {f: getattr(g, f).detach().clone().requires_grad_()
-              for f in SCENE_FIELDS}
-    scene = type(g)(mask=g.mask, **leaves)
-
-    def step():
-        for x in leaves.values():
-            x.grad = None
-        render_tiled_keys(scene, cam, **kw).sum().backward()
-
     peel_keys_cuda.launches = 0
-    img, stats = fwd()
+    with torch.no_grad():
+        img, stats = render_tiled_keys(g, cam, with_stats=True, **kw)
     fwd_launches = peel_keys_cuda.launches
     stats = {k: int(v) for k, v in stats.items()}
     dropped = stats["local_overflow"] + stats["global_overflow"]
@@ -1848,11 +1560,13 @@ def phase12_bench(cfg, g, dev):
     check(bool(torch.isfinite(img).all()) and float(img.max()) > 0.05,
           f"bench {cfg['label']}: image not finite or black")
     del img
-    t_fwd = host_ms(fwd)
+    leaves = {f: getattr(g, f).detach().clone().requires_grad_()
+              for f in SCENE_FIELDS}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     peel_keys_cuda.launches = 0
-    step()
+    render_tiled_keys(type(g)(mask=g.mask, **leaves), cam,
+                      **kw).sum().backward()
     torch.cuda.synchronize()
     step_launches = peel_keys_cuda.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1861,29 +1575,17 @@ def phase12_bench(cfg, g, dev):
               f"bench {cfg['label']}: gradient of {f} missing or non-finite")
     check(float(leaves["means"].grad.abs().max()) > 0,
           f"bench {cfg['label']}: zero gradient")
-    t_step = host_ms(step)
-    busy = []
-    for wall, fn in ((t_fwd, fwd), (t_step, step)):
-        dev_ms, n_kernels = device_busy(fn)
-        busy.append(f"{dev_ms:.2f} ms in {n_kernels} kernels = "
-                    f"{dev_ms / wall:.1%} of the host time"
-                    if dev_ms > 0 else "not measured")
     bands = cfg["tile_bands"] or 1
     want = 2 * bands if bands > 1 else 1
     check(fwd_launches == bands and step_launches == want,
           f"bench {cfg['label']}: keys kernel launched {fwd_launches} times "
           f"in a forward and {step_launches} in a forward+backward, expected "
           f"{bands} and {want}")
-    rays = cfg["res"][0] * cfg["res"][1]
-    say(12, f"bench {cfg['label']}, K {DEPTH}, bands {bands}: forward "
-            f"{t_fwd:.2f} ms = {rays / t_fwd / 1e3:.2f} M rays/s; "
-            f"forward+backward of Σ image {t_step:.2f} ms = "
-            f"{rays / t_step / 1e3:.2f} M rays/s (host clock with sync, "
-            f"median of 5); binning {stats}, 0 dropped; peak device memory "
-            f"of a forward+backward {peak:.2f} GiB; keys kernel launches "
-            f"{fwd_launches} a forward, {step_launches} a forward+backward; "
-            f"device busy (torch.profiler, kernel times summed over 3 "
-            f"traced calls): forward {busy[0]}, forward+backward {busy[1]}")
+    say(12, f"bench {cfg['label']}, K {DEPTH}, bands {bands}: forward and "
+            f"forward+backward of Σ image; binning {stats}, 0 dropped; peak "
+            f"device memory of a forward+backward {peak:.2f} GiB; keys "
+            f"kernel launches {fwd_launches} a forward, {step_launches} a "
+            f"forward+backward")
     return fwd_launches + step_launches
 
 
@@ -1915,17 +1617,15 @@ def phase13_keys_cli(g, tmp):
     peel_fused_cuda.launches = peel_fused_bwd_cuda.launches = 0
     peel_keys_cuda.launches = segment_rows_cuda.launches = 0
     printed = io.StringIO()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(printed):
         cli(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     fit_launches = peel_keys_cuda.launches
     seg = segment_rows_cuda.launches
     want = FIT_CLI_BANDS * (FIT_VIEWS + 2 * FIT_CLI_STEPS)
     line = printed.getvalue().strip()
     say(13, f"CLI fit --renderer keys ({FIT_VIEWS} views, {FIT_CLI_STEPS} "
-            f"steps, {FIT_CLI_BANDS} bands): {wall:.2f} s wall; printed "
+            f"steps, {FIT_CLI_BANDS} bands): printed "
             f"'{line}'; keys kernel launches {fit_launches} (expected "
             f"{FIT_CLI_BANDS} x ({FIT_VIEWS} + 2 x {FIT_CLI_STEPS}): every "
             f"step runs each band twice); segment_rows {seg} (expected "
@@ -1953,8 +1653,8 @@ def phase13_keys_cli(g, tmp):
     bench_launches = peel_keys_cuda.launches
     line = printed.getvalue().strip()
     frames = 1 + iters + max(iters // 2, 3)
-    say(13, f"CLI bench --renderer keys at 100k@{w}x{h}: '{line}'; keys "
-            f"kernel launches {bench_launches} (expected {frames}: a warm-up, "
+    say(13, f"CLI bench --renderer keys at 100k@{w}x{h}: keys kernel "
+            f"launches {bench_launches} (expected {frames}: a warm-up, "
             f"{iters} timed, {max(iters // 2, 3)} with the image read back)")
     m = BENCH_LINE.search(line)
     check(m is not None and float(m.group(1)) > 0,
@@ -1973,40 +1673,15 @@ def same_bits(got, ref):
                             torch.nan_to_num(ref, nan=0.0)))
 
 
-def finite_abs_err(got, ref):
-    import torch
-
-    fin = torch.isfinite(got) & torch.isfinite(ref)
-    return float((got - ref)[fin].abs().max()) if bool(fin.any()) else 0.0
-
-
-def run_captured(phase, main, argv):
-    """Run a probe's ``main`` and print its lines under the phase's tag."""
-    printed = io.StringIO()
-    with contextlib.redirect_stdout(printed):
-        main(argv)
-    for ln in printed.getvalue().splitlines():
-        say(phase, "  " + ln)
-
-
 def phase14_kmicro(dev):
     """Every kmicro variant against its plain version at 960x256x128, then
-    the probe as a program. Returns the line's numbers for the family: the
-    sums of the variants' times and bounds, the largest error."""
+    the probe as a program. Returns its launches."""
     import torch
 
     from rtgs_tpu_torch.probes import kmicro
 
     x = kmicro.make_input(960, 256, 128, dev)
-    t, p, c = x.shape
-    n, nbytes = x.numel(), 2 * x.numel() * 4
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0,
-               library_ms=0.0, library_kernel_ms=0.0, library_variants=[],
-               library_device_ms=0.0, library_kernel_device_ms=0.0)
-    # The variants that one PyTorch call computes.
-    library = dict(copy=torch.clone, mult=lambda v: torch.mul(v, 1.0001),
-                   div=torch.reciprocal, sqrt=torch.sqrt, exp=torch.exp,
-                   exp2=torch.exp2)
+    t, _, c = x.shape
 
     def plain(name, inp):
         return plain_in_bands(lambda xb: kmicro.micro_torch(name, xb), t, inp)
@@ -2053,47 +1728,16 @@ def phase14_kmicro(dev):
             check(hits > 0.05, f"chunkbody: signed rows hit {hits:.2%}")
             verdict += (f"; on signed rows ({hits:.1%} of the layers hit) "
                         + compare(name, got_s, ref_s))
-            tot["err"] = max(tot["err"], finite_abs_err(got_s, ref_s))
             del xs, got_s, ref_s
-        tot["err"] = max(tot["err"], finite_abs_err(got, ref))
         del got, ref
-        ms = time_ms(kmicro.timed_call(name, x))
-        plain_ms = time_ms(lambda: plain(name, x), reps=2)
-        lib = ""
-        if name in library:
-            lib_ms = time_ms(lambda: library[name](x))
-            dev_ms = busy_ms(kmicro.timed_call(name, x))
-            lib_dev_ms = busy_ms(lambda: library[name](x))
-            tot["library_ms"] += lib_ms
-            tot["library_kernel_ms"] += ms
-            tot["library_device_ms"] += lib_dev_ms
-            tot["library_kernel_device_ms"] += dev_ms
-            tot["library_variants"].append(name)
-            lib = (f", one PyTorch call {lib_ms:.3f} ms; with the stream kept "
-                   f"busy the kernel {dev_ms:.4f} ms, the call "
-                   f"{lib_dev_ms:.4f} ms")
-        b_ms, by = bound(nbytes, n * MICRO_F32.get(name, 1),
-                         n * MICRO_F64.get(name, 0))
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += b_ms
-        tot["ops"] += b_ms if by == "operations" else 0.0
-        say(14, f"kmicro {name:18s} {verdict}; kernel {ms:.3f} ms = "
-                f"{nbytes / ms / 1e6:.0f} GB/s, plain {plain_ms:.3f} ms, "
-                f"bound {b_ms:.3f} ms ({by}){lib}")
+        say(14, f"kmicro {name:18s} {verdict}")
     check_refusals(kmicro, x)
     kmicro.micro_cuda.launches = 0
-    run_captured(14, kmicro.main, ["--iters", "5"])
+    run_quiet(kmicro.main, ["--iters", "5"])
     launches = kmicro.micro_cuda.launches
     check(launches == 6 * len(kmicro.VARIANTS), f"kmicro launched "
           f"{launches} kernels, expected {6 * len(kmicro.VARIANTS)}")
-    say(14, f"kmicro {', '.join(tot['library_variants'])}: the six kernels "
-            f"{tot['library_kernel_ms']:.4f} ms against the six PyTorch "
-            f"calls {tot['library_ms']:.4f} ms around the wrapper; with the "
-            f"stream kept busy (device time) "
-            f"{tot['library_kernel_device_ms']:.4f} against "
-            f"{tot['library_device_ms']:.4f} ms")
-    return tot, launches
+    return launches
 
 
 def check_refusals(kmicro, x):
@@ -2110,7 +1754,7 @@ def check_refusals(kmicro, x):
 def phase14_scene_probes(dev):
     """kprobe's and lpprobe's variants against their plain versions at
     100k@640x384 with the budget at which nothing drops, then both probes
-    as programs. Returns the two families' numbers."""
+    as programs. Returns the two probes' launches."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import _counts, peel_fused_cuda
@@ -2127,26 +1771,9 @@ def phase14_scene_probes(dev):
     t, c = cand.shape
     p = pix.shape[1]
     live = int((cand >= 0).sum())
-    rows = min(live, packed.shape[0])
-    pairs = live * p
     rad, trans, slots = peel_fused_cuda(packed, cand, counts, pix, DEPTH)
     prod_ref = torch.cat([rad, trans[:, None]], dim=1)
     winners = int((slots >= 0).sum())
-    # Bytes: the live ids, counts, the pixel lanes a variant reads (the
-    # sweep 9, the SH dots 15 more, empty 4), the row lanes it reads of each
-    # referenced row, the (T, 4, P) output.
-    def io_bytes(pix_lanes, row_bytes):
-        return (live * 4 + t * 4 + t * p * pix_lanes * 4 + rows * row_bytes
-                + t * 4 * p * 4)
-
-    work = {   # bytes, f32 operations, f64 operations
-        "empty": (t * 8 + t * p * 4 * 4 + t * 4 * p * 4, 0, 0),
-        "intersect": (io_bytes(9, 40), 0, pairs * SWEEP_F64),
-        "merge_t1": (io_bytes(9, 40), 0, pairs * SWEEP_F64),
-        "shade_nomerge": (io_bytes(24, 236), pairs * 120, pairs * SWEEP_F64),
-        "shade_qa": (io_bytes(9, 44), pairs * 30, pairs * SWEEP_F64),
-        "shade_dots": (io_bytes(24, 232), pairs * 93, pairs * SWEEP_F64),
-    }
 
     def plain(name, *qa):
         return plain_in_bands(
@@ -2154,38 +1781,21 @@ def phase14_scene_probes(dev):
                                                    DEPTH, *qa),
             t, cand, counts, pix)
 
-    abl = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0)
     for name in kprobe.VARIANTS:
         got = kprobe.ablate_cuda(name, packed, cand, counts, pix, DEPTH)
         torch.cuda.synchronize()
         if name in ("prod", "prod_static"):
             check(torch.equal(got, prod_ref), f"kprobe {name} differs from "
                   f"peel_fused_cuda")
-            cnt = kprobe.prod_counts(name, cand, counts)
-            ms = time_ms(lambda: peel_fused_cuda(packed, cand, cnt, pix,
-                                                 DEPTH))
             say(14, f"kprobe {name:13s} bitwise peel_fused_cuda's radiance "
-                    f"and transmittance; {ms:.3f} ms = "
-                    f"{w * h / ms / 1e3:.1f} M rays/s")
+                    f"and transmittance")
             continue
-        ms = time_ms(lambda: kprobe.ablate_cuda(name, packed, cand, counts,
-                                                pix, DEPTH))
         ref = plain(name)
         check(same_bits(got, ref), f"kprobe {name}: differs from the plain "
               f"version at {int((got != ref).sum())} entries")
-        plain_ms = time_ms(lambda: plain(name), reps=2)
-        b_ms, by = bound(*work[name])
-        abl["ms"] += ms
-        abl["plain_ms"] += plain_ms
-        abl["bound_ms"] += b_ms
-        abl["ops"] += b_ms if by == "operations" else 0.0
-        abl["err"] = max(abl["err"], finite_abs_err(got, ref))
         hit = float(torch.isfinite(ref[:, 0]).float().mean())
         say(14, f"kprobe {name:13s} bitwise the plain version (channel 0 "
-                f"finite on {hit:.1%} of the pixels); kernel {ms:.3f} ms = "
-                f"{work[name][0] / ms / 1e6:.1f} GB/s, {w * h / ms / 1e3:.1f} "
-                f"M rays/s, plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms "
-                f"({by})")
+                f"finite on {hit:.1%} of the pixels)")
         del got, ref
     # The shade variants' result above is intersect's whatever they shade
     # (their channel 1 starts at −inf). With +inf for the initial state and
@@ -2211,7 +1821,6 @@ def phase14_scene_probes(dev):
         check(bool(fin.any()) and float(diff.max()) <= limit,
               f"kprobe {name} (+inf state): shading off by "
               f"{float(diff.max())} > {limit} of max(1, |result|)")
-        abl["err"] = max(abl["err"], float(diff.max()))
         say(14, f"kprobe {name:13s} with a +inf state: the minimum of its "
                 f"shading terms, finite on {float(fin.float().mean()):.1%} "
                 f"of the pixels, max |diff| {float(diff.max()):.2e} from the "
@@ -2226,67 +1835,39 @@ def phase14_scene_probes(dev):
     agree = lpprobe.forms_agree(outs)
     check(all(agree.values()), f"keys forms differ: {agree}")
     del outs
-    flo = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, ops=0.0, err=0.0)
-    shape = (t, 2 * DEPTH, p)
     for name in lpprobe.FLOOR_VARIANTS:
         got = lpprobe.floor_cuda(name, packed, cand, p, DEPTH)
         ref = lpprobe.floor_torch(name, packed, cand, p, DEPTH)
         torch.cuda.synchronize()
         if name == "nothing":
             check(torch.equal(got, ref), "floor nothing is not +inf")
-            verdict, nbytes = "bitwise", got.numel() * 4
+            verdict = "bitwise"
         else:
             rel = float(((got - ref).abs() / ref.abs()).max())
             check(rel <= SUM_RTOL, f"floor touch: relative error {rel} > "
                   f"{SUM_RTOL} (f32 sums of {c} terms in another order)")
             verdict = f"rel {rel:.1e} (limit {SUM_RTOL:g})"
-            nbytes = got.numel() * 4 + t * c * 4 + rows * 4
-            flo["err"] = finite_abs_err(got, ref)
-            flo["max_rel_err"] = rel
-        ms = time_ms(lambda: lpprobe.floor_cuda(name, packed, cand, p, DEPTH))
-        dev_ms = busy_ms(lambda: lpprobe.floor_cuda(name, packed, cand, p,
-                                                    DEPTH))
-        plain_ms = time_ms(lambda: lpprobe.floor_torch(name, packed, cand, p,
-                                                       DEPTH))
-        b_ms, _ = bound(nbytes)
-        if name == "nothing":
-            # One PyTorch call computes it; touch takes a gather and a sum.
-            flo["library_ms"] = time_ms(
-                lambda: torch.full(shape, math.inf, device=dev))
-            flo["library_kernel_ms"] = ms
-            flo["library_variants"] = [name]
-            lib_dev_ms = busy_ms(
-                lambda: torch.full(shape, math.inf, device=dev))
-            verdict += (f" (torch.full: {flo['library_ms']:.4f} ms, "
-                        f"{lib_dev_ms:.4f} ms with the stream kept busy)")
-        flo["ms"] += ms
-        flo["plain_ms"] += plain_ms
-        flo["bound_ms"] += b_ms
-        say(14, f"lpprobe floor {name:8s} {verdict}; kernel {ms:.4f} ms = "
-                f"{nbytes / ms / 1e6:.0f} GB/s, of which {dev_ms:.4f} ms is "
-                f"the kernel's (stream kept busy) and the rest the wrapper's "
-                f"host time; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-                f"(bytes)")
+        say(14, f"lpprobe floor {name:8s} {verdict}")
     say(14, "lpprobe: the keys kernel's four forms agree bitwise")
 
     argv = [str(cfg["n"]), str(w), str(h), "--cand",
             str(cfg["max_candidates"]), "--glob", str(cfg["max_global"]),
             "--narrow", str(cfg["bin_narrow"])]
     kprobe.ablate_cuda.launches = 0
-    run_captured(14, kprobe.main, [*argv, "--variants",
-                                   ",".join(kprobe.VARIANTS), "--iters", "8"])
+    run_quiet(kprobe.main, [*argv, "--variants", ",".join(kprobe.VARIANTS),
+                            "--iters", "8"])
     abl_launches = kprobe.ablate_cuda.launches
     check(abl_launches == 9 * len(kprobe.KERNEL_VARIANTS),
           f"kprobe launched {abl_launches} ablation kernels")
     lpprobe.floor_cuda.launches = 0
-    run_captured(14, lpprobe.main, [*argv, "--iters", "7"])
+    run_quiet(lpprobe.main, [*argv, "--iters", "7"])
     flo_launches = lpprobe.floor_cuda.launches
     # 6 timed lines of 8 calls, and the host-time table's warm-up and
     # rounds of the whole wrapper call.
     want = 8 * 6 + 1 + lpprobe.HOST_ROUNDS * lpprobe.HOST_CALLS
     check(flo_launches == want, f"lpprobe launched {flo_launches} floor "
           f"kernels through its wrapper, expected {want}")
-    return abl, abl_launches, flo, flo_launches
+    return abl_launches, flo_launches
 
 
 def http_get(port, path):
@@ -2339,19 +1920,11 @@ def phase15_serve(g, dev):
         def frame(label):
             nonlocal launches
             peel_keys_cuda.launches = 0
-            session.timings = {}
-            t0 = time.perf_counter()
             png = http_get(port, "/frame")
-            total = (time.perf_counter() - t0) * 1e3
             n = peel_keys_cuda.launches
             launches += n
-            t = {k: v * 1e3 for k, v in session.timings.items()}
-            parts = (f"render {t['render']:.1f} + PNG {t['encode']:.1f} + "
-                     f"transfer and HTTP "
-                     f"{total - t['render'] - t['encode']:.1f} ms"
-                     if t else "no render (cached)")
-            say(15, f"GET /frame ({label}): {total:.1f} ms = {parts}; "
-                    f"{len(png)} bytes; keys launches {n}")
+            say(15, f"GET /frame ({label}): {len(png)} bytes; keys launches "
+                    f"{n}")
             return png, n
 
         png, n = frame("first pose")
@@ -2370,11 +1943,9 @@ def phase15_serve(g, dev):
               f"{n} keys kernels or changed")
         seen = png
         for ev in SERVE_EVENTS:
-            t0 = time.perf_counter()
             status = http_post(port, ev)
-            post_ms = (time.perf_counter() - t0) * 1e3
             check(status == 204, f"serve: /event {ev} answered {status}")
-            nxt, n = frame(f"after {ev['type']}, POST {post_ms:.1f} ms")
+            nxt, n = frame(f"after {ev['type']}")
             check(n == BANDS and nxt != seen,
                   f"serve: {ev['type']} gave an unchanged frame or {n} keys "
                   f"launches")
@@ -2460,10 +2031,6 @@ def phase16_ring(g1m, g100k, g4k, dev):
                                         tile_bands=BANDS, **kw)
                 err = float((img - ref).abs().max())
                 same = torch.equal(img, ref)
-                ring_ms, peak = frame_stats(lambda: render_tiled_sharded(
-                    shard, cam, mesh, depth=DEPTH, **kw))
-                keys_ms, keys_peak = frame_stats(lambda: render_tiled_keys(
-                    g1m, cam, depth=DEPTH, tile_bands=BANDS, **kw))
             check(launches == mesh.n_prims, f"ring: {launches} keys "
                   f"launches in a {mesh.n_prims}-step ring")
             check(bool(torch.isfinite(img).all()) and same,
@@ -2471,12 +2038,9 @@ def phase16_ring(g1m, g100k, g4k, dev):
                   f"|diff| {err})")
             say(16, f"render_tiled_sharded on a 1x1 NCCL mesh (one card: "
                     f"NCCL refuses two ranks on one device, so no larger "
-                    f"mesh and no multi-GPU number), 1M@{w}x{h}: bitwise "
-                    f"render_tiled_keys in {BANDS} bands; frame "
-                    f"{ring_ms:.2f} ms, peak {peak:.2f} GiB unbanded "
-                    f"(render_tiled_keys in {BANDS} bands {keys_ms:.2f} ms, "
-                    f"{keys_peak:.2f} GiB); keys launches {launches} (one "
-                    f"a ring step)")
+                    f"mesh), 1M@{w}x{h}: bitwise render_tiled_keys in "
+                    f"{BANDS} bands; keys launches {launches} (one a ring "
+                    f"step)")
 
             wf, hf = CFG_FIT["res"]
             cam = bench_camera(CFG_FIT["res"], dev)
@@ -2561,12 +2125,8 @@ def phase16_ring(g1m, g100k, g4k, dev):
                         f"the scene): {RING_STEPS} steps "
                         f"bitwise {RING_STEPS} one-card "
                         f"make_train_step(renderer='keys') steps "
-                        f"(parameters, Adam moments, losses); ms a step, "
-                        f"sharded / one card: " + ", ".join(
-                            f"{a:.2f} / {b:.2f}" for a, b in
-                            zip(out["ring_ms"], out["one_ms"]))
-                        + "; loss " + ", ".join(f"{x:.6f}"
-                                                for x in out["loss"])
+                        f"(parameters, Adam moments, losses); loss "
+                        + ", ".join(f"{x:.6f}" for x in out["loss"])
                         + f"; launches on the sharded steps: keys "
                           f"{out['ring_launches']['peel_keys_cuda']}, "
                           f"segment_rows "
@@ -2639,11 +2199,9 @@ def phase17_bvh_profiling(g1m, g100k, dev):
 
     from rtgs_tpu_torch.bvh import build_lbvh, bvh_hit
     from rtgs_tpu_torch.render.tiled import render_tiled_keys
-    from rtgs_tpu_torch.utils.profiling import timed, trace
+    from rtgs_tpu_torch.utils.profiling import trace
 
     n = g1m.num
-    build = timed(build_lbvh, g1m.means, g1m.quats, g1m.scales, g1m.mask,
-                  iters=3)
     bvh = build_lbvh(g1m.means, g1m.quats, g1m.scales, g1m.mask)
     leaves = torch.sort(bvh.prim[n - 1:]).values
     parents = torch.bincount(torch.cat([bvh.left[:n - 1],
@@ -2654,7 +2212,6 @@ def phase17_bvh_profiling(g1m, g100k, dev):
           "LBVH: the leaves are not a permutation or a node has not one "
           "parent")
     rays = bvh_rays(dev)
-    query = timed(bvh_hit, bvh, g1m, rays, BVH_MAX_STEPS, iters=3)
     hit = bvh_hit(bvh, g1m, rays, BVH_MAX_STEPS)
     t1_b, idx_b, second = bvh_brute(g1m, rays)
     cut = hit.steps >= BVH_MAX_STEPS
@@ -2674,14 +2231,13 @@ def phase17_bvh_profiling(g1m, g100k, dev):
     check(not bool(nearer.any()), f"LBVH: {int(nearer.sum())} cut rays "
           f"report a t1 nearer than the true nearest")
     steps = hit.steps.float()
-    say(17, f"LBVH of the {n}-splat scene: build {build['median_s'] * 1e3:.1f}"
-            f" ms (utils.profiling.timed, median of 3; min "
-            f"{build['min_s'] * 1e3:.1f}); bvh_hit of {BVH_RAYS} rays from a "
-            f"sphere of radius {BVH_RADIUS:g} at max_steps {BVH_MAX_STEPS}: "
-            f"{query['median_s'] * 1e3:.1f} ms; {int(cut.sum())} rays reach "
-            f"max_steps; steps median {float(steps.median()):.0f}, max "
-            f"{int(steps.max())}; {int(done.sum())} uncut rays agree with "
-            f"brute force ({int((done & hit_b).sum())} hits, "
+    say(17, f"LBVH of the {n}-splat scene: its leaves a permutation, every "
+            f"node but the root one parent; bvh_hit of {BVH_RAYS} rays from "
+            f"a sphere of radius {BVH_RADIUS:g} at max_steps "
+            f"{BVH_MAX_STEPS}: {int(cut.sum())} rays reach max_steps; steps "
+            f"median {float(steps.median()):.0f}, max {int(steps.max())}; "
+            f"{int(done.sum())} uncut rays agree with brute force "
+            f"({int((done & hit_b).sum())} hits, "
             f"{int((done & tie & (hit.gaussian_idx != idx_b)).sum())} ties "
             f"by another index, t1 max relative error "
             f"{float(rel.max()) if rel.numel() else 0.0:.1e}); no cut ray "
@@ -2705,8 +2261,8 @@ def phase17_bvh_profiling(g1m, g100k, dev):
           f"kernels")
     say(17, f"utils.profiling.trace around a 100k@{cam.buf_size[0]}x"
             f"{cam.buf_size[1]} keys render: Chrome trace of {size} bytes, "
-            f"{len(kernels)} device kernels, keys_sid_kernel "
-            f"{sum(e.get('dur', 0) for e in keys):.1f} µs")
+            f"{len(kernels)} device kernels, {len(keys)} of them "
+            f"keys_sid_kernel")
 
 
 def segment_bound(m, n):
@@ -2720,8 +2276,7 @@ def phase18_segment_case(label, g, cfg, dev):
     backward's pair rows (its stage 1) and the keys path's winners (their
     ids, as the shade backward lists them, with random rows), against
     segment_rows_torch on the CPU and against a second launch; then the
-    fused, top-K and keys backwards, each twice, bitwise. Returns the
-    segment sum's numbers at both inputs."""
+    fused, top-K and keys backwards, each twice, bitwise."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import (peel_fused_bwd_cuda,
@@ -2748,7 +2303,7 @@ def phase18_segment_case(label, g, cfg, dev):
                                          g_tr, DEPTH, table=False),
         "winner rows": (torch.randn((ids_w.shape[0], 64), generator=gen,
                                     device=dev), ids_w)}
-    out, parts = {}, []
+    parts = []
     for what, (rows, ids) in inputs.items():
         got = segment_rows_cuda(rows, ids, n)
         check(torch.equal(segment_rows_cuda(rows, ids, n), got),
@@ -2761,26 +2316,12 @@ def phase18_segment_case(label, g, cfg, dev):
         check(bool((diff <= 1e-6 * mag).all()), f"{label} {what}: "
               f"segment_rows.cu against its CPU twin: {n_diff} rows differ, "
               f"max |diff| {float(diff.max())}")
-        ids_l, acc = ids.long(), torch.zeros((n, 64), device=dev)
-        m = rows.shape[0]
-        b_ms, b_by = segment_bound(m, n)
-        out[what] = dict(
-            m=m, n=n, err=float(diff.max()), bitwise=n_diff == 0,
-            ms=time_ms(lambda: segment_rows_cuda(rows, ids, n)),
-            busy=busy_ms(lambda: segment_rows_cuda(rows, ids, n)),
-            plain_ms=time_ms(lambda: segment_rows_torch(rows, ids, n)),
-            library_ms=time_ms(lambda: acc.index_add_(0, ids_l, rows)),
-            bound_ms=b_ms, bound_by=b_by)
-        o = out[what]
         parts.append(
-            f"{what} M={m} into N+1={n}: "
-            + ("bitwise the CPU twin" if o["bitwise"] else
-               f"{n_diff} rows off the CPU twin, max |diff| {o['err']:.1e} "
-               f"(within 1e-6 of Σ|rows|)")
-            + f", {o['ms']:.4f} ms ({o['busy']:.4f} busy) against the plain "
-            f"version's {o['plain_ms']:.4f} and index_add_ alone "
-            f"{o['library_ms']:.4f}; bound {b_ms:.4f} ms ({b_by})")
-    del inputs, rows, ids, acc
+            f"{what} M={rows.shape[0]} into N+1={n}: "
+            + ("bitwise the CPU twin" if n_diff == 0 else
+               f"{n_diff} rows off the CPU twin, max |diff| "
+               f"{float(diff.max()):.1e} (within 1e-6 of Σ|rows|)"))
+    del inputs, rows, ids
 
     def keys_bwd():
         leaf = packed.detach().clone().requires_grad_()
@@ -2801,8 +2342,7 @@ def phase18_segment_case(label, g, cfg, dev):
               f"backward's sentinel row is not 0")
     say(18, f"{label}: segment_rows.cu, " + "; ".join(parts)
             + f"; the fused, top-K and keys backwards ({t} tiles, K "
-            f"{DEPTH}) each twice: bitwise equal (CUDA events, median of 5)")
-    return out
+            f"{DEPTH}) each twice: bitwise equal")
 
 
 def phase18_segment_shapes(dev):
@@ -2810,16 +2350,13 @@ def phase18_segment_shapes(dev):
     (``probes.ktime.segment_inputs``: (a) the fit configuration's pair
     rows, (b) its keys winner rows, (c) 1M@256x192's pair rows, (d) the
     busiest of 8 bands of the 1M@1920x1088 keys backward's winner rows):
-    bitwise its CPU twin and a second launch, then around the wrapper, busy
-    and device ms, the device time split by kernel, the host's share,
-    index_add_'s ms, the bound and the ids' run lengths. Returns the
-    numbers by shape."""
+    bitwise its CPU twin and a second launch, and every row no id names
+    +0.0."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import segment_rows_cuda, segment_rows_torch
     from rtgs_tpu_torch.probes import ktime
 
-    out = {}
     for label, (rows, ids, n) in ktime.segment_inputs(dev).items():
         got = segment_rows_cuda(rows, ids, n)
         check(torch.equal(segment_rows_cuda(rows, ids, n), got),
@@ -2833,13 +2370,10 @@ def phase18_segment_shapes(dev):
         unnamed = got[~named]
         check(bool((unnamed == 0).all()) and not torch.signbit(unnamed).any(),
               f"segment {label}: a row no id names is not +0.0")
-        with contextlib.redirect_stdout(io.StringIO()) as line:
-            o = ktime.segment_line(label, rows, ids, n, 9, dev)
-        out[label] = o
-        say(18, line.getvalue().strip() + "; bitwise the CPU twin and a "
-                "second launch")
+        say(18, f"segment {label}: M={rows.shape[0]} into N+1={n}, bitwise "
+                f"the CPU twin and a second launch; the {int((~named).sum())} "
+                f"rows no id names +0.0")
         del rows, ids, got, want
-    return out
 
 
 def fit_views(g, renderer, depth, cfg):
@@ -2860,9 +2394,8 @@ def train_twice(g, renderer, depth=DEPTH, cfg=CFG_FIT, ds=None,
     half way, unless not ``densify``), twice from the same state through
     ``renderer`` at ``depth``, on ``ds`` (else :func:`fit_views` at
     ``cfg``); every parameter, the mask and every step's loss and PSNR must be
-    bitwise equal. Returns the first and the last step's PSNR, the live
-    splats and the median step time of the second run (host clock with a
-    sync, ms)."""
+    bitwise equal. Returns the first and the last step's PSNR and the live
+    splats."""
     import torch
 
     ds = fit_views(g, renderer, depth, cfg) if ds is None else ds
@@ -2870,12 +2403,7 @@ def train_twice(g, renderer, depth=DEPTH, cfg=CFG_FIT, ds=None,
     for _ in range(2):
         solver = refit_solver(g, ds, renderer, FIT_CLI_STEPS, depth=depth,
                               budgets=cfg, densify=densify)
-        log, times = [], []
-        for _ in range(FIT_CLI_STEPS):
-            t0 = time.perf_counter()
-            log.append(solver.train_step())
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
+        log = [solver.train_step() for _ in range(FIT_CLI_STEPS)]
         runs.append((solver.params, solver.mask, log))
     (pa, ma, la), (pb, mb, lb) = runs
     check(la == lb, f"{renderer}: the two fits logged other losses or PSNR")
@@ -2883,8 +2411,7 @@ def train_twice(g, renderer, depth=DEPTH, cfg=CFG_FIT, ds=None,
     for name, a, b in zip(pa._fields, pa, pb):
         check(torch.equal(a, b), f"{renderer}: the two fits end with another "
               f"{name}")
-    return (la[0]["psnr"], lb[-1]["psnr"], int(mb.sum()),
-            statistics.median(times))
+    return la[0]["psnr"], lb[-1]["psnr"], int(mb.sum())
 
 
 def grads_twice(render, g, cam, **kw):
@@ -2937,8 +2464,7 @@ def torch_scatter_repeats(dev):
 
 def phase18_determinism(g100k, g1m, g4k, dev):
     """Every backward of the port twice, bitwise, with torch's deterministic
-    mode off; returns segment_rows.cu's numbers at the fit configuration
-    and its launches in the 1M forward+backward."""
+    mode off."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import segment_rows_cuda
@@ -2949,8 +2475,8 @@ def phase18_determinism(g100k, g1m, g4k, dev):
     check(not torch.are_deterministic_algorithms_enabled(),
           "torch's deterministic mode is on")
     w, h = CFG_FIT["res"]
-    seg = phase18_segment_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
-    seg_1m = phase18_segment_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    phase18_segment_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    phase18_segment_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     phase18_segment_shapes(dev)
 
     wf, hf = FULL_RES
@@ -2982,7 +2508,7 @@ def phase18_determinism(g100k, g1m, g4k, dev):
             + "; ".join(f"{r}: every parameter, the mask and every step's "
                         f"loss and PSNR bitwise equal (PSNR {first:.4f} -> "
                         f"{last:.4f} dB, {live} live)"
-                        for r, (first, last, live, _) in fits.items()))
+                        for r, (first, last, live) in fits.items()))
 
     cam_o = bench_camera(SMALL_FIT["res"], dev)
     cam_t = bench_camera(CFG_FIT["res"], dev)
@@ -3003,52 +2529,30 @@ def phase18_determinism(g100k, g1m, g4k, dev):
             + "; torch's own scatters on the card, twice: "
             + "; ".join(f"{k} {'bitwise' if v else 'NOT bitwise'}"
                         for k, v in scatters.items()))
-    return seg, seg_1m, launches
 
 
 def keys_passes(packed, cand, counts, lb, pix, depths):
     """The keys kernel in passes of ``depths`` layers, each above the last
     winner of the one before (what ``peel_keys`` runs for
-    ``pass_depths``); returns (t1, sid) concatenated along K and each
-    pass's pair of CUDA events."""
+    ``pass_depths``); returns (t1, sid) concatenated along K."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import peel_keys_cuda
 
-    t1s, sids, events, floor = [], [], [], None
+    t1s, sids, floor = [], [], None
     for k in depths:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         t1, sid = peel_keys_cuda(packed, cand, counts, lb, pix, k,
                                  floor=floor)
-        b.record()
         t1s.append(t1)
         sids.append(sid)
-        events.append((a, b))
         floor = (t1[:, -1].contiguous(), sid[:, -1].contiguous())
-    return torch.cat(t1s, dim=1), torch.cat(sids, dim=1), events
-
-
-def pass_times(packed, cand, counts, lb, pix, depths, reps=5):
-    """Median CUDA-event ms of each pass of ``keys_passes`` after a
-    warm-up."""
-    import torch
-
-    per = [[] for _ in depths]
-    for rep in range(reps + 1):
-        events = keys_passes(packed, cand, counts, lb, pix, depths)[2]
-        torch.cuda.synchronize()
-        if rep:
-            for i, (a, b) in enumerate(events):
-                per[i].append(a.elapsed_time(b))
-    return [statistics.median(x) for x in per]
+    return torch.cat(t1s, dim=1), torch.cat(sids, dim=1)
 
 
 def phase19_keys(g1m, dev):
     """The keys kernel chained at CHAIN_DEPTHS against one twin call at
-    1M@256x192, bitwise, one launch a pass; each pass timed, and the two
-    cuts of PASS_SPLITS side by side."""
+    1M@256x192, bitwise, one launch a pass, and in the other cuts of
+    PASS_SPLITS."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, pass_depths, peel_keys,
@@ -3074,21 +2578,15 @@ def phase19_keys(g1m, dev):
         cuts = []
         for split in (depths,) + tuple(x for x in PASS_SPLITS.get(depth, ())
                                        if x != depths):
-            t1_s, sid_s, _ = keys_passes(packed, cand, counts, lb, pix,
-                                         split)
+            t1_s, sid_s = keys_passes(packed, cand, counts, lb, pix, split)
             check(torch.equal(sid_s, sid_t) and torch.equal(t1_s, t1_t),
                   f"keys in passes {split}: differ from one twin call")
-            ms = pass_times(packed, cand, counts, lb, pix, split)
-            cuts.append(f"{'+'.join(map(str, split))}: {sum(ms):.3f} ms "
-                        f"({', '.join(f'{m:.3f}' for m in ms)})")
-        ms_twin = time_ms(lambda: peel_keys_torch(packed, cand, pix, depth),
-                          reps=3)
+            cuts.append("+".join(map(str, split)))
         say(19, f"keys 1M@256x192 (T={t} C={c} P={pix.shape[1]}) at depth "
                 f"{depth}: {len(depths)} passes, ids and t1 bitwise one "
                 f"twin call, with the early exit; {past} winners past layer "
                 f"{MAX_DEPTH}, {full:.1%} of pixels fill all {depth} layers; "
-                f"kernel passes (CUDA events, median of 5) "
-                + "; ".join(cuts) + f"; twin {ms_twin:.1f} ms")
+                f"passes cut as {', '.join(cuts)}, each bitwise the twin")
         del t1_t, sid_t, t1_k, sid_k
 
 
@@ -3098,8 +2596,7 @@ def phase19_peels(label, g, cfg, dev, need_deep=False):
     the top-K t1), radiance, transmittance, α and rgb to FWD_ATOL; the
     dispatchers' chains equal the passes chained by hand; their backward
     against one twin call (:func:`deep_backward`; ``need_deep``: some
-    splat must win only past layer MAX_DEPTH). Returns each kernel's
-    largest error, by kernel."""
+    splat must win only past layer MAX_DEPTH)."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, pass_depths, peel_fused,
@@ -3156,22 +2653,11 @@ def phase19_peels(label, g, cfg, dev, need_deep=False):
     past = int((sl_p[:, MAX_DEPTH:] >= 0).sum())
     bwd = deep_backward(packed, cand, pix, sl_p, rad_k.shape, lay_k.shape,
                         need_deep, dev)
-
-    def fused():
-        with torch.no_grad():
-            return peel_fused(packed, cand, pix, DEEP)
-
-    def topk():
-        with torch.no_grad():
-            return peel_topk(packed, cand, pix, DEEP)
-
     say(19, f"fused and top-K at {label} (T={t} C={cand.shape[1]}) at "
             f"depth {DEEP} in {len(depths)} passes: slots bitwise one twin "
             f"call's (top-K t1 too), radiance/transmittance max |diff| "
             f"{fwd_err:.2e}, α/rgb {topk_err:.2e}; {past} winners past layer "
-            f"{MAX_DEPTH}; peel_fused {time_ms(fused):.3f} ms, peel_topk "
-            f"{time_ms(topk):.3f} ms (CUDA events, median of 5; the "
-            f"wrappers' passes)")
+            f"{MAX_DEPTH}")
     say(19, f"backward of the chains at {label}, depth {DEEP}, under "
             f"autograd with seeded cotangents: " + "; ".join(
                 f"{name}: {b['launches']} launches (one a pass), table "
@@ -3181,9 +2667,6 @@ def phase19_peels(label, g, cfg, dev, need_deep=False):
                 f"only past layer {MAX_DEPTH} {b['deep_lane']:.3e} of their "
                 f"lane's largest (limit {BWD_LANE_RTOL:g} both)"
                 for name, b in bwd.items()))
-    return dict(peel_fwd=fwd_err, peel_topk_fwd=topk_err,
-                peel_bwd=bwd["peel_fused"]["abs"],
-                peel_topk_bwd=bwd["peel_topk"]["abs"])
 
 
 def deep_backward(packed, cand, pix, slots, rad_shape, lay_shape,
@@ -3270,10 +2753,8 @@ def deep_backward(packed, cand, pix, slots, rad_shape, lay_shape,
 
 def deep_frame(g, cam, depth, kw):
     """One banded keys frame at ``depth`` as ``render_tiled_keys`` runs it,
-    its keys passes launched here and timed: returns (the image, each
-    pass's ms summed over the bands, the shade and composite ms, the
-    residual transmittance (T, P) Π(1 − α), and which pixels have a hit
-    (T, P))."""
+    its keys passes launched here: returns (the image, the residual
+    transmittance (T, P) Π(1 − α), and which pixels have a hit (T, P))."""
     import torch
 
     from rtgs_tpu_torch.ops.peel import CHUNK, pass_depths
@@ -3297,36 +2778,26 @@ def deep_frame(g, cam, depth, kw):
     t = b.candidates.shape[0]
     nb = -(-t // kw["tile_bands"])
     depths = pass_depths(depth)
-    keys_ev, shade_ev, rads, trans, hit = [], [], [], [], []
+    rads, trans, hit = [], [], []
     for s in range(0, t, nb):
-        _, sid, ev = keys_passes(packed, b.candidates[s:s + nb],
-                                 b.counts[s:s + nb], b.chunk_lb[s:s + nb],
-                                 pix[s:s + nb], depths)
-        keys_ev.append(ev)
-        a = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        a.record()
+        _, sid = keys_passes(packed, b.candidates[s:s + nb],
+                             b.counts[s:s + nb], b.chunk_lb[s:s + nb],
+                             pix[s:s + nb], depths)
         layers = shade_winners_kp(packed, sid, pix[s:s + nb])
         rads.append(composite_layers_kp(*layers))
-        e.record()
-        shade_ev.append((a, e))
         trans.append(torch.prod(1.0 - layers[0], dim=1))
         hit.append(sid[:, 0] >= 0)
-    torch.cuda.synchronize()
-    per_pass = [sum(ev[i][0].elapsed_time(ev[i][1]) for ev in keys_ev)
-                for i in range(len(depths))]
-    shade = sum(a.elapsed_time(e) for a, e in shade_ev)
     img = _tiles_to_image(torch.cat(rads), b.n_tiles_x, b.n_tiles_y,
                           TILE)[:w, :h]
-    return img, per_pass, shade, torch.cat(trans), torch.cat(hit)
+    return img, torch.cat(trans), torch.cat(hit)
 
 
 def phase19_frames(g1m, dev, tmp):
     """``render -d DEEP`` and a 3-frame ``orbit`` through the CLI at
     1M@1920x1088 in 8 bands (the keys kernel once a pass a band), then in
-    process at FRAME_DEPTHS: frame time and rays/s, each keys pass's ms,
-    shade, peak memory and the residual transmittance. Returns the keys
-    launches of the CLI run."""
+    process at FRAME_DEPTHS: the frame with its passes launched here
+    against ``render_tiled_keys``, peak memory and the residual
+    transmittance. Returns the keys launches of the CLI run."""
     import numpy as np
     import torch
 
@@ -3345,12 +2816,10 @@ def phase19_frames(g1m, dev, tmp):
             "--max-candidates", "3584", "--tile-bands", str(BANDS),
             "--bin-narrow", "4", "--renderer", "keys", "--device", "cuda"]
     peel_keys_cuda.launches = 0
-    t0 = time.perf_counter()
-    cli(["render", *argv, "--output", str(tmp / "deep.npy")])
-    cli(["orbit", *argv, "--frames", str(ORBIT_FRAMES),
-         "--output", str(tmp / "deep_orbit")])
+    run_quiet(cli, ["render", *argv, "--output", str(tmp / "deep.npy")])
+    run_quiet(cli, ["orbit", *argv, "--frames", str(ORBIT_FRAMES),
+                    "--output", str(tmp / "deep_orbit")])
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = peel_keys_cuda.launches
     frames = 1 + ORBIT_FRAMES
     want = BANDS * len(pass_depths(DEEP)) * frames
@@ -3366,43 +2835,28 @@ def phase19_frames(g1m, dev, tmp):
             check(img8.shape == (h, w, 3) and img8.max() > 0,
                   f"deep CLI {p.name}: shape {img8.shape}, max {img8.max()}")
     say(19, f"CLI render + orbit --frames {ORBIT_FRAMES} at depth {DEEP}, "
-            f"1M@{w}x{h}, {BANDS} bands: {frames} frames in {wall:.2f} s "
-            f"wall (scene loads included); keys launches {launches} "
-            f"({len(pass_depths(DEEP))} passes a band)")
+            f"1M@{w}x{h}, {BANDS} bands: {frames} frames; keys launches "
+            f"{launches} ({len(pass_depths(DEEP))} passes a band)")
 
     cam = bench_camera(FULL_RES, dev)
     kw = dict(max_candidates=3584, max_global=64, tile_bands=BANDS,
               bin_narrow=4)
     for depth in FRAME_DEPTHS:
         with torch.inference_mode():
-            def frame():
-                out = render_tiled_keys(g1m, cam, depth=depth, tile=TILE,
-                                        **kw)
-                torch.cuda.synchronize()
-                return out
-
             torch.cuda.reset_peak_memory_stats()
-            ref = frame()
+            ref = render_tiled_keys(g1m, cam, depth=depth, tile=TILE, **kw)
+            torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            host = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                frame()
-                host.append((time.perf_counter() - t0) * 1e3)
-            frame_ms = statistics.median(host)
-            img, per_pass, shade, trans, hit = deep_frame(g1m, cam, depth,
-                                                          kw)
+            img, trans, hit = deep_frame(g1m, cam, depth, kw)
         check(torch.equal(img, ref), f"depth {depth}: the frame with its "
               f"passes launched here differs from render_tiled_keys")
         check(bool(torch.isfinite(ref).all()) and float(ref.max()) > 0.05,
               f"depth {depth}: image not finite or black")
         tr, tr_hit = trans.reshape(-1), trans[hit]
-        say(19, f"frame 1M@{w}x{h} at depth {depth} ({BANDS} bands): "
-                f"{frame_ms:.2f} ms (host clock with sync, median of 3) = "
-                f"{w * h / frame_ms * 1e3 / 1e6:.2f} M rays/s; keys passes "
-                f"{', '.join(f'{m:.2f}' for m in per_pass)} ms (summed over "
-                f"the bands, CUDA events), shade+composite {shade:.2f} ms; "
-                f"peak device memory {peak:.2f} GiB; residual "
+        say(19, f"frame 1M@{w}x{h} at depth {depth} ({BANDS} bands): the "
+                f"frame with its passes launched here bitwise "
+                f"render_tiled_keys'; peak device memory {peak:.2f} GiB; "
+                f"residual "
                 f"transmittance mean {float(tr.mean()):.4f}, p99 "
                 f"{float(torch.quantile(tr, 0.99)):.4f}, share of pixels "
                 f"above 0.01 {float((tr > 0.01).float().mean()):.2%}; over "
@@ -3513,9 +2967,8 @@ def phase19_fits_serve(g100k, g1m, dev):
             f"{min(past)}-{max(past)} a view; no density pass there): "
             + "; ".join(f"{cell} {r}: every parameter, the mask and every "
                         f"step's loss and PSNR bitwise equal, PSNR {a:.4f} "
-                        f"-> {b:.4f} dB, {live} live, step {ms:.2f} ms (host "
-                        f"clock with sync, median), peak {peak:.2f} GiB"
-                        for (cell, r), (a, b, live, ms, peak) in fits.items())
+                        f"-> {b:.4f} dB, {live} live, peak {peak:.2f} GiB"
+                        for (cell, r), (a, b, live, peak) in fits.items())
             + f"; launches {launches}")
     del deep_ds
 
@@ -3527,9 +2980,7 @@ def phase19_fits_serve(g100k, g1m, dev):
     thread.start()
     try:
         peel_keys_cuda.launches = 0
-        t0 = time.perf_counter()
         png = http_get(port, "/frame")
-        total = (time.perf_counter() - t0) * 1e3
         n = peel_keys_cuda.launches
         launches["peel_keys_cuda"] += n
         check(n == BANDS * n_pass, f"serve at depth {DEEP}: a frame launched "
@@ -3547,41 +2998,34 @@ def phase19_fits_serve(g100k, g1m, dev):
         server.server_close()
         thread.join(timeout=60)
     check(not thread.is_alive(), "serve: the server thread did not stop")
-    t = {k: v * 1e3 for k, v in session.timings.items()}
     say(19, f"serve at depth {DEEP}, 1M@{FULL_RES[0]}x{FULL_RES[1]}: GET "
-            f"/frame {total:.1f} ms (render {t['render']:.1f}, PNG "
-            f"{t['encode']:.1f}), bitwise the in-process render; keys "
-            f"launches {n}")
+            f"/frame bitwise the in-process render; keys launches {n}")
     return launches
 
 
 def phase19_deep(g100k, g1m, dev):
     """Phase 19: peels deeper than one kernel's list. Returns the launches
-    of the deep main path (CLI, fits, viewer) and the largest
-    kernel-against-twin error, each by kernel."""
+    of the deep main path (CLI, fits, viewer) by kernel."""
     phase19_keys(g1m, dev)
     w, h = CFG_FIT["res"]
-    fit = phase19_peels(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
-    big = phase19_peels("1M@256x192", g1m, CFG_1M_GATE, dev, need_deep=True)
-    errs = {k: max(fit[k], big[k]) for k in fit}
+    phase19_peels(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    phase19_peels("1M@256x192", g1m, CFG_1M_GATE, dev, need_deep=True)
     with tempfile.TemporaryDirectory() as tmp:
         cli_keys = phase19_frames(g1m, dev, pathlib.Path(tmp))
     launches = phase19_fits_serve(g100k, g1m, dev)
     launches["peel_keys_cuda"] += cli_keys
     for name, n in launches.items():
         check(n > 0, f"{name} was launched no time on the deep main path")
-    return launches, errs
+    return launches
 
 
 def fused_frame(g, cam, depth, kw):
     """One banded frame of the default path as ``render_tiled_pallas`` runs
-    it, its stages launched here and timed with CUDA events: features (the
-    packed table and the pixel table), binning (candidates padded to a
-    multiple of CHUNK), then each band's ``peel_fwd`` passes, each above
-    the last winner of the pass before, chained as ``peel_fused`` chains
-    them. Returns the image, ms by stage, each pass's ms summed over the
-    bands, each band's ms, and the inputs of the band with the most live
-    pairs."""
+    it, its stages launched here: features (the packed table and the pixel
+    table), binning (candidates padded to a multiple of CHUNK), then each
+    band's ``peel_fwd`` passes, each above the last winner of the pass
+    before, chained as ``peel_fused`` chains them. Returns the image and
+    the inputs of the band with the most live pairs."""
     import torch
     import torch.nn.functional as F
 
@@ -3592,33 +3036,23 @@ def fused_frame(g, cam, depth, kw):
                                              _tiles_to_image, pack_features,
                                              precompute_features)
 
-    def mark():
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        return e
-
     w, h = cam.buf_size
-    e0 = mark()
     packed = pack_features(precompute_features(g, cam))
     pix = _tile_pixel_features(cam, TILE)
-    e1 = mark()
     b = tile_candidates(g, cam, tile=TILE,
                         max_candidates=kw["max_candidates"],
                         max_global=kw["max_global"],
                         narrow=kw["bin_narrow"])
     cand = F.pad(b.candidates, (0, (-b.candidates.shape[1]) % CHUNK),
                  value=-1)
-    e2 = mark()
     t, p = cand.shape[0], pix.shape[1]
     nb = -(-t // kw["tile_bands"])
     depths = pass_depths(depth)
-    rads, passes = [], []
+    rads = []
     for s in range(0, t, nb):
         cb, qb = cand[s:s + nb], pix[s:s + nb]
         rad = trans = floor = None
-        evs = []
         for j, k in enumerate(depths):
-            a = mark()
             last = (torch.empty((cb.shape[0], p), dtype=torch.float32,
                                 device=cand.device)
                     if j + 1 < len(depths) else None)
@@ -3630,21 +3064,12 @@ def fused_frame(g, cam, depth, kw):
                 rad = rad + trans[:, None] * r
                 trans = trans * tr
             floor = None if last is None else (last, sl[:, -1].contiguous())
-            evs.append((a, mark()))
         rads.append(rad)
-        passes.append(evs)
     img = _tiles_to_image(torch.cat(rads).transpose(1, 2), b.n_tiles_x,
                           b.n_tiles_y, TILE)[:w, :h]
-    end = mark()
-    end.synchronize()
-    per_pass = [sum(evs[i][0].elapsed_time(evs[i][1]) for evs in passes)
-                for i in range(len(depths))]
-    per_band = [sum(a.elapsed_time(e) for a, e in evs) for evs in passes]
-    stages = {"features": e0.elapsed_time(e1), "binning": e1.elapsed_time(e2),
-              "peel_fwd": sum(per_pass), "total": e0.elapsed_time(end)}
     live = [int((cand[s:s + nb] >= 0).sum()) for s in range(0, t, nb)]
     s = nb * live.index(max(live))
-    return img, stages, per_pass, per_band, dict(
+    return img, dict(
         packed=packed, cand=cand[s:s + nb], pix=pix[s:s + nb],
         dropped=int(b.local_overflow) + int(b.global_overflow))
 
@@ -3687,7 +3112,7 @@ def phase20_cli(g1m, tmp):
     """``render`` and a 3-frame ``orbit`` at depth 16, ``render`` at 64 and
     128, and ``bench`` at 16, through the CLI with no ``--renderer``:
     ``peel_fwd`` once a band and pass, the keys kernel never. Returns
-    ``peel_fwd``'s launches and bench's printed line."""
+    ``peel_fwd``'s launches."""
     import numpy as np
     import torch
 
@@ -3717,24 +3142,21 @@ def phase20_cli(g1m, tmp):
              for d in FRAME_DEPTHS if d != DEPTH]
     runs.append(("bench", DEPTH, 1 + bench_iters + max(bench_iters // 2, 3),
                  ["--iters", str(bench_iters)]))
-    launches, bench_line = 0, ""
+    launches = 0
     for cmd, depth, frames, extra in runs:
         peel_fused_cuda.launches = peel_keys_cuda.launches = 0
         printed = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(printed):
             cli([cmd, *argv(depth), *extra])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
         launches += n
         want = BANDS * len(pass_depths(depth)) * frames
         line = printed.getvalue().strip().splitlines()[-1]
         say(20, f"CLI {cmd} -d {depth} (no --renderer), 1M@{w}x{h}, {BANDS} "
-                f"bands: {wall:.2f} s wall (scene load included); peel_fwd "
-                f"launches {n} (expected {want}: {frames} frames x {BANDS} "
-                f"bands x {len(pass_depths(depth))} passes), keys launches "
-                f"{keys}; printed '{line}'")
+                f"bands: peel_fwd launches {n} (expected {want}: {frames} "
+                f"frames x {BANDS} bands x {len(pass_depths(depth))} "
+                f"passes), keys launches {keys}")
         check(n == want and keys == 0, f"CLI {cmd} -d {depth}: peel_fwd "
               f"launched {n} times (expected {want}), keys {keys} (expected "
               f"0)")
@@ -3742,7 +3164,6 @@ def phase20_cli(g1m, tmp):
             m = BENCH_LINE.search(line)
             check(m is not None and float(m.group(1)) > 0,
                   f"bench printed {line!r}")
-            bench_line = line
     saved = [tmp / f"f{d}.npy" for d in FRAME_DEPTHS]
     saved += sorted((tmp / "orb").glob("frame_*"))
     check(len(saved) == len(FRAME_DEPTHS) + ORBIT_FRAMES,
@@ -3753,17 +3174,15 @@ def phase20_cli(g1m, tmp):
             check(img8.shape == (h, w, 3) and img8.max() > 0,
                   f"phase 20 CLI {p.name}: shape {img8.shape}, max "
                   f"{img8.max()}")
-    return launches, bench_line
+    return launches
 
 
 def phase20_frames(g1m, dev):
     """The default frame in process at FRAME_DEPTHS against the keys path's
-    in the same call: frame ms and rays/s, the stage split, peak memory,
-    dropped pairs, the device's busy share at depth 16; at 16 the frame
-    against the keys frame and the fused twin's banded frame; and one
-    band's peel_fwd kernel against its twin (winners, radiance and
-    transmittance bitwise), timed, with its bound. Returns the band's
-    numbers for the kernels line."""
+    in the same call: the frame with its passes launched here, peak
+    memory, dropped pairs; at 16 the frame against the keys frame and the
+    fused twin's banded frame; and one band's peel_fwd kernel against its
+    twin (winners, radiance and transmittance bitwise)."""
     import torch
 
     from rtgs_tpu_torch.render.api import render, resolve_renderer
@@ -3777,28 +3196,20 @@ def phase20_frames(g1m, dev):
     band = None
     for depth in FRAME_DEPTHS:
         with torch.inference_mode():
-            def default():
-                return render(g1m, cam, depth=depth, **kw)
-
-            def keys():
-                return render(g1m, cam, depth=depth, renderer="keys", **kw)
-
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            img = default()
+            img = render(g1m, cam, depth=depth, **kw)
             torch.cuda.synchronize()
             peak = torch.cuda.max_memory_allocated() / 2**30
-            ms = host_ms(default)
             torch.cuda.reset_peak_memory_stats()
-            ref = keys()
+            ref = render(g1m, cam, depth=depth, renderer="keys", **kw)
             torch.cuda.synchronize()
             peak_k = torch.cuda.max_memory_allocated() / 2**30
-            ms_k = host_ms(keys)
-            runs = [fused_frame(g1m, cam, depth, kw) for _ in range(3)]
-            check(all(torch.equal(r[0], img) for r in runs),
+            here, busiest = fused_frame(g1m, cam, depth, kw)
+            check(torch.equal(here, img),
                   f"depth {depth}: the frame with its passes launched here "
                   f"differs from render(auto)")
-            dropped = runs[0][4]["dropped"]
+            dropped = busiest["dropped"]
             check(dropped == 0 and sum(dropped_pairs(g1m, cam, depth,
                                                      kw)) == 0,
                   f"depth {depth}: the default frame dropped {dropped} pairs")
@@ -3806,35 +3217,15 @@ def phase20_frames(g1m, dev):
                   f"depth {depth}: the default frame is not finite or black")
             q, worst = compare_images(f"depth {depth}: default vs keys", img,
                                       ref)
-            med = {k: statistics.median(r[1][k] for r in runs)
-                   for k in runs[0][1]}
-            per_pass = [statistics.median(r[2][i] for r in runs)
-                        for i in range(len(runs[0][2]))]
-            per_band = [statistics.median(r[3][i] for r in runs)
-                        for i in range(len(runs[0][3]))]
-            busy = ""
             if depth == DEPTH:
-                dev_ms, kernels = device_busy(default)
-                busy = (f"; device busy {dev_ms:.2f} ms of {ms:.2f} = "
-                        f"{dev_ms / ms:.1%} ({kernels} device kernels a "
-                        f"frame, torch.profiler)")
-                band = runs[0][4]
+                band = busiest
         say(20, f"default frame 1M@{w}x{h} at depth {depth} (pallas, "
-                f"{BANDS} bands): {ms:.2f} ms (host clock with sync, median "
-                f"of 5) = {w * h / ms * 1e3 / 1e6:.2f} M rays/s, peak "
-                f"{peak:.2f} GiB, dropped pairs {dropped}; stages (CUDA "
-                f"events, median of 3): "
-                + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-                + "; peel_fwd by pass (summed over bands) "
-                + ", ".join(f"{m:.2f}" for m in per_pass)
-                + " ms, by band (passes summed) "
-                + ", ".join(f"{m:.2f}" for m in per_band)
-                + f" ms{busy}. Keys path, same frame: {ms_k:.2f} ms = "
-                f"{w * h / ms_k * 1e3 / 1e6:.2f} M rays/s, peak "
-                f"{peak_k:.2f} GiB; {ms_k / ms:.2f}x the default frame's "
-                f"time; images {IMG_Q}-quantile |diff| {q:.2e}, max "
-                f"{worst:.2e} (limits {IMG_QTOL:g}, {IMG_MAXTOL:g})")
-        del img, ref, runs
+                f"{BANDS} bands): bitwise the frame with its passes launched "
+                f"here, peak {peak:.2f} GiB, dropped pairs {dropped}. Keys "
+                f"path, same frame: peak {peak_k:.2f} GiB; images "
+                f"{IMG_Q}-quantile |diff| {q:.2e}, max {worst:.2e} (limits "
+                f"{IMG_QTOL:g}, {IMG_MAXTOL:g})")
+        del img, ref, here, busiest
 
     # The whole frame at depth 16 through the fused twin, in bands of
     # PLAIN_BAND tiles (its float64 fields would not fit at once).
@@ -3853,37 +3244,26 @@ def phase20_frames(g1m, dev):
             f"{-(-ntiles // PLAIN_BAND)} bands of {PLAIN_BAND} tiles): "
             f"{'bitwise equal' if same else 'not bitwise'}, {IMG_Q}-quantile "
             f"|diff| {q:.2e}, max {worst:.2e}")
-    return band_against_twin(band, 20, "the busiest full-width band")
+    band_against_twin(band, 20, "the busiest full-width band")
 
 
 def band_against_twin(band, phase, label):
     """One band (``fused_frame``'s busiest) through ``peel_fwd`` and its
-    twin at depth 16 and at 64 (the deep pass, a lane pair a pixel):
-    winners, radiance and transmittance bitwise; the kernel timed around the
-    wrapper and busy, at K = 16 and 64, the twin (in bands of PLAIN_BAND
-    tiles), the bound (at 64 the benchmark's, ``benchmark/bounds.py``: the
-    f32 screen on every live pair, the float64 chain on the winners).
-    Returns the kernels line's numbers."""
+    twin (in bands of PLAIN_BAND tiles) at depth 16 and at 64 (the deep
+    pass, a lane pair a pixel): winners, radiance and transmittance
+    bitwise."""
     import torch
 
-    from benchmark.bounds import peel_bound as launch_bound
     from rtgs_tpu_torch.ops.peel import (MAX_DEPTH, _counts, peel_fused_cuda,
                                          peel_fused_torch)
 
     packed, cand, pix = band["packed"], band["cand"], band["pix"]
     counts = _counts(cand)
-
-    def kernel():
-        return peel_fused_cuda(packed, cand, counts, pix, DEPTH)
-
-    def plain():
-        return plain_in_bands(
+    with torch.inference_mode():
+        rad_k, tr_k, sl_k = peel_fused_cuda(packed, cand, counts, pix, DEPTH)
+        rad_p, tr_p, sl_p = plain_in_bands(
             lambda c, x: peel_fused_torch(packed, c, x, DEPTH),
             cand.shape[0], cand, pix)
-
-    with torch.inference_mode():
-        rad_k, tr_k, sl_k = kernel()
-        rad_p, tr_p, sl_p = plain()
         torch.cuda.synchronize()
         check(torch.equal(sl_k, sl_p), f"peel_fwd at {label}: winners "
               f"differ from the twin's at {int((sl_k != sl_p).sum())} "
@@ -3892,14 +3272,7 @@ def band_against_twin(band, phase, label):
                   float((tr_k - tr_p).abs().max()))
         check(err == 0.0, f"peel_fwd at {label}: radiance or "
               f"transmittance differs from the twin's by {err}")
-        shape = launch_shape(packed, cand, pix, sl_k)
-        ms, ms_plain, ms_busy = (time_ms(kernel), time_ms(plain, reps=3),
-                                 busy_ms(kernel))
-
-        def deep():
-            return peel_fused_cuda(packed, cand, counts, pix, MAX_DEPTH)
-
-        deep_k = deep()
+        deep_k = peel_fused_cuda(packed, cand, counts, pix, MAX_DEPTH)
         deep_p = plain_in_bands(
             lambda c, x: peel_fused_torch(packed, c, x, MAX_DEPTH),
             cand.shape[0], cand, pix)
@@ -3909,23 +3282,12 @@ def band_against_twin(band, phase, label):
                                                    "winners")):
             check(torch.equal(got, ref), f"peel_fwd at {label}, K=64: "
                   f"{what} differs from the twin's")
-        k64 = busy_ms(deep)
-        k64_bound = launch_bound("peel_fwd", dict(
-            launch_shape(packed, cand, pix, deep_k[2]), k=MAX_DEPTH))
-    bound_ms, bound_by = peel_bound("peel_fwd", shape)
-    say(phase, f"peel_fwd at {label} (T={shape['t']} C={shape['c']} "
-               f"P={shape['p']} K={DEPTH}, {shape['live']} live pairs, "
-               f"{shape['winners']} winners): winners, radiance and "
-               f"transmittance bitwise the twin's; kernel {ms:.3f} ms around "
-               f"the wrapper, {ms_busy:.3f} ms busy (device), twin "
-               f"{ms_plain:.1f} ms (CUDA events); bound {bound_ms:.4f} ms "
-               f"({bound_by}) = {bound_ms / ms_busy:.1%} of the busy time; "
-               f"at K=64 (lane pairs) winners, radiance and transmittance "
-               f"bitwise the twin's, {k64:.3f} ms busy (one thread a pixel "
-               f"read 3.850-3.878), bound {k64_bound:.4f} ms = "
-               f"{k64_bound / k64:.1%}; of {packed.shape[0]} table rows")
-    return dict(err=err, ms=ms, plain_ms=ms_plain, shape=shape,
-                busy_ms=ms_busy)
+    t, c = cand.shape
+    say(phase, f"peel_fwd at {label} (T={t} C={c} P={pix.shape[1]} "
+               f"K={DEPTH}, {int((cand >= 0).sum())} live pairs, "
+               f"{int((sl_k >= 0).sum())} winners, of {packed.shape[0]} "
+               f"table rows): winners, radiance and transmittance bitwise "
+               f"the twin's, and at K=64 (lane pairs) too")
 
 
 def phase20_serve(g1m, dev):
@@ -3959,22 +3321,13 @@ def phase20_serve(g1m, dev):
         def frame(label):
             nonlocal launches
             peel_fused_cuda.launches = peel_keys_cuda.launches = 0
-            session.timings = {}
-            t0 = time.perf_counter()
             png = http_get(port, "/frame")
-            total = (time.perf_counter() - t0) * 1e3
             n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
             launches += n
-            t = {k: v * 1e3 for k, v in session.timings.items()}
-            parts = (f"render {t['render']:.1f} + PNG {t['encode']:.1f} + "
-                     f"transfer and HTTP "
-                     f"{total - t['render'] - t['encode']:.1f} ms"
-                     if t else "no render (cached)")
             dropped = sum(dropped_pairs(g1m, session.camera(), DEPTH,
                                         SERVE_KW))
-            say(20, f"serve GET /frame ({label}): {total:.1f} ms = {parts}; "
-                    f"peel_fwd launches {n}, keys {keys}; the pose's "
-                    f"binning drops {dropped} pairs")
+            say(20, f"serve GET /frame ({label}): peel_fwd launches {n}, "
+                    f"keys {keys}; the pose's binning drops {dropped} pairs")
             check(keys == 0 and dropped == 0, f"serve ({label}): {keys} keys "
                   f"launches, {dropped} dropped pairs")
             return png, n
@@ -4014,12 +3367,9 @@ def phase20_serve(g1m, dev):
         s = ProgressiveSampler(g1m, cam, depth=DEPTH, jitter=True,
                                generator=torch.Generator().manual_seed(3),
                                **kw)
-        t0 = time.perf_counter()
         for _ in range(PROGRESSIVE_SAMPLES):
             s.sample()
         shown = s.display()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
         n, keys = peel_fused_cuda.launches, peel_keys_cuda.launches
         launches += n
         ref = render_progressive(g1m, cam, depth=DEPTH,
@@ -4035,9 +3385,8 @@ def phase20_serve(g1m, dev):
     say(20, f"ProgressiveSampler x{PROGRESSIVE_SAMPLES} jittered at 1M@"
             f"{w}x{h}: the padded binning's drops by budget (candidates / "
             f"global list) {'; '.join(tried)}, so it runs at "
-            f"{kw['max_candidates']} / {kw['max_global']}: {wall:.1f} ms for "
-            f"the samples and the display; peel_fwd launches {n}, keys "
-            f"{keys}; bitwise render_progressive of the same seed")
+            f"{kw['max_candidates']} / {kw['max_global']}: peel_fwd launches "
+            f"{n}, keys {keys}; bitwise render_progressive of the same seed")
     return launches
 
 
@@ -4092,10 +3441,10 @@ def phase20_threshold(dev):
     """The oracle against the fused path at the JAX threshold
     (_ORACLE_MAX_N): the 4096-splat scene of phase 10 and the same scene
     with a 4097th splat far outside the view, at 1920x1088 and 640x384.
-    ``auto`` must take the oracle at 4096 and ``peel_fwd`` at 4097; both
-    renderers are timed on both scenes, and the images held to each other
-    by the image statistic (the worst pixel may exceed its max only where
-    both composite the same splats in another order)."""
+    ``auto`` must take the oracle at 4096 and ``peel_fwd`` at 4097, and
+    the images are held to each other by the image statistic (the worst
+    pixel may exceed its max only where both composite the same splats in
+    another order)."""
     import torch
 
     from rtgs_tpu_torch import gaussians as G
@@ -4119,18 +3468,14 @@ def phase20_threshold(dev):
             for label, g in (("4096", g4k), ("4097", far)):
                 peel_fused_cuda.launches = 0
                 img = render(g, cam, depth=DEPTH, **kw)
-                out[label, "auto"] = (img, peel_fused_cuda.launches)
-                for name in ("oracle", "pallas"):
-                    out[label, name] = host_ms(
-                        lambda: render(g, cam, depth=DEPTH, renderer=name,
-                                       **kw), reps=3)
-            check(out["4096", "auto"][1] == 0 and out["4097", "auto"][1] == 1,
-                  f"auto at {res}: peel_fwd launched "
-                  f"{out['4096', 'auto'][1]} / {out['4097', 'auto'][1]} "
-                  f"times at 4096 / 4097 splats (expected 0 / 1)")
+                out[label] = (img, peel_fused_cuda.launches)
+            check(out["4096"][1] == 0 and out["4097"][1] == 1,
+                  f"auto at {res}: peel_fwd launched {out['4096'][1]} / "
+                  f"{out['4097'][1]} times at 4096 / 4097 splats (expected "
+                  f"0 / 1)")
             dropped = sum(dropped_pairs(far, cam, DEPTH, kw))
             check(dropped == 0, f"threshold {res}: {dropped} dropped")
-            img_o, img_f = out["4096", "auto"][0], out["4097", "auto"][0]
+            img_o, img_f = out["4096"][0], out["4097"][0]
             diff = (img_o - img_f).abs()
             q, worst = quantile(diff, IMG_Q), float(diff.max())
             lists, same = oracle_pixel_lists(g4k, cam, kw, img_o, img_f)
@@ -4144,11 +3489,7 @@ def phase20_threshold(dev):
                   f"quantile |diff| {q:.2e} (limit {IMG_QTOL:g}), max "
                   f"{worst:.2e} (limit {IMG_MAXTOL:g} unless the worst "
                   f"pixel composites the same splats: {same}); {lists}")
-        say(20, f"threshold at {res[0]}x{res[1]} (host clock with sync, "
-                f"median of 3): oracle {out['4096', 'oracle']:.2f} ms at "
-                f"4096 splats, {out['4097', 'oracle']:.2f} at 4097; fused "
-                f"(pallas) {out['4096', 'pallas']:.2f} at 4096, "
-                f"{out['4097', 'pallas']:.2f} at 4097; auto took the oracle "
+        say(20, f"threshold at {res[0]}x{res[1]}: auto took the oracle "
                 f"at 4096 and peel_fwd at 4097; their images {IMG_Q}-"
                 f"quantile |diff| {q:.2e}, max {worst:.2e}; the worst "
                 f"pixel's hits (id, t1, alpha) a layer, the same splats on "
@@ -4158,10 +3499,10 @@ def phase20_threshold(dev):
 
 def phase20_default(g1m, dev):
     """Phase 20: the default path, with no renderer named. Returns
-    peel_fwd's launches on it and its full-width band's numbers."""
+    peel_fwd's launches on it."""
     with tempfile.TemporaryDirectory() as tmp:
-        launches, bench = phase20_cli(g1m, pathlib.Path(tmp))
-    band = phase20_frames(g1m, dev)
+        launches = phase20_cli(g1m, pathlib.Path(tmp))
+    phase20_frames(g1m, dev)
     launches += phase20_serve(g1m, dev)
     phase20_threshold(dev)
     from rtgs_tpu_torch.ops import _build
@@ -4178,8 +3519,8 @@ def phase20_default(g1m, dev):
             check(warps >= 16 and "0 bytes spill stores" in e,
                   f"peel_fwd's deep pass: {e}")
     say(20, f"the default path launched peel_fwd {launches} times and the "
-            f"keys kernel never; bench printed '{bench}'")
-    return launches, band
+            f"keys kernel never")
+    return launches
 
 
 # Phase 21: the JAX package's production-scale tools through the port's
@@ -4243,10 +3584,7 @@ def add_counts(total, counts):
 
 def struct_cli(ply, res, renderer, budget, bands, out):
     """``render`` of a structured scene through the CLI at STRUCT_POSE,
-    depth 16; returns the wall seconds, the printed line and the
-    launches."""
-    import torch
-
+    depth 16, its printed line dropped; returns the launches."""
     from rtgs_tpu_torch.__main__ import main as cli
 
     argv = ["render", "-o", str(ply), "-r", f"{res[0]},{res[1]}", "-d",
@@ -4257,17 +3595,7 @@ def struct_cli(ply, res, renderer, budget, bands, out):
             "--output", str(out)]
     if renderer:
         argv += ["--renderer", renderer]
-    printed = io.StringIO()
-
-    def go():
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(printed):
-            cli(argv)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    wall, counts = counted(go)
-    return wall, printed.getvalue().strip(), counts
+    return counted(lambda: run_quiet(cli, argv))[1]
 
 
 def phase21_make_scene(g1m, dev, tmp):
@@ -4276,12 +3604,10 @@ def phase21_make_scene(g1m, dev, tmp):
     clean budgets; ``render`` through the CLI (default and keys, 8 bands;
     the JAX package's 250k command and the same at the least clean
     budget), 0 dropped pairs wherever asserted; the busiest band of the 1M
-    default frame against its twin. Returns launches and the band's
-    numbers."""
+    default frame against its twin. Returns the launches."""
     import numpy as np
     import torch
 
-    from rtgs_tpu_torch.ops.peel import CHUNK
     from rtgs_tpu_torch.probes import make_scene
     from rtgs_tpu_torch.render.api import render
     from rtgs_tpu_torch.scene import load_scene
@@ -4290,13 +3616,8 @@ def phase21_make_scene(g1m, dev, tmp):
     scenes = {}
     for n in (STRUCT_N, STRUCT_SMALL):
         ply = tmp / f"structured_{n}.ply"
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            make_scene.main([str(ply), str(n), "--device", "cuda"])
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        run_quiet(make_scene.main, [str(ply), str(n), "--device", "cuda"])
         g = load_scene(ply, device=dev)
-        t_load = time.perf_counter() - t0
         ref = make_scene.structured_scene_arrays(n)
         errs = {f: float(np.max(np.abs(getattr(g, f).cpu().numpy() - ref[f])
                                 / np.maximum(np.abs(ref[f]), 1e-6)))
@@ -4305,9 +3626,8 @@ def phase21_make_scene(g1m, dev, tmp):
               f"structured {n}: reloaded {g.num} splats, largest relative "
               f"field error {errs}")
         say(21, f"structured scene {n}: made and written by probes."
-                f"make_scene in {t_write:.1f} s "
-                f"({ply.stat().st_size / 2**20:.0f} MiB), reloaded in "
-                f"{t_load:.1f} s, fields within {max(errs.values()):.1e} "
+                f"make_scene ({ply.stat().st_size / 2**20:.0f} MiB) and "
+                f"reloaded, fields within {max(errs.values()):.1e} "
                 f"(relative) of the generator's")
         scenes[n] = (g, ply)
 
@@ -4347,8 +3667,8 @@ def phase21_make_scene(g1m, dev, tmp):
 
     cam = bench_camera(FULL_RES, dev, **STRUCT_POSE)
     for renderer in (None, "keys"):
-        wall, line, counts = struct_cli(ply, FULL_RES, renderer, budget,
-                                        BANDS, tmp / "s1m.npy")
+        counts = struct_cli(ply, FULL_RES, renderer, budget, BANDS,
+                            tmp / "s1m.npy")
         add_counts(launches, counts)
         name = renderer or "default (pallas)"
         key = "keys_sid" if renderer else "peel_fwd"
@@ -4356,24 +3676,18 @@ def phase21_make_scene(g1m, dev, tmp):
               f"structured 1M CLI {name}: launches {counts}, expected "
               f"{BANDS} of {key}")
         kw = dict(max_candidates=budget, tile_bands=BANDS)
-        frame = (lambda r=renderer or "auto": render(
-            g, cam, depth=DEPTH, renderer=r, **kw))
         with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
             _, stats = render(g, cam, depth=DEPTH, with_stats=True,
                               renderer=renderer or "auto", **kw)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms = host_ms(frame)
             peak = torch.cuda.max_memory_allocated() / 2**30
         dropped = int(stats["local_overflow"]) + int(stats["global_overflow"])
         w, h = FULL_RES
         say(21, f"structured 1M CLI render {name} at {w}x{h}, view pose, "
                 f"max_candidates {budget} (the least clean), {BANDS} bands, "
-                f"depth {DEPTH}: {wall:.2f} s wall (scene load included), "
-                f"launches {counts}, printed '{line}'; in process "
-                f"{ms:.2f} ms a frame (host clock with sync, median of 5) = "
-                f"{w * h / ms * 1e3 / 1e6:.2f} M rays/s, peak {peak:.2f} "
-                f"GiB, dropped pairs {dropped}")
+                f"depth {DEPTH}: launches {counts}; in process peak "
+                f"{peak:.2f} GiB, dropped pairs {dropped}")
         check(dropped == 0, f"structured 1M {name}: {dropped} pairs dropped "
               f"at {budget}")
         img8 = np.load(tmp / "s1m.npy")
@@ -4387,9 +3701,8 @@ def phase21_make_scene(g1m, dev, tmp):
     renderer, jax_budget, jax_bands = JAX_STRUCT_CMD
     w, h = STRUCT_SMALL_RES
     for budget_250 in (jax_budget, c250["least_candidates"]):
-        wall, line, counts = struct_cli(ply250, STRUCT_SMALL_RES, renderer,
-                                        budget_250, jax_bands,
-                                        tmp / "s250k.npy")
+        counts = struct_cli(ply250, STRUCT_SMALL_RES, renderer, budget_250,
+                            jax_bands, tmp / "s250k.npy")
         add_counts(launches, counts)
         check(counts["peel_fwd"] == jax_bands, f"structured 250k CLI: "
               f"launches {counts}")
@@ -4400,8 +3713,8 @@ def phase21_make_scene(g1m, dev, tmp):
         dropped = int(stats["local_overflow"]) + int(stats["global_overflow"])
         say(21, f"structured 250k CLI render --renderer {renderer} "
                 f"--max-candidates {budget_250} --tile-bands {jax_bands} at "
-                f"{w}x{h}, view pose: {wall:.2f} s wall, launches {counts}, "
-                f"printed '{line}'; dropped pairs {dropped} (counts: max "
+                f"{w}x{h}, view pose: launches {counts}; dropped pairs "
+                f"{dropped} (counts: max "
                 f"{c250['max_slots']}, p99 {c250['p99_slots']:.0f}, "
                 f"{c250['tiles_over_416']} of {c250['tiles']} tiles over "
                 f"{make_scene.SMEM_SLOTS}, global {c250['global']})")
@@ -4417,21 +3730,15 @@ def phase21_make_scene(g1m, dev, tmp):
     kw = dict(max_candidates=budget, max_global=64, bin_narrow=4,
               tile_bands=BANDS)
     with torch.inference_mode():
-        img, stages, _, per_band, band = fused_frame(g, cam, DEPTH, kw)
+        band = fused_frame(g, cam, DEPTH, kw)[1]
     counts = band["cand"].ge(0).sum(1)
-    say(21, f"structured 1M default frame split: "
-            + ", ".join(f"{k} {v:.2f} ms" for k, v in stages.items())
-            + "; peel_fwd by band " + ", ".join(f"{m:.2f}" for m in per_band)
-            + f" ms; the busiest band holds {int((counts > 416).sum())} of "
-            f"{counts.numel()} tiles over {make_scene.SMEM_SLOTS} slots, "
-            f"longest {int(counts.max())}")
+    say(21, f"structured 1M default frame: the busiest band holds "
+            f"{int((counts > 416).sum())} of {counts.numel()} tiles over "
+            f"{make_scene.SMEM_SLOTS} slots, longest {int(counts.max())}")
     check(band["dropped"] == 0, f"structured 1M band: dropped "
           f"{band['dropped']}")
-    del img
-    out = band_against_twin(band, 21, "the structured 1M scene's busiest "
-                            "band")
-    out["budget"] = budget
-    return launches, out
+    band_against_twin(band, 21, "the structured 1M scene's busiest band")
+    return launches
 
 
 def phase21_fitbench(g100k):
@@ -4440,7 +3747,6 @@ def phase21_fitbench(g100k):
     from rtgs_tpu_torch.probes import fitbench
 
     launches = {}
-    steps = {}
     for renderer in ("pallas", "keys"):
         r, counts = counted(lambda: fitbench.run(
             g100k, steps=FITBENCH_STEPS, views=FITBENCH_VIEWS,
@@ -4449,7 +3755,6 @@ def phase21_fitbench(g100k):
             log=lambda m: None))
         add_counts(launches, counts)
         rise = r["last_psnr"] - r["first_psnr"]
-        steps[renderer] = r["median_step_ms"]
         say(21, f"fitbench 100k@{CFG_FIT['res'][0]}x{CFG_FIT['res'][1]}, "
                 f"{FITBENCH_VIEWS} views, {FITBENCH_STEPS} steps through "
                 f"{renderer}: PSNR {r['first_psnr']:.2f} -> "
@@ -4457,12 +3762,10 @@ def phase21_fitbench(g100k):
                 f"{FITBENCH_VIEWS} steps; rise limit {MIN_PSNR_RISE:g}); "
                 f"curve " + " ".join(f"{c['step']}:{c['psnr']:.2f}"
                                      for c in r["curve"])
-                + f"; median step {r['median_step_ms']} ms (host clock with "
-                f"sync, steps 3-{FITBENCH_STEPS}); {r['wall_s']} s wall; "
-                f"peak {r['peak_gib']:.2f} GiB; launches {counts}")
+                + f"; peak {r['peak_gib']:.2f} GiB; launches {counts}")
         check(rise >= MIN_PSNR_RISE, f"fitbench through {renderer}: PSNR "
               f"rose {rise:.3f} dB")
-    return launches, steps
+    return launches
 
 
 def phase21_fitscratch(g100k, dev, tmp):
@@ -4508,7 +3811,6 @@ def phase21_fitscratch(g100k, dev, tmp):
             for (s, a, b), m in zip(r["capacity_growths"],
                                     r["growth_memory"]
                                     + [None] * len(r["capacity_growths"])))
-        host = r["host_roundtrips"]
         blown = [i + 1 for i, p in enumerate(r["psnrs"]) if not p > 0]
         say(21, f"fitscratch {label}: {r['steps']} steps, seed "
                 f"{r['seed_points']} of {r['gt_n']}, {r['views']} views at "
@@ -4516,13 +3818,8 @@ def phase21_fitscratch(g100k, dev, tmp):
                 f"capacities {r['capacities']}; final live "
                 f"{r['final_live']}, PSNR {r['final_psnr']}; curve "
                 + " ".join(f"{s}:{p}/{n}" for s, p, n in r["psnr_curve"])
-                + f"; median steady step {r['median_step_ms']} ms (host "
-                f"clock with sync); {r['total_fit_s']} s of steps; peak "
-                f"{r['peak_gib']:.2f} GiB; dropped pairs summed over every "
-                f"step {r['dropped_pairs']}; host round trips at "
-                f"{r['final_live']} live: gradient norms "
-                f"{host['grad_norms_ms']:.3f} ms, the density pass's "
-                f"parameter copy {host['host_params_ms']:.3f} ms; reloaded "
+                + f"; peak {r['peak_gib']:.2f} GiB; dropped pairs summed "
+                f"over every step {r['dropped_pairs']}; reloaded "
                 f"{r['reloaded']} splats; launches {counts}; steps whose PSNR "
                 f"is not positive (an f32 exponent blown up, F2): "
                 f"{len(blown)} {blown[:20]}")
@@ -4611,8 +3908,7 @@ def phase21_fitscratch(g100k, dev, tmp):
     add_counts(launches, counts)
     report(f"structured, keys (the first {FITSCRATCH_CUT} steps)", keys,
            counts)
-    keys.pop("solver")
-    return launches, std, keys
+    return launches
 
 
 def fitscratch_cameras(dev):
@@ -4633,7 +3929,7 @@ def phase21_imquality(scenes, dev):
     record = ROOT / "IMQUALITY_r05.json"
     jax_rows = (json.loads(record.read_text())["rows"]
                 if record.is_file() else [])
-    launches, rows = {}, []
+    launches = {}
     for i, cfg in enumerate(BENCH_CONFIGS):
         g = scenes.get(cfg["n"])
         if g is None:
@@ -4656,13 +3952,10 @@ def phase21_imquality(scenes, dev):
                       and po["ssim"] >= IMQ_MIN_SSIM,
                       f"imquality {cfg['label']} {row['row']}: production "
                       f"against oracle {po}")
-                oracle = (f"; against the oracle ({row['oracle_ms']:.0f} ms)"
-                          f" production {po}, twin {to}")
+                oracle = f"; against the oracle production {po}, twin {to}"
             say(21, f"imquality {cfg['label']} {row['row']} "
-                    f"({row['renderer']}): production {row['prod_ms']:.1f} "
-                    f"ms, twin {row['twin_ms']:.0f} ms; production against "
-                    f"twin {twin}{oracle}")
-            rows.append(row)
+                    f"({row['renderer']}): production against twin "
+                    f"{twin}{oracle}")
         if i < len(jax_rows):
             j = {k: v for k, v in jax_rows[i].items()
                  if k not in ("res", "backend")}
@@ -4670,7 +3963,7 @@ def phase21_imquality(scenes, dev):
                     f"IMQUALITY_r05.json; quality, not time): {j}")
         check(counts["keys_sid"] > 0 and counts["peel_fwd"] > 0,
               f"imquality {cfg['label']}: launches {counts}")
-    return launches, rows
+    return launches
 
 
 def phase21_trace(dev, tmp):
@@ -4683,12 +3976,9 @@ def phase21_trace(dev, tmp):
         100_000, TRACE_STEPS, str(tmp / "trace"), dev, log=lambda m: None))
     k = out["kernels"]
     say(21, f"trace_step 100k@256x256, {TRACE_STEPS} traced steps: "
-            f"{out['ms_per_step']:.1f} ms a step (trace on), {out['files']} "
-            f"files, {out['bytes'] / 1e6:.1f} MB; device ms a step by "
-            f"kernel: " + ", ".join(
-                f"{g} {v['us'] / TRACE_STEPS / 1e3:.3f} "
-                f"({v['kernels'] // TRACE_STEPS} kernels)"
-                for g, v in k.items())
+            f"{out['files']} files, {out['bytes'] / 1e6:.1f} MB; device "
+            f"kernels a step by group: " + ", ".join(
+                f"{g} {v['kernels'] // TRACE_STEPS}" for g, v in k.items())
             + f"; launches {counts}")
     for g in ("peel_fwd", "peel_bwd", "segment_rows"):
         check(k[g]["kernels"] > 0, f"trace_step: no {g} kernel in the "
@@ -4697,7 +3987,8 @@ def phase21_trace(dev, tmp):
 
 
 def phase21_stages(dev):
-    """probes.stages at 100k@640x384 and 1M@1920x1088, both renderers."""
+    """probes.stages at 100k@640x384 and 1M@1920x1088, both renderers:
+    their binning drops nothing."""
     from rtgs_tpu_torch.probes import stages
 
     launches = {}
@@ -4711,73 +4002,30 @@ def phase21_stages(dev):
             add_counts(launches, counts)
             check(out["dropped"] == 0, f"stages {n}@{w}x{h}: dropped "
                   f"{out['dropped']}")
-            part = (f" (kernel and shade on {out['band_tiles']} of "
-                    f"{out['tiles']} tiles)" if bands else "")
-            say(21, f"stages {n}@{w}x{h} {renderer}, bands {bands or 1} "
-                    f"(CUDA events, median of 5){part}: "
-                    + ", ".join(f"{k} {v:.3f} ms"
-                                for k, v in out["stages_ms"].items()))
+            say(21, f"stages {n}@{w}x{h} {renderer}, bands {bands or 1}: "
+                    f"0 dropped; launches {counts}")
     return launches
 
 
 def phase21_tools(g100k, g1m, dev):
-    """Phase 21. Returns the launches of its main paths by kernel and the
-    structured band's numbers."""
-    launches, secs = {}, {}
-    t_all = time.perf_counter()
+    """Phase 21. Returns the launches of its main paths by kernel."""
+    launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        t0 = time.perf_counter()
-        counts, band = phase21_make_scene(g1m, dev, tmp)
-        add_counts(launches, counts)
-        secs["make_scene"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        add_counts(launches, phase21_fitbench(g100k)[0])
-        secs["fitbench"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        add_counts(launches, phase21_fitscratch(g100k, dev, tmp)[0])
-        secs["fitscratch"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+        add_counts(launches, phase21_make_scene(g1m, dev, tmp))
+        add_counts(launches, phase21_fitbench(g100k))
+        add_counts(launches, phase21_fitscratch(g100k, dev, tmp))
         add_counts(launches, phase21_imquality(
-            {100_000: g100k, 1_000_000: g1m}, dev)[0])
-        secs["imquality"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
+            {100_000: g100k, 1_000_000: g1m}, dev))
         add_counts(launches, phase21_trace(dev, tmp))
-        secs["trace_step"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     add_counts(launches, phase21_stages(dev))
-    secs["stages"] = time.perf_counter() - t0
-    say(21, f"phase 21 took {time.perf_counter() - t_all:.1f} s: "
-            + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items())
-            + f"; launches on its main paths {launches}")
-    return launches, band
-
-
-def profiled(fn, reps=10):
-    """Device ms, device operations and the five costliest of them (name,
-    ms) of one ``fn()``, from a ``torch.profiler`` trace of ``reps`` calls
-    after two discarded warm-up steps: a trace's first launches can be
-    missed while the profiler starts."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=2, active=reps,
-                                   repeat=1)) as prof:
-        for _ in range(reps + 2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
-            round(sum(e.count for e in events) / reps),
-            [(e.key, e.self_device_time_total / reps / 1e3)
-             for e in events[:5]])
+    say(21, f"launches on its main paths {launches}")
+    return launches
 
 
 def phase22_binning(g1m, g100k, dev):
-    """Phase 22. Returns the 1M row's numbers (err 0: bitwise) with the
+    """Phase 22: the binning kernels bitwise the plain chain at the
+    benchmark's two configurations, with both paths' arguments. Returns the
     binnings that one fused and one keys frame at 1M@1920x1088 launched."""
     import torch
 
@@ -4791,7 +4039,6 @@ def phase22_binning(g1m, g100k, dev):
     fields = ("candidates", "counts", "local_overflow", "global_overflow",
               "chunk_lb")
     full = dict(max_candidates=4608, max_global=128)
-    out = {}
     for label, g, res, kw in (
             ("1M@1920x1088", g1m, FULL_RES, dict(full, narrow=4)),
             ("100k@512x384", g100k, (512, 384),
@@ -4812,32 +4059,10 @@ def phase22_binning(g1m, g100k, dev):
                     check(same, f"binning {label} (chunk "
                                 f"{args.get('chunk')}): the kernels' {f} is "
                                 f"not the plain chain's")
-
-            def kernels():
-                return B.tile_candidates_cuda(g, cam, **kw)
-
-            def plain():
-                return B.tile_candidates_torch(g, cam, **kw)
-
-            ms, plain_ms = time_ms(kernels), time_ms(plain)
-            busy = busy_ms(kernels)
-            dev_ms, dev_ops, split = profiled(kernels)
-            plain_dev_ms, plain_ops, _ = profiled(plain, reps=3)
         t, c = k.candidates.shape
-        pairs = int(k.counts.sum()) + int(k.local_overflow)
-        bound_ms, bound_by = bound(44 * g.num + 16 * pairs + 4 * t * c)
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, err=0.0)
-        costliest = ", ".join(f"{name[:48]} {x:.3f}" for name, x in split)
         say(22, f"binning {label}: bitwise the plain chain at both paths' "
-                f"arguments; {ms:.3f} ms around the call, {busy:.3f} busy "
-                f"(the stream kept busy; the live count's round trip "
-                f"included), device {dev_ms:.3f} ms in {dev_ops} operations "
-                f"({costliest}); plain chain {plain_ms:.3f} ms (device "
-                f"{plain_dev_ms:.3f} in {plain_ops}); bound {bound_ms:.4f} ms "
-                f"({bound_by}: {g.num} splats, {pairs} live pairs, {t}x{c} "
-                f"rows): {bound_ms / ms:.1%} of it around the call, "
-                f"{bound_ms / busy:.1%} busy")
+                f"arguments ({g.num} splats, {int(k.counts.sum())} live "
+                f"pairs, {t}x{c} rows)")
     # The main path: one binning a frame, fused or keys.
     cam = bench_camera(FULL_RES, dev)
     frames = {}
@@ -4852,7 +4077,7 @@ def phase22_binning(g1m, g100k, dev):
                   f"a render({renderer}) frame launched the binning "
                   f"{frames[renderer]} times, not once")
     say(22, f"binning launches a 1M@1920x1088 frame: {frames}")
-    return dict(out["1M@1920x1088"], launches=sum(frames.values()))
+    return sum(frames.values())
 
 
 def run():
@@ -4871,40 +4096,45 @@ def run():
            f"{nvcc.strip().splitlines()[-1]}")
     say(1, f"toolchain: {toolchain_stamp(nvcc)}")
 
-    t0 = time.perf_counter()
     lib_path = _build.build()
     _build.load_library()
-    say(2, f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s; "
+    say(2, f"built {lib_path.name}; "
            + ptxas_summary(lib_path.with_suffix(".log").read_text()))
 
     from rtgs_tpu_torch.scene import random_scene
 
+    # Launches of each hand-written kernel on its main path, by kernel.
+    launches = dict.fromkeys(("keys_sid", "peel_fwd", "peel_bwd",
+                              "peel_topk_fwd", "peel_topk_bwd", "probe_micro",
+                              "probe_ablate", "probe_floor", "segment_rows",
+                              "binning"), 0)
     g100k = random_scene(CFG_100K["n"], device=dev, **BENCH_SCENE)
     case_100k = phase3_case("100k@640x384", g100k, CFG_100K, dev)
     g1m = random_scene(CFG_1M_GATE["n"], device=dev, **BENCH_SCENE)
-    case_1m = phase3_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    phase3_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     frame_parity(g1m, CFG_1M_GATE, dev)
     phase3_anisotropic(dev)
     phase4_precision(case_100k)
-    for case in (case_100k, case_1m):
-        del case["packed"], case["pix"]
+    del case_100k
 
     with tempfile.TemporaryDirectory() as tmp:
-        launches, keys_ms_full = phase5_main_path(g1m, dev,
-                                                  pathlib.Path(tmp))
-    say(5, f"keys kernel at 1M@1920x1088: {keys_ms_full:.2f} ms per frame "
-           f"over {BANDS} bands; its ms/plain_ms below are 100k@640x384")
+        launches["keys_sid"] += phase5_main_path(g1m, dev, pathlib.Path(tmp))
 
     w, h = CFG_FIT["res"]
-    fused_fit = phase6_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
-    fused_1m = phase6_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    phase6_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
+    phase6_case("1M@256x192", g1m, CFG_1M_GATE, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        fwd_launches, bwd_launches, seg_launches = phase7_fit_cli(
-            g100k, pathlib.Path(tmp))
-    fit = phase8_fitbench(g100k, dev)
+        fwd, bwd, seg = phase7_fit_cli(g100k, pathlib.Path(tmp))
+    launches["peel_fwd"] += fwd
+    launches["peel_bwd"] += bwd
+    launches["segment_rows"] += seg
+    phase8_fitbench(g100k, dev)
 
-    topk_fit = phase9_case(f"100k@{w}x{h}", g100k, CFG_FIT, dev)
-    topk_1m = phase9_case("1M@256x192", g1m, CFG_1M_GATE, dev)
+    for label, g, cfg in ((f"100k@{w}x{h}", g100k, CFG_FIT),
+                          ("1M@256x192", g1m, CFG_1M_GATE)):
+        fwd, bwd = phase9_case(label, g, cfg, dev)
+        launches["peel_topk_fwd"] += fwd
+        launches["peel_topk_bwd"] += bwd
     with tempfile.TemporaryDirectory() as tmp:
         ply_4k = phase10_oracle(dev, pathlib.Path(tmp))
         phase11_tiled(g100k, ply_4k, dev, pathlib.Path(tmp))
@@ -4917,151 +4147,39 @@ def run():
         g = scenes.get(cfg["n"])
         if g is None:
             g = random_scene(cfg["n"], device=dev, **BENCH_SCENE)
-        launches += phase12_bench(cfg, g, dev)
+        launches["keys_sid"] += phase12_bench(cfg, g, dev)
     del g, scenes
     with tempfile.TemporaryDirectory() as tmp:
-        keys_cli, seg_keys = phase13_keys_cli(g100k, pathlib.Path(tmp))
-    launches += keys_cli
-    seg_launches += seg_keys
-    fit_keys = phase8_fitbench(g100k, dev, renderer="keys", phase=13)
-    say(13, f"step time at 100k@{w}x{h} in this run: keys "
-            f"{fit_keys['step_ms']:.2f} ms, pallas {fit['step_ms']:.2f} ms")
-    micro, micro_launches = phase14_kmicro(dev)
-    ablate, ablate_launches, floor, floor_launches = phase14_scene_probes(dev)
-    launches += phase15_serve(g1m, dev)
+        keys, seg = phase13_keys_cli(g100k, pathlib.Path(tmp))
+    launches["keys_sid"] += keys
+    launches["segment_rows"] += seg
+    phase8_fitbench(g100k, dev, renderer="keys", phase=13)
+    launches["probe_micro"] += phase14_kmicro(dev)
+    ablate, floor = phase14_scene_probes(dev)
+    launches["probe_ablate"] += ablate
+    launches["probe_floor"] += floor
+    launches["keys_sid"] += phase15_serve(g1m, dev)
     g4k = random_scene(ORACLE_N, device=dev, **SCENE_4K)
-    ring_keys, ring_seg = phase16_ring(g1m, g100k, g4k, dev)
-    launches += ring_keys
-    seg_launches += ring_seg
+    keys, seg = phase16_ring(g1m, g100k, g4k, dev)
+    launches["keys_sid"] += keys
+    launches["segment_rows"] += seg
     phase17_bvh_profiling(g1m, g100k, dev)
-    seg_fit, seg_1m, seg_bench = phase18_determinism(g100k, g1m, g4k, dev)
-    seg = seg_fit["pair rows"]
+    phase18_determinism(g100k, g1m, g4k, dev)
     del g4k
-    deep, deep_err = phase19_deep(g100k, g1m, dev)
-    launches += deep["peel_keys_cuda"]
-    fwd_launches += deep["peel_fused_cuda"]
-    bwd_launches += deep["peel_fused_bwd_cuda"]
-    seg_launches += deep["segment_rows_cuda"]
-    default_launches, band = phase20_default(g1m, dev)
-    fwd_launches += default_launches
-    tools, _ = phase21_tools(g100k, g1m, dev)
-    launches += tools.get("keys_sid", 0)
-    fwd_launches += tools.get("peel_fwd", 0)
-    bwd_launches += tools.get("peel_bwd", 0)
-    seg_launches += tools.get("segment_rows", 0)
-    bins = phase22_binning(g1m, g100k, dev)
+    deep = phase19_deep(g100k, g1m, dev)
+    launches["keys_sid"] += deep["peel_keys_cuda"]
+    launches["peel_fwd"] += deep["peel_fused_cuda"]
+    launches["peel_bwd"] += deep["peel_fused_bwd_cuda"]
+    launches["segment_rows"] += deep["segment_rows_cuda"]
+    launches["peel_fwd"] += phase20_default(g1m, dev)
+    add_counts(launches, phase21_tools(g100k, g1m, dev))
+    launches["binning"] += phase22_binning(g1m, g100k, dev)
     del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")
-
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound_ms,
-              bound_by, library_ms=None):
-        # library_ms stays null for the production kernels: no single
-        # PyTorch call selects the K nearest of a ragged candidate list per
-        # pixel, composites them or chains their gradient.
-        return {"name": name, "route": "cuda",
-                "source": f"rtgs_tpu_torch/ops/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms}
-
-    def peel(name, source, line, launches, err, ms, plain_ms, shape):
-        return entry(name, source, f"rtgs_tpu/ops/peel.py:{line}", launches,
-                     err, ms, plain_ms, *peel_bound(name, shape))
-
-    def family(name, source, replaces, launches, tot):
-        # ms, plain_ms and bound_ms are sums over the family's variants.
-        # library_ms sums the single PyTorch calls of library_variants, the
-        # variants that one call computes, and library_kernel_ms is the
-        # kernels' time on those same variants (null where there is none).
-        by = "operations" if tot["ops"] > tot["bound_ms"] / 2 else "bytes"
-        out = entry(name, source, replaces, launches, tot["err"], tot["ms"],
-                    tot["plain_ms"], tot["bound_ms"], by,
-                    tot.get("library_ms"))
-        out["library_variants"] = tot.get("library_variants", [])
-        out["library_kernel_ms"] = tot.get("library_kernel_ms")
-        if "max_rel_err" in tot:
-            out["max_rel_err"] = tot["max_rel_err"]
-        return out
-
-    kernels = [
-        peel("keys_sid", "keys.cu", 589, launches,
-             max(case_100k["max_abs_err"], case_1m["max_abs_err"]),
-             case_100k["ms"], case_100k["ms_twin"], case_100k["shape"]),
-        peel("peel_fwd", "peel_fwd.cu", 723, fwd_launches,
-             max(fused_fit["fwd_err"], fused_1m["fwd_err"],
-                 deep_err["peel_fwd"], band["err"]),
-             band["ms"], band["plain_ms"], band["shape"]),
-        peel("peel_bwd", "peel_bwd.cu", 870, bwd_launches,
-             max(fused_fit["bwd_err"], fused_1m["bwd_err"],
-                 deep_err["peel_bwd"]),
-             fused_fit["ms_pairs"], fused_fit["ms_pairs_plain"],
-             fused_fit["shape"]),
-        peel("peel_topk_fwd", "peel_topk_fwd.cu", 892,
-             topk_fit["launches"][0] + topk_1m["launches"][0],
-             max(topk_fit["fwd_err"], topk_1m["fwd_err"],
-                 deep_err["peel_topk_fwd"]),
-             topk_fit["ms"], topk_fit["ms_plain"], topk_fit["shape"]),
-        peel("peel_topk_bwd", "peel_topk_bwd.cu", 913,
-             topk_fit["launches"][1] + topk_1m["launches"][1],
-             max(topk_fit["bwd_err"], topk_1m["bwd_err"],
-                 deep_err["peel_topk_bwd"]),
-             topk_fit["ms_pairs"], topk_fit["ms_pairs_plain"],
-             topk_fit["shape"]),
-        # The probe families: times, bounds and plain times summed over the
-        # family's variants (one launch of each), the largest error.
-        family("probe_micro", "probe_micro.cu", "scripts/kmicro.py:34",
-               micro_launches, micro),
-        family("probe_ablate", "probe_ablate.cu", "scripts/kprobe.py:153",
-               ablate_launches, ablate),
-        family("probe_floor", "probe_floor.cu", "scripts/lpprobe.py:162",
-               floor_launches, floor),
-        # Stage 2 of peel_bwd's and peel_topk_bwd's gradient and of the
-        # keys path's: the scatter-add by splat that follows _bwd_kernel's
-        # launch (:1322) in the JAX function. library_ms: index_add_, one
-        # PyTorch call of the same sum (in no fixed order on the card).
-        entry("segment_rows", "segment_rows.cu", "rtgs_tpu/ops/peel.py:1381",
-              seg_launches, max(c["err"] for case in (seg_fit, seg_1m)
-                                for c in case.values()),
-              seg["ms"], seg["plain_ms"], seg["bound_ms"], seg["bound_by"],
-              seg["library_ms"]),
-        # No TPU kernel: the JAX package bins in XLA.
-        entry("binning", "binning.cu",
-              "none (XLA: rtgs_tpu/render/binning.py:tile_candidates)",
-              bins["launches"], bins["err"], bins["ms"],
-              bins["plain_ms"], bins["bound_ms"], bins["bound_by"]),
-    ]
-    for k in kernels:
-        check(k["launches"] > 0, f"{k['name']} was launched no time on its "
-              f"main path")
-        lib = ""
-        if k.get("library_variants"):
-            lib = (f"; {', '.join(k['library_variants'])} as single PyTorch "
-                   f"calls {k['library_ms']:.4f} ms against the kernels' "
-                   f"{k['library_kernel_ms']:.4f} ms")
-        elif k["library_ms"] is not None:
-            lib = f"; one PyTorch call {k['library_ms']:.4f} ms"
-        say(14, f"{k['name']}: {k['ms']:.4f} ms against a bound of "
-                f"{k['bound_ms']:.4f} ms ({k['bound_by']}): "
-                f"{k['bound_ms'] / k['ms']:.1%} of the card's peak; "
-                f"launches on its main path {k['launches']}{lib}")
-    say(8, f"end to end: forward+backward training step at 100k@{w}x{h} "
-           f"{fit['step_ms']:.2f} ms; peel_fwd's ms, plain_ms and "
-           f"bound_ms below are the busiest band of phase 20's default "
-           f"1M@1920x1088 frame; peel_bwd and peel_topk_fwd/peel_topk_bwd's "
-           f"are 100k@{w}x{h} (the backwards' their stage 1 alone), "
-           f"segment_rows' the fused backward's pair rows there (launches: "
-           f"the fused fit's, the keys fit's and phase 16's ring gradient and "
-           f"sharded steps; {seg_bench} more in phase "
-           f"18's 1M forward+backward), keys_sid's 100k@640x384; the probe "
-           f"families' are sums over their variants; launches include "
-           f"phase 19's deep main path ({deep}), phase 20's default "
-           f"path ({default_launches} of peel_fwd) and phase 21's tools "
-           f"({tools}); binning's numbers are phase 22's 1M@1920x1088 "
-           f"binning, its launches one fused and one keys frame there")
-    print(json.dumps({"kernels": kernels}))
-    print(nvidia_smi_line())
+    for name, n in launches.items():
+        check(n > 0, f"{name} was launched no time on its main path")
+    say("all", f"launches of each kernel on its main path: {launches}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
