@@ -12,7 +12,7 @@ failed check exits non-zero, and nothing falls back to the CPU):
      and one stamp line: nvcc's release, the GPU driver version,
      ``torch.__version__``, ``torch.version.cuda`` and whether triton
      imports;
-  2. build the CUDA kernels (nine sources) from the sources in this
+  2. build the CUDA kernels (eleven sources) from the sources in this
      checkout, and print each kernel's registers and spills;
   3. the keys kernel against its plain torch twin at the main path's
      shapes — 100k splats at 640x384 and 1M splats at 256x192 — bitwise,
@@ -200,7 +200,16 @@ failed check exits non-zero, and nothing falls back to the CPU):
      with the keys path's (``chunk=CHUNK`` and ``entry_lb`` from
      ``entry_lower_bound``); its launches on the main path: one
      ``render(auto)`` and one ``render(keys)`` frame at 1M@1920x1088, one
-     binning each.
+     binning each;
+ 23. the features kernels (``features.cu``: ``feature_table_cuda``,
+     ``pixel_table_cuda``) against the plain chains
+     (``precompute_features_torch`` + ``pack_features``,
+     ``pixel_table_torch``, on the same CUDA tensors) at 1M@1920x1088 from
+     three orbit poses: the (N+1, 64) table, its c0 (inf sentinel) and the
+     (T, P, 24) pixel table bitwise, with and without a sub-pixel offset;
+     their launches on the main path: one ``render(auto)`` and one
+     ``render(keys)`` frame at 1M@1920x1088 without grad, one launch of
+     each kernel a frame.
 Then every hand-written kernel must have been launched on its main path
 (the line of launches by kernel), and last {"ok": true, "device": {...}}.
 """
@@ -414,6 +423,8 @@ def ptxas_summary(log: str) -> str:
             # a pixel.
             threads = 512 if (k and k.group(1) == "peel_fwd_kernel"
                               and int(k.group(2)) > 16) else 256
+            if "table_kernel" in m.group(1):     # features.cu: 128 splats
+                threads = 128
         elif "stack frame" in ln:
             frame = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -4080,6 +4091,54 @@ def phase22_binning(g1m, g100k, dev):
     return sum(frames.values())
 
 
+def phase23_features(g1m, dev):
+    """Phase 23: the features kernels bitwise the plain chains at
+    1M@1920x1088 from three orbit poses. Returns the launches of both
+    kernels that one fused and one keys frame made without grad."""
+    import torch
+
+    from rtgs_tpu_torch.render import tiled as T
+    from rtgs_tpu_torch.render.api import render
+
+    for theta in (BENCH_POSE["theta"], 2.1, 4.4):
+        cam = bench_camera(FULL_RES, dev, theta=theta)
+        with torch.no_grad():
+            packed, c0 = T.feature_table_cuda(g1m, cam)
+            ref = T.precompute_features_torch(g1m, cam)
+            check(same_bits(packed, T.pack_features(ref)),
+                  f"features θ {theta}: the table kernel's (N+1, 64) table "
+                  f"is not the plain chain's")
+            check(same_bits(c0, ref.c0) and math.isinf(float(c0[-1])),
+                  f"features θ {theta}: the table kernel's c0 is not the "
+                  f"plain chain's (inf sentinel)")
+            for offset in (None, (0.25, -0.375)):
+                check(same_bits(T.pixel_table_cuda(cam, TILE, offset),
+                                T.pixel_table_torch(cam, TILE, offset)),
+                      f"features θ {theta}, offset {offset}: the pixel "
+                      f"kernel's (T, P, 24) table is not the plain chain's")
+    say(23, f"features 1M@{FULL_RES[0]}x{FULL_RES[1]}: the table kernel and "
+            f"the pixel kernel bitwise the plain chains at 3 poses "
+            f"({g1m.num + 1}x64 table, {tuple(ref.sh.shape)} SH, pixel "
+            f"offsets none and (0.25, -0.375))")
+    cam = bench_camera(FULL_RES, dev)
+    frames = {}
+    with torch.inference_mode():
+        for renderer in ("auto", "keys"):
+            before = (T.feature_table_cuda.launches,
+                      T.pixel_table_cuda.launches)
+            render(g1m, cam, depth=DEPTH, renderer=renderer,
+                   **dict(SERVE_KW, max_candidates=4608, max_global=128))
+            torch.cuda.synchronize()
+            frames[renderer] = (T.feature_table_cuda.launches - before[0],
+                                T.pixel_table_cuda.launches - before[1])
+            check(frames[renderer] == (1, 1),
+                  f"a render({renderer}) frame launched the table and pixel "
+                  f"kernels {frames[renderer]} times, not once each")
+    say(23, f"features launches (table, pixel) a 1M@1920x1088 frame: "
+            f"{frames}")
+    return sum(sum(v) for v in frames.values())
+
+
 def run():
     import torch
 
@@ -4107,7 +4166,7 @@ def run():
     launches = dict.fromkeys(("keys_sid", "peel_fwd", "peel_bwd",
                               "peel_topk_fwd", "peel_topk_bwd", "probe_micro",
                               "probe_ablate", "probe_floor", "segment_rows",
-                              "binning"), 0)
+                              "binning", "features"), 0)
     g100k = random_scene(CFG_100K["n"], device=dev, **BENCH_SCENE)
     case_100k = phase3_case("100k@640x384", g100k, CFG_100K, dev)
     g1m = random_scene(CFG_1M_GATE["n"], device=dev, **BENCH_SCENE)
@@ -4174,6 +4233,7 @@ def run():
     launches["peel_fwd"] += phase20_default(g1m, dev)
     add_counts(launches, phase21_tools(g100k, g1m, dev))
     launches["binning"] += phase22_binning(g1m, g100k, dev)
+    launches["features"] += phase23_features(g1m, dev)
     del g1m, g100k
     check("jax" not in sys.modules and "rtgs_tpu" not in sys.modules,
           "something imported jax or the JAX package")

@@ -191,15 +191,21 @@ def inv_covariance_direct6(quats: torch.Tensor, scales: torch.Tensor):
     diagonal entry is a sum of squares and each entry is off by a few ulps
     of ``1/s_min²``, so the matrix keeps its definiteness where the adjugate
     cancels: at a scale ratio of 100 within a splat that one comes out
-    indefinite."""
-    mx, my, mz = _rotation_columns(quats)
-    qq = (quats * quats).sum(-1)
-    inv_n2 = 1.0 / (qq * qq)
+    indefinite.
+
+    Written out one elementwise operation at a time (the rotation columns
+    of :func:`~rtgs_tpu_torch.utils.quaternion.rotation_columns`, |q|² as a
+    left-to-right sum), so that the feature-table kernel
+    (``ops/csrc/features.cu``) repeats it bit for bit."""
+    mx, my, mz = quat.rotation_columns(quats)
+    x, y, z, w = quats.unbind(-1)
+    qq = ((x * x + y * y) + z * z) + w * w
+    inv_n2 = torch.reciprocal(qq * qq)
     ix, iy, iz = (inv_n2 / scales[..., 0], inv_n2 / scales[..., 1],
                   inv_n2 / scales[..., 2])
-    ux, uy, uz = mx[..., 0] * ix, mx[..., 1] * ix, mx[..., 2] * ix
-    vx, vy, vz = my[..., 0] * iy, my[..., 1] * iy, my[..., 2] * iy
-    wx, wy, wz = mz[..., 0] * iz, mz[..., 1] * iz, mz[..., 2] * iz
+    ux, uy, uz = mx[0] * ix, mx[1] * ix, mx[2] * ix
+    vx, vy, vz = my[0] * iy, my[1] * iy, my[2] * iy
+    wx, wy, wz = mz[0] * iz, mz[1] * iz, mz[2] * iz
     m00 = ux * ux + vx * vx + wx * wx
     m01 = ux * uy + vx * vy + wx * wy
     m02 = ux * uz + vx * vz + wx * wz
@@ -222,8 +228,14 @@ def aabb(means: torch.Tensor, quats: torch.Tensor, scales: torch.Tensor):
 
 def sh_basis(dirs: torch.Tensor) -> torch.Tensor:
     """The reference's real SH basis, degrees 1..3, at unit directions.
-    → (..., 15)."""
+    → (..., 15). Each term one elementwise operation at a time, the squares
+    as products and each constant a Python float (rounded to f32 once):
+    the pixel-table kernel (``ops/csrc/features.cu``) repeats them bit for
+    bit."""
     x, y, z = dirs[..., 0], dirs[..., 1], dirs[..., 2]
+    xx, yy, zz = x * x, y * y, z * z
+    x2_y2 = xx - yy
+    z5_1 = 5 * zz - 1
     return torch.stack(
         [
             0.5 * C_0 * y,
@@ -231,18 +243,18 @@ def sh_basis(dirs: torch.Tensor) -> torch.Tensor:
             0.5 * C_0 * x,
             0.5 * C_1 * x * y,
             0.5 * C_1 * y * z,
-            0.25 * C_2 * (3 * z**2 - 1),
+            0.25 * C_2 * (3 * zz - 1),
             0.5 * C_1 * x * z,
-            0.25 * C_1 * (x**2 - y**2),
-            0.25 * C_3 * y * (3 * x**2 - y**2),
+            0.25 * C_1 * x2_y2,
+            0.25 * C_3 * y * (3 * xx - yy),
             0.5 * C_4 * x * y * z,
-            0.25 * C_5 * y * (5 * z**2 - 1),
+            0.25 * C_5 * y * z5_1,
             # Reference quirk kept verbatim: 5z² − 3z where the textbook
             # Y₃₀ has 5z³ − 3z.
-            0.25 * C_6 * (5 * z**2 - 3 * z),
-            0.25 * C_5 * x * (5 * z**2 - 1),
-            0.25 * C_4 * (x**2 - y**2) * z,
-            0.25 * C_3 * x * (x**2 - 3 * y**2),
+            0.25 * C_6 * (5 * zz - 3 * z),
+            0.25 * C_5 * x * z5_1,
+            0.25 * C_4 * x2_y2 * z,
+            0.25 * C_3 * x * (xx - 3 * yy),
         ],
         dim=-1,
     )

@@ -109,6 +109,8 @@ SIGNATURES = {
     "rtgs_binning_scratch_ints": (_I, _I, _P, _I, _P),
     "rtgs_binning_pair_ints": (_I,) * 3 + (_P, _I, _P),
     "rtgs_binning_rows": (_P,) * 8 + (_I,) * 14 + (_P,),
+    "rtgs_features_table": (_P,) * 9 + (_I, _I, _P),
+    "rtgs_features_pixels": (_P,) * 3 + (_I,) * 6 + (_F, _F, _I, _P),
     "rtgs_probe_micro": (_I, _P, _P, _I, _I, _I, _P, _P, _P, _I, _P),
     "rtgs_probe_ablate": (_I,) + (_P,) * 5 + (_I,) * 5 + (_F,) * 2 + (_I, _P),
     "rtgs_probe_floor": (_I, _P, _P, _P) + (_I,) * 6 + (_P,),

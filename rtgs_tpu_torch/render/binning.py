@@ -19,9 +19,10 @@ chain (:func:`tile_candidates_torch`); :func:`tile_candidates` takes the
 kernels for CUDA tensors (they launch or raise) and the chain for CPU
 tensors. Both compute each splat's box with the same f32 operations in the
 same order (the rotation columns and the camera-space products written out,
-:func:`_rotation_columns`, :func:`_camera_dot`; the kernels are built
-without FMA contraction) and keep the live pairs in the same relative order
-before one stable sort, so they return the same ``TileBinning``, bitwise.
+:func:`~rtgs_tpu_torch.utils.quaternion.rotation_columns`,
+:func:`_camera_dot`; the kernels are built without FMA contraction) and
+keep the live pairs in the same relative order before one stable sort, so
+they return the same ``TileBinning``, bitwise.
 
 The JAX version's compile-time workarounds have direct torch forms: its
 blocked ``_tree_cumsum`` is ``torch.cumsum``, and its vmapped
@@ -42,6 +43,8 @@ from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
 from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
 from rtgs_tpu_torch.utils import profiling
+from rtgs_tpu_torch.utils.quaternion import \
+    rotation_columns as _rotation_columns
 
 _INT32_MAX = 2**31 - 1
 
@@ -122,25 +125,6 @@ def _layout(n: int, camera: Camera, tile, max_candidates: int,
     return _Layout(w, h, tw, th, ntx, nty, mtx, mty, narrow,
                    mtx * mty if mtx > narrow or mty > narrow else 0,
                    max(64, n // 16), shift, total_c)
-
-
-def _rotation_columns(q: torch.Tensor):
-    """The rotated basis vectors q eᵢ q* of (…, 4) quaternions (scalar
-    last), as ``cols[i][j]``: component j of column i, each a (…) tensor.
-    :func:`rtgs_tpu_torch.utils.quaternion.rot_vec3`'s Hamilton products
-    with their exact steps folded (q's own components and their negations),
-    then ``(w·rⱼ + qᵢ·qⱼ) + (q_a·r_b − q_b·r_a)``, (a, b) = (j+1, j+2) mod 3,
-    in that order: ``binning.cu`` repeats it operation for operation."""
-    x, y, z, w = q.unbind(-1)
-    v = (x, y, z)
-    cols = []
-    for i, r in enumerate(((w, z, -y), (-z, w, x), (y, -x, w))):
-        cols.append(tuple(
-            (w * r[j] + v[i] * v[j])
-            + (v[(j + 1) % 3] * r[(j + 2) % 3]
-               - v[(j + 2) % 3] * r[(j + 1) % 3])
-            for j in range(3)))
-    return cols
 
 
 def _camera_dot(d, col):

@@ -13,7 +13,11 @@ Per frame:
      position into each Gaussian once, into the (N+1, 64) table: with
      ``e = origin − μ`` and ``M = Σ⁻¹``, every (pixel, candidate) quadratic
      is ``A = dᵀMd``, ``B = 2dᵀ(Me)``, ``c0 = eᵀMe − 3``; and
-     :func:`_tile_pixel_features` — the (T, P, 24) pixel table;
+     :func:`_tile_pixel_features` — the (T, P, 24) pixel table. On the card
+     each table is one hand-written kernel (``ops/csrc/features.cu``), the
+     feature table only where autograd records nothing; elsewhere the plain
+     chains (:func:`precompute_features_torch`, :func:`pixel_table_torch`),
+     which the kernels equal bit for bit;
   3. :func:`~rtgs_tpu_torch.ops.peel.peel_keys` — per pixel, the K nearest
      (t1, splat id) pairs (the Hopper keys kernel on the card);
   4. :func:`shade_winners_kp` — α and rgb of the K winners, with the
@@ -46,9 +50,11 @@ import torch.utils.checkpoint
 
 from rtgs_tpu_torch import gaussians as G
 from rtgs_tpu_torch.camera import Camera
-from rtgs_tpu_torch.ops.peel import (CHUNK, G_DIM, entry_depth, peel_fused,
-                                     peel_keys, segment_rows)
+from rtgs_tpu_torch.ops._launch import Launcher, check_tensors
+from rtgs_tpu_torch.ops.peel import (CHUNK, F_DIM, G_DIM, entry_depth,
+                                     peel_fused, peel_keys, segment_rows)
 from rtgs_tpu_torch.render.binning import tile_candidates
+from rtgs_tpu_torch.utils import profiling
 from rtgs_tpu_torch.utils import quaternion as quat
 from rtgs_tpu_torch.utils.profiling import span
 
@@ -64,11 +70,19 @@ class TileFeatures:
     opacity: torch.Tensor  # (N+1,)
     color: torch.Tensor    # (N+1, 3)
     sh: torch.Tensor       # (N+1, 15, 3)
+    # The (N+1, 64) table when the kernel wrote it (the other fields but c0
+    # are views of it, and pack_features returns it); None on the chain.
+    packed: torch.Tensor | None = None
 
 
-def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
-    """Fold the camera position into each Gaussian. Σ⁻¹ comes from the
-    direct form R·S⁻²·Rᵀ
+FEATURE_FIELDS = ("m6", "me", "c0", "opacity", "color", "sh")
+
+
+def precompute_features_torch(g: G.Gaussians,
+                              camera: Camera) -> TileFeatures:
+    """Fold the camera position into each Gaussian: the plain chain,
+    differentiable through torch autograd. Σ⁻¹ comes from the direct form
+    R·S⁻²·Rᵀ
     (:func:`~rtgs_tpu_torch.gaussians.inv_covariance_direct6`),
     not from the JAX package's adjugate of the assembled Σ: the two agree to
     ~cond(Σ)·2⁻²⁴ on well-conditioned splats, and on needles and discs only
@@ -97,6 +111,78 @@ def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
         color=sentinel(g.colors, [0.0, 0.0, 0.0]),
         sh=sentinel(g.sh, torch.zeros((15, 3))),
     )
+
+
+_TABLE = Launcher("rtgs_features_table", "feature table")
+_PIXELS = Launcher("rtgs_features_pixels", "pixel table")
+
+
+def feature_table_cuda(g: G.Gaussians, camera: Camera):
+    """The (N+1, 64) table of :func:`pack_features` and the (N+1,) c0 of
+    :class:`TileFeatures` (inf in the sentinel row, where the table holds
+    1e30), from one launch of ``csrc/features.cu``'s table kernel on the
+    current stream: bitwise ``pack_features(precompute_features_torch(g,
+    camera))`` and its ``c0``. No gradient flows through it. Every input
+    must be a CUDA tensor on one device (else ``ValueError``); a failed
+    build or launch raises. ``feature_table_cuda.launches`` counts the
+    calls."""
+    n = g.num
+    f32 = torch.float32
+    ins = (("means", g.means, (n, 3)), ("quats", g.quats, (n, 4)),
+           ("scales", g.scales, (n, 3)), ("colors", g.colors, (n, 3)),
+           ("opacities", g.opacities, (n,)),
+           ("sh", g.sh, (n, G.NUM_SH_COEFFS, 3)),
+           ("position", camera.position, (3,)))
+    specs = [(name, x.detach().contiguous(), f32, shape)
+             for name, x, shape in ins]
+    dev = check_tensors("feature_table_cuda", specs)
+    packed = torch.empty((n + 1, F_DIM), dtype=f32, device=dev)
+    c0 = torch.empty((n + 1,), dtype=f32, device=dev)
+    _TABLE(dev, *(x.data_ptr() for _, x, _, _ in specs), packed.data_ptr(),
+           c0.data_ptr(), n)
+    feature_table_cuda.launches += 1
+    return packed, c0
+
+
+feature_table_cuda.launches = 0
+
+
+def _records_grad(g: G.Gaussians, camera: Camera) -> bool:
+    """Whether autograd would record the table: grad mode on and a field
+    the table reads requiring grad."""
+    return torch.is_grad_enabled() and any(
+        x.requires_grad for x in (g.means, g.quats, g.scales, g.colors,
+                                  g.opacities, g.sh, camera.position))
+
+
+def precompute_features(g: G.Gaussians, camera: Camera) -> TileFeatures:
+    """Fold the camera position into each Gaussian, with one sentinel row.
+
+    On the card, where autograd records nothing (grad mode off, or no field
+    requiring grad), one launch of the table kernel
+    (:func:`feature_table_cuda`) writes the (N+1, 64) table, which the
+    result carries (its fields are views of it, but ``c0``); it launches or
+    raises. Elsewhere the plain chain (:func:`precompute_features_torch`):
+    on the CPU, and on the card while autograd records (the fit's training
+    step), where the chain is the table's differentiable definition, not a
+    fallback. The two give the same bits on the card. A profiled window
+    counts the kernel's tables (``features.kernel_tables``)."""
+    if g.device.type != "cuda" or _records_grad(g, camera):
+        return precompute_features_torch(g, camera)
+    packed, c0 = feature_table_cuda(g, camera)
+    profiling.count("features.kernel_tables", 1)
+    return table_features(packed, c0)
+
+
+def table_features(packed: torch.Tensor, c0: torch.Tensor) -> TileFeatures:
+    """The :class:`TileFeatures` of an (N+1, 64) table (lane map in
+    :mod:`rtgs_tpu_torch.ops.peel`), its fields views of it, and of its
+    (N+1,) ``c0`` with the inf sentinel."""
+    return TileFeatures(
+        m6=packed[:, 0:6], me=packed[:, 6:9], c0=c0, opacity=packed[:, 10],
+        color=packed[:, 11:14],
+        sh=packed[:, 14:59].unflatten(1, (3, 15)).transpose(1, 2),
+        packed=packed)
 
 
 def entry_lower_bound(g: G.Gaussians, camera: Camera,
@@ -206,7 +292,10 @@ def direction_features(dirs: torch.Tensor):
 def pack_features(feats: TileFeatures) -> torch.Tensor:
     """TileFeatures → the (N+1, 64) table (lane map in
     :mod:`rtgs_tpu_torch.ops.peel`). The sentinel's c0 becomes 1e30: finite,
-    so Δ < 0 there with no inf arithmetic."""
+    so Δ < 0 there with no inf arithmetic. A table the kernel wrote is
+    returned as it is, with no copy."""
+    if feats.packed is not None:
+        return feats.packed
     n1 = feats.c0.shape[0]
     sh = feats.sh
     packed = torch.cat([
@@ -218,9 +307,16 @@ def pack_features(feats: TileFeatures) -> torch.Tensor:
     return packed
 
 
-def _tile_pixel_features(camera: Camera, tile, pixel_offset=None):
-    """Per-pixel features arranged (T, P, 24): dir, d-quadratic features,
-    SH basis. ``pixel_offset``: optional (ox, oy) subpixel jitter."""
+def pixel_table_torch(camera: Camera, tile, pixel_offset=None):
+    """The (T, P, 24) pixel table of :func:`_tile_pixel_features`: the
+    plain chain. Written out one elementwise operation at a time, so that
+    the pixel kernel repeats it bit for bit: the pixel centres divided by
+    w and h as f32 tensors (a Python number divides a CUDA tensor as a
+    product with its rounded reciprocal), |d| as a left-to-right sum, and
+    the camera's rotation as its columns
+    (:func:`~rtgs_tpu_torch.utils.quaternion.rotation_columns`) weighted
+    one product at a time, where a library norm, sum or cross product may
+    fuse or reorder."""
     w, h = camera.buf_size
     tw, th = tile
     ntx, nty = -(-w // tw), -(-h // th)
@@ -228,19 +324,61 @@ def _tile_pixel_features(camera: Camera, tile, pixel_offset=None):
     censor = torch.tensor((w, h), dtype=torch.float32, device=dev)
     ox, oy = (0.0, 0.0) if pixel_offset is None else pixel_offset
     i = (torch.arange(ntx * tw, dtype=torch.float32, device=dev)
-         + 0.5 + ox) / w
+         + 0.5 + ox) / censor[0]
     j = (torch.arange(nty * th, dtype=torch.float32, device=dev)
-         + 0.5 + oy) / h
+         + 0.5 + oy) / censor[1]
     uv = torch.stack(torch.meshgrid(i, j, indexing="ij"), dim=-1)
     pxy = (censor * uv - 0.5 * censor) / camera.focal_length
-    d_cam = torch.cat([pxy, -torch.ones_like(pxy[..., :1])], dim=-1)
-    d_cam = d_cam / torch.linalg.norm(d_cam, dim=-1, keepdim=True)
-    dirs = quat.rot_vec3(camera.rotation, d_cam)  # (W', H', 3)
+    px, py = pxy[..., 0], pxy[..., 1]
+    norm = torch.sqrt((px * px + py * py) + 1.0)
+    d = (px / norm, py / norm, -1.0 / norm)
+    cols = quat.rotation_columns(camera.rotation)
+    dirs = torch.stack([(d[0] * cols[0][k] + d[1] * cols[1][k])
+                        + d[2] * cols[2][k] for k in range(3)],
+                       dim=-1)                        # (W', H', 3)
     fd, y = direction_features(dirs)
     pix = torch.cat([dirs, fd, y], dim=-1)
     return (pix.reshape(ntx, tw, nty, th, G_DIM)
             .permute(0, 2, 1, 3, 4)
             .reshape(ntx * nty, tw * th, G_DIM))
+
+
+def pixel_table_cuda(camera: Camera, tile, pixel_offset=None):
+    """The (T, P, 24) pixel table from one launch of ``csrc/features.cu``'s
+    pixel kernel on the current stream: bitwise :func:`pixel_table_torch`.
+    The camera's tensors must be on a CUDA device (else ``ValueError``); a
+    failed build or launch raises. ``pixel_table_cuda.launches`` counts the
+    calls."""
+    w, h = camera.buf_size
+    tw, th = tile
+    ntx, nty = -(-w // tw), -(-h // th)
+    f32 = torch.float32
+    specs = [("rotation", camera.rotation.detach().contiguous(), f32, (4,)),
+             ("focal_length", camera.focal_length.detach().contiguous(), f32,
+              (2,))]
+    dev = check_tensors("pixel_table_cuda", specs)
+    ox, oy = (0.0, 0.0) if pixel_offset is None else pixel_offset
+    pix = torch.empty((ntx * nty, tw * th, G_DIM), dtype=f32, device=dev)
+    _PIXELS(dev, specs[0][1].data_ptr(), specs[1][1].data_ptr(),
+            pix.data_ptr(), w, h, tw, th, nty, ntx * nty * tw * th,
+            float(ox), float(oy))
+    pixel_table_cuda.launches += 1
+    return pix
+
+
+pixel_table_cuda.launches = 0
+
+
+def _tile_pixel_features(camera: Camera, tile, pixel_offset=None):
+    """Per-pixel features arranged (T, P, 24): dir, d-quadratic features,
+    SH basis, padding past the image edge included. ``pixel_offset``:
+    optional (ox, oy) subpixel jitter. On the card the pixel kernel
+    (:func:`pixel_table_cuda`, which launches or raises; no input of the
+    table ever requires grad), on the CPU the plain chain
+    (:func:`pixel_table_torch`)."""
+    if camera.device.type == "cuda":
+        return pixel_table_cuda(camera, tile, pixel_offset)
+    return pixel_table_torch(camera, tile, pixel_offset)
 
 
 def _shade_chain(rows: torch.Tensor, pixq):
@@ -668,8 +806,7 @@ def render_tiled(
     if tile_chunk is None:
         tile_chunk = max(1, min(t, (1 << 24) // (tw * th * max(c2, 1))))
     grad = torch.is_grad_enabled() and any(
-        getattr(feats, f.name).requires_grad
-        for f in dataclasses.fields(feats))
+        getattr(feats, f).requires_grad for f in FEATURE_FIELDS)
     rads = []
     for s in range(0, t, tile_chunk):
         args = (feats, depth, cand[s:s + tile_chunk], dirs[s:s + tile_chunk])

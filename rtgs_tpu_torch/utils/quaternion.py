@@ -59,6 +59,27 @@ def rot_vec3(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return mul(q, mul(qv, conj(q)))[..., :3]
 
 
+def rotation_columns(q: torch.Tensor):
+    """The rotated basis vectors q eᵢ q* of (…, 4) quaternions, as
+    ``cols[i][j]``: component j of column i, each a (…) tensor.
+    :func:`rot_vec3`'s Hamilton products with their exact steps folded (q's
+    own components and their negations), then ``(w·rⱼ + qᵢ·qⱼ) + (q_a·r_b −
+    q_b·r_a)``, (a, b) = (j+1, j+2) mod 3, in that order, one elementwise
+    operation at a time: the CUDA kernels (``binning.cu``, ``features.cu``)
+    repeat it operation for operation, where a library's cross product or
+    sum may fuse or reorder."""
+    x, y, z, w = q.unbind(-1)
+    v = (x, y, z)
+    cols = []
+    for i, r in enumerate(((w, z, -y), (-z, w, x), (y, -x, w))):
+        cols.append(tuple(
+            (w * r[j] + v[i] * v[j])
+            + (v[(j + 1) % 3] * r[(j + 2) % 3]
+               - v[(j + 2) % 3] * r[(j + 1) % 3])
+            for j in range(3)))
+    return cols
+
+
 def as_rotation_mat3(q: torch.Tensor) -> torch.Tensor:
     """Quaternion → (..., 3, 3) rotation matrix with columns ``q eᵢ q*``
     (the rotated basis vectors)."""
